@@ -1,0 +1,31 @@
+"""slate_tpu_torch — the PyTorch / CUDA port of ``slate_tpu``.
+
+A second package beside the JAX one (``slate_tpu/``, the reference),
+ported slice by slice for one NVIDIA H100. Module paths mirror the JAX
+package; each module's docstring names its counterpart. This slice
+holds the dense partial-pivot LU solve (getrf / getrs / gesv) and the
+two hand-written kernels on its path (``ops/kernels.py``).
+
+Entry points that create data put it on the CUDA card unless the
+caller passes ``device="cpu"``; without a card they raise.
+"""
+
+import torch
+
+# The reference computes every f32 product at Precision.HIGHEST (full
+# f32). TF32 keeps about three decimal digits, so it is switched off
+# for matmuls and for cuDNN alike.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .core import (Diag, DimensionError, HermitianMatrix, Matrix,  # noqa: E402,F401
+                   MatrixType, MethodFactor, MethodLU, MethodLUPanel, Op,
+                   Option, Side, SlateError, SymmetricMatrix, TiledMatrix,
+                   TriangularMatrix, Uplo)
+from .interop import from_jax_state  # noqa: E402,F401
+from .linalg import (LUFactors, apply_pivots, gemm, gesv, getrf,  # noqa: E402,F401
+                     getrs, trsm)
+from .utils import Timers  # noqa: E402,F401
+from . import obs, ops, tune  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,21 @@
+"""Exceptions (counterpart of ``slate_tpu/core/exceptions.py``)."""
+
+from __future__ import annotations
+
+
+class SlateError(Exception):
+    """Base error for slate_tpu_torch (reference slate::Exception)."""
+
+
+class DimensionError(SlateError):
+    """Shape / conformability violation."""
+
+
+class OptionError(SlateError):
+    """Bad option key or value."""
+
+
+def slate_assert(cond: bool, msg: str = "") -> None:
+    """Reference slate_assert macro (Exception.hh)."""
+    if not cond:
+        raise SlateError(msg or "assertion failed")

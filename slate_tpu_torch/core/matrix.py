@@ -1,0 +1,63 @@
+"""Matrix constructors (counterpart of ``slate_tpu/core/matrix.py``).
+
+Each returns a TiledMatrix tagged with the right MatrixType. Data goes
+to `device`: the CUDA card unless the caller names another.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..utils.backend import DeviceLike
+from .enums import Diag, MatrixType, Uplo
+from .exceptions import DimensionError
+from .tiles import TiledMatrix
+
+
+def Matrix(a=None, *, m: int = 0, n: int = 0, mb: int = 256,
+           nb: Optional[int] = None, dtype=torch.float32,
+           device: DeviceLike = None) -> TiledMatrix:
+    """General m x n matrix (reference Matrix.hh:26)."""
+    if a is not None:
+        return TiledMatrix.from_dense(a, mb, nb, device=device)
+    return TiledMatrix.zeros(m, n, mb, nb, dtype, device=device)
+
+
+def _structured(a, n, mb, nb, dtype, mtype, uplo, diag, device
+                ) -> TiledMatrix:
+    if a is not None:
+        t = TiledMatrix.from_dense(a, mb, nb, mtype=mtype, uplo=uplo,
+                                   diag=diag, device=device)
+    else:
+        t = TiledMatrix.zeros(n, n, mb, nb, dtype, device=device,
+                              mtype=mtype, uplo=uplo, diag=diag)
+    if t.m != t.n:
+        raise DimensionError(f"{mtype.name} matrix must be square, "
+                             f"got {t.m}x{t.n}")
+    return t
+
+
+def TriangularMatrix(uplo: Uplo, a=None, *, n=0, mb=256, nb=None,
+                     diag=Diag.NonUnit, dtype=torch.float32,
+                     device: DeviceLike = None) -> TiledMatrix:
+    """Reference TriangularMatrix.hh:30."""
+    return _structured(a, n, mb, nb, dtype, MatrixType.Triangular, uplo,
+                       diag, device)
+
+
+def SymmetricMatrix(uplo: Uplo, a=None, *, n=0, mb=256, nb=None,
+                    dtype=torch.float32,
+                    device: DeviceLike = None) -> TiledMatrix:
+    """Reference SymmetricMatrix.hh:26."""
+    return _structured(a, n, mb, nb, dtype, MatrixType.Symmetric, uplo,
+                       Diag.NonUnit, device)
+
+
+def HermitianMatrix(uplo: Uplo, a=None, *, n=0, mb=256, nb=None,
+                    dtype=torch.float32,
+                    device: DeviceLike = None) -> TiledMatrix:
+    """Reference HermitianMatrix.hh:26."""
+    return _structured(a, n, mb, nb, dtype, MatrixType.Hermitian, uplo,
+                       Diag.NonUnit, device)

@@ -1,0 +1,120 @@
+"""Algorithm-variant selection (counterpart of
+``slate_tpu/core/methods.py``), reduced to the LU slice: MethodLU,
+MethodFactor, MethodLUPanel and the shared height-cap rule.
+
+"Native" here means ``torch.linalg.lu_factor`` (LAPACK on the CPU,
+cuSOLVER on the card) where the reference means XLA's LU custom call.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+
+class MethodLU(enum.Enum):
+    """Reference method.hh:281: partial-pivot / tournament / no-pivot."""
+    Auto = "auto"
+    PartialPiv = "PPLU"
+    CALU = "CALU"
+    NoPiv = "NoPiv"
+    BEAM = "BEAM"
+
+
+def vmem_height_cap(base_m: int, dtype) -> int:
+    """Itemsize-proportional height/element cap of the recursive panel
+    kernel, the same rule as the reference (whose scalar recurrences
+    stay f32 whatever the panel dtype): sub-f32 dtypes SHRINK the cap,
+    wider dtypes clamp at the f32 cap. Kept with the reference's
+    numbers so both packages split panels at the same points."""
+    return base_m * min(_itemsize(dtype), 4) // 4
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).element_size()
+    import numpy as np
+    return np.dtype(dtype).itemsize
+
+
+def _dtype_name(dtype) -> str:
+    from ..tune.cache import dtype_name
+    return dtype_name(dtype)
+
+
+class MethodFactor(enum.Enum):
+    """Execution path for the dense factorizations: ``Fused`` hands
+    the whole factorization to the library call, ``Tiled`` runs the
+    blocked algorithm (the single-device Auto choice for getrf)."""
+    Auto = "auto"
+    Fused = "fused"
+    Tiled = "tiled"
+
+    @staticmethod
+    def native_lu_dtype_ok(dtype) -> bool:
+        """The dtypes ``torch.linalg.lu_factor`` takes: f32/f64/c64/
+        c128, as the reference's native LU."""
+        return _dtype_name(dtype) in ("float32", "float64", "complex64",
+                                      "complex128")
+
+    @staticmethod
+    def native_lu_ok(dtype, m: int) -> bool:
+        """dtype support only: the reference's TPU height limit
+        (NATIVE_LU_MAX_M, a scoped-VMEM compile limit of XLA's LU
+        custom call) has no counterpart on CUDA or the CPU, so `m` is
+        not capped here."""
+        return MethodFactor.native_lu_dtype_ok(dtype)
+
+
+class MethodLUPanel(enum.Enum):
+    """Execution route for ONE LU panel factorization (lu._lu_panel):
+
+      * ``Native``: ``torch.linalg.lu_factor`` on the panel;
+      * ``PallasRec``: the block-recursive hand kernel
+        (ops/kernels.lu_panel_rec), the port of the reference's Pallas
+        route of the same name;
+      * ``Pallas``: the reference's rank-1 Pallas panel; not ported
+        yet (the bf16 slice), so the port never resolves to it cold;
+      * ``Fori``: the plain column loop (lu.lu_panel_fori).
+
+    ``Auto`` resolves via the tune cache (a MEASURED
+    ``method_lu_panel`` entry per (op, size, dtype) bucket), falling
+    back to ``cold_default``."""
+    Auto = "auto"
+    Native = "native"
+    Fori = "fori"
+    Pallas = "pallas"
+    PallasRec = "pallas_rec"
+
+    @staticmethod
+    def cold_default(m: int, w: int, dtype) -> "MethodLUPanel":
+        """The frozen chain: native where the dtype allows, else the
+        fori loop. The reference's middle rung (its rank-1 Pallas
+        panel, eligible only on a TPU) is absent until that kernel is
+        ported."""
+        if MethodFactor.native_lu_ok(dtype, m):
+            return MethodLUPanel.Native
+        return MethodLUPanel.Fori
+
+    @staticmethod
+    def resolve(m: int, w: int, dtype) -> "MethodLUPanel":
+        """Measured cache entry (validated against the hard gates),
+        else cold_default."""
+        from ..tune.select import tuned_method
+        cached = tuned_method("lu_panel", "lu_panel", n=m, dtype=dtype)
+        if cached is MethodLUPanel.Native \
+                and not MethodFactor.native_lu_ok(dtype, m):
+            cached = None
+        if cached is not None and cached is not MethodLUPanel.Auto:
+            return cached
+        return MethodLUPanel.cold_default(m, w, dtype)
+
+
+def str2method(family: str, s: str):
+    fam = {"lu": MethodLU, "factor": MethodFactor,
+           "lu_panel": MethodLUPanel}[family]
+    for mem in fam:
+        if mem.value.lower() == s.lower() or mem.name.lower() == s.lower():
+            return mem
+    raise KeyError(f"unknown {family} method {s!r}")

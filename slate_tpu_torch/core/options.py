@@ -1,0 +1,78 @@
+"""Options handling (counterpart of ``slate_tpu/core/options.py``).
+
+Options are a plain dict keyed by :class:`Option` (or str aliases),
+read through :func:`get_option` with typed defaults.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional, Union
+
+from .enums import Option, Target
+
+OptionsLike = Optional[Mapping[Union[Option, str], Any]]
+
+# String aliases so pythonic call sites can write opts={"nb": 512}.
+_STR_ALIASES = {
+    "lookahead": Option.Lookahead,
+    "block_size": Option.BlockSize,
+    "nb": Option.BlockSize,
+    "inner_blocking": Option.InnerBlocking,
+    "ib": Option.InnerBlocking,
+    "max_panel_threads": Option.MaxPanelThreads,
+    "tolerance": Option.Tolerance,
+    "tol": Option.Tolerance,
+    "max_iterations": Option.MaxIterations,
+    "itermax": Option.MaxIterations,
+    "use_fallback_solver": Option.UseFallbackSolver,
+    "pivot_threshold": Option.PivotThreshold,
+    "target": Option.Target,
+    "depth": Option.Depth,
+    "method_lu": Option.MethodLU,
+    "method_gels": Option.MethodGels,
+    "method_gemm": Option.MethodGemm,
+    "method_hemm": Option.MethodHemm,
+    "method_trsm": Option.MethodTrsm,
+    "method_cholqr": Option.MethodCholQR,
+    "method_eig": Option.MethodEig,
+    "method_svd": Option.MethodSVD,
+    "tune": Option.Tune,
+}
+
+_DEFAULTS = {
+    Option.Lookahead: 1,
+    Option.BlockSize: 256,
+    Option.InnerBlocking: 128,
+    Option.MaxPanelThreads: 1,
+    Option.Tolerance: None,       # routine-specific
+    Option.MaxIterations: 30,
+    Option.UseFallbackSolver: True,
+    Option.PivotThreshold: 1.0,
+    Option.Target: Target.Devices,
+    Option.Depth: 2,
+    Option.Tune: True,
+}
+
+
+def get_option(opts: OptionsLike, key: Option, default: Any = None) -> Any:
+    """Reference get_option<T> (types.hh): the requested key or one of
+    its string aliases, else `default`, else the registry default."""
+    if opts:
+        if key in opts:
+            return opts[key]
+        for s, k in _STR_ALIASES.items():
+            if k is key and s in opts:
+                return opts[s]
+    if default is not None:
+        return default
+    return _DEFAULTS.get(key)
+
+
+def has_option(opts: OptionsLike, key: Option) -> bool:
+    """True iff the caller EXPLICITLY passed `key` (directly or via a
+    string alias): tuning never overrides a user choice."""
+    if not opts:
+        return False
+    if key in opts:
+        return True
+    return any(k is key and s in opts for s, k in _STR_ALIASES.items())

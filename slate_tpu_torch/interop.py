@@ -1,0 +1,73 @@
+"""Carrying state over from the JAX package (no counterpart there).
+
+:func:`from_jax_state` takes only numpy arrays and plain metadata, so
+the port never imports JAX: the caller does the ``np.asarray`` on the
+JAX side. The metadata of a matrix are the TiledMatrix fields
+``m, n, mb, nb`` and, optionally, ``mtype, uplo, op, diag`` (enum
+names or values, which the two packages share) and ``kl, ku``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from .core.enums import Diag, MatrixType, Op, Uplo
+from .core.exceptions import SlateError
+from .core.tiles import TiledMatrix
+from .linalg.lu import LUFactors
+from .utils.backend import DeviceLike, resolve_device
+
+_ENUMS = {"mtype": MatrixType, "uplo": Uplo, "op": Op, "diag": Diag}
+
+
+def _enum(cls, v):
+    if isinstance(v, cls):
+        return v
+    for mem in cls:
+        if v in (mem.name, mem.value):
+            return mem
+    raise SlateError(f"from_jax_state: unknown {cls.__name__} {v!r}")
+
+
+def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
+            ) -> TiledMatrix:
+    if meta.get("rb") is not None or meta.get("cb") is not None:
+        raise SlateError("from_jax_state: non-uniform tiles are not "
+                         "ported")
+    kw = {k: _enum(cls, meta[k]) for k, cls in _ENUMS.items() if k in meta}
+    for k in ("kl", "ku"):
+        if k in meta:
+            kw[k] = int(meta[k])
+    t = torch.tensor(np.asarray(data), device=device)
+    return TiledMatrix(data=t, m=int(meta["m"]), n=int(meta["n"]),
+                       mb=int(meta["mb"]), nb=int(meta["nb"]), **kw)
+
+
+def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
+                   device: DeviceLike = None
+                   ) -> Union[TiledMatrix, LUFactors]:
+    """Turn a JAX ``TiledMatrix`` or ``LUFactors``, given as numpy,
+    into the port's counterpart on `device` (CUDA unless named):
+
+      * ``arrays={"data": A.data}`` + the matrix metadata -> TiledMatrix;
+      * ``arrays={"LU": F.LU.data, "pivots": F.pivots[, "info": F.info]}``
+        + the metadata of ``F.LU`` -> LUFactors. Band factors
+        (``meta["band"]`` true) are not ported and raise.
+
+    The padded storage is taken as it is, padding included."""
+    dev = resolve_device(device)
+    if "LU" in arrays:
+        if meta.get("band", False):
+            raise SlateError("from_jax_state: band LU factors (gbtrf) are "
+                             "not ported")
+        info = arrays.get("info")
+        return LUFactors(
+            _matrix(arrays["LU"], meta, dev),
+            torch.tensor(np.asarray(arrays["pivots"], np.int32),
+                         device=dev),
+            None if info is None else torch.tensor(
+                np.asarray(info, np.int32), device=dev))
+    return _matrix(arrays["data"], meta, dev)

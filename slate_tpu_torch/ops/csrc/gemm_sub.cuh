@@ -1,0 +1,96 @@
+// Shared-memory-tiled f32 GEMM-with-subtract: D = C - A * B.
+//
+// The product step of both ported LU kernels: the masked rank-w/2
+// update inside the recursive panel (lu_panel_rec.cu) and the
+// row-gridded trailing update of the tall-panel split
+// (rank_update.cu). All operands are row-major strided views; D may
+// alias C (each element is read and then written by the same thread),
+// and A and B must not overlap D.
+//
+// Bound on an H100: f32 CUDA-core FLOPs (TF32 is off, and wgmma has no
+// f32 inputs). Design: 64x64 output tiles, 16-deep K slabs staged in
+// shared memory, 256 threads each accumulating a 4x4 register block
+// with fmaf; rows/columns strided by 16 so the shared-memory reads are
+// conflict-free broadcasts. Ragged edges are masked with zero fill, so
+// any M, N, K is taken. Not tuned: no double buffering, no cp.async.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace slate_torch {
+
+constexpr int GS_BM = 64;
+constexpr int GS_BN = 64;
+constexpr int GS_BK = 16;
+constexpr int GS_THREADS = 256;
+
+__global__ void __launch_bounds__(GS_THREADS)
+gemm_sub_kernel(const float* C, long ldc,
+                const float* __restrict__ A, long lda,
+                const float* __restrict__ B, long ldb,
+                float* D, long ldd, int M, int N, int K) {
+    __shared__ float As[GS_BK][GS_BM + 4];   // A tile, k-major
+    __shared__ float Bs[GS_BK][GS_BN + 4];
+    const int tid = threadIdx.x;
+    const int tx = tid % 16, ty = tid / 16;
+    const int row0 = blockIdx.y * GS_BM, col0 = blockIdx.x * GS_BN;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += GS_BK) {
+        for (int e = tid; e < GS_BM * GS_BK; e += GS_THREADS) {
+            const int r = e / GS_BK, c = e % GS_BK;
+            const int gr = row0 + r, gc = k0 + c;
+            As[c][r] = (gr < M && gc < K) ? A[(long)gr * lda + gc] : 0.f;
+        }
+        for (int e = tid; e < GS_BK * GS_BN; e += GS_THREADS) {
+            const int r = e / GS_BN, c = e % GS_BN;
+            const int gr = k0 + r, gc = col0 + c;
+            Bs[r][c] = (gr < K && gc < N) ? B[(long)gr * ldb + gc] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < GS_BK; ++kk) {
+            float a[4], b[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = row0 + ty + 16 * i;
+        if (r >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int c = col0 + tx + 16 * j;
+            if (c < N)
+                D[(long)r * ldd + c] = C[(long)r * ldc + c] - acc[i][j];
+        }
+    }
+}
+
+// Launch D = C - A B on `stream`; returns cudaGetLastError().
+inline int launch_gemm_sub(const float* C, long ldc, const float* A,
+                           long lda, const float* B, long ldb, float* D,
+                           long ldd, int M, int N, int K,
+                           cudaStream_t stream) {
+    if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+    dim3 grid((N + GS_BN - 1) / GS_BN, (M + GS_BM - 1) / GS_BM);
+    gemm_sub_kernel<<<grid, GS_THREADS, 0, stream>>>(
+        C, ldc, A, lda, B, ldb, D, ldd, M, N, K);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace slate_torch

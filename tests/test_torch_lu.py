@@ -1,0 +1,293 @@
+"""slate_tpu_torch getrf / getrs / gesv against the JAX package on the
+CPU, on both panel routes: the cold route (library LU panels) and the
+route a measured ``method_lu_panel = "pallas_rec"`` tune entry selects
+(the recursive panel kernel: plain versions on the port side, the
+Pallas interpreter on the JAX side). Plus from_jax_state round trips
+and the unported branches' errors."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import slate_tpu as jst
+from slate_tpu.core.methods import MethodFactor as JMethodFactor
+from slate_tpu.tune import cache as jcache
+
+import slate_tpu_torch as st
+from slate_tpu_torch.linalg import lu as tlu
+from slate_tpu_torch.ops import kernels as pk
+from slate_tpu_torch.testing import permuted_boosted_system
+from slate_tpu_torch.tune import cache as tcache
+
+N, NB, NRHS = 512, 128, 8
+ROUTES = ("cold", "pallas_rec")
+
+
+def _meta(M):
+    """The metadata from_jax_state takes, read off a JAX TiledMatrix."""
+    return {"m": M.m, "n": M.n, "mb": M.mb, "nb": M.nb,
+            "mtype": M.mtype.name, "uplo": M.uplo.name, "op": M.op.name,
+            "diag": M.diag.name, "kl": M.kl, "ku": M.ku}
+
+
+def _route(route, monkeypatch, tmp_path):
+    """Point both packages at fresh tune caches; for "pallas_rec", put
+    the measured route into both for every panel-height bucket."""
+    monkeypatch.setenv("SLATE_TPU_TORCH_TUNE_CACHE", str(tmp_path / "t"))
+    monkeypatch.setenv("SLATE_TPU_TUNE_CACHE", str(tmp_path / "j"))
+    tcache.reset_cache()
+    jcache.reset_cache()
+    if route == "pallas_rec":
+        for n in (128, 256, 512):
+            tcache.get_cache().put("lu_panel", torch.float32, n,
+                                   {"method_lu_panel": "pallas_rec"})
+            jcache.get_cache().put("lu_panel", np.float32, n,
+                                   {"method_lu_panel": "pallas_rec"})
+
+
+@pytest.fixture(scope="module")
+def system():
+    return permuted_boosted_system(np.random.default_rng(1), N, NRHS)
+
+
+@pytest.fixture(scope="module")
+def jax_results(system, tmp_path_factory):
+    """JAX gesv on both routes, computed once."""
+    a, b = system
+    out = {}
+    mp = pytest.MonkeyPatch()
+    try:
+        for route in ROUTES:
+            _route(route, mp, tmp_path_factory.mktemp(route))
+            F, X = jst.gesv(jst.Matrix(a, mb=NB), jst.Matrix(b, mb=NB),
+                            {jst.Option.BlockSize: NB})
+            out[route] = (F, np.asarray(F.LU.data), np.asarray(F.pivots),
+                          int(F.info), X.to_numpy())
+    finally:
+        mp.undo()
+        tcache.reset_cache()
+        jcache.reset_cache()
+    return out
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_gesv_matches_jax(system, jax_results, route, monkeypatch,
+                          tmp_path):
+    a, b = system
+    _route(route, monkeypatch, tmp_path)
+    calls = []
+    orig = pk.lu_panel_rec
+    monkeypatch.setattr(pk, "lu_panel_rec",
+                        lambda x, **k: calls.append(tuple(x.shape))
+                        or orig(x, **k))
+    F, X = st.gesv(st.Matrix(a, mb=NB, device="cpu"),
+                   st.Matrix(b, mb=NB, device="cpu"),
+                   {st.Option.BlockSize: NB})
+    _, jlu, jpiv, jinfo, jx = jax_results[route]
+    # every panel went through the route the tune cache chose
+    assert calls == ([] if route == "cold" else
+                     [(N - k * NB, NB) for k in range(N // NB)])
+    # the permuted boosted matrix forces every pivot: bitwise
+    assert np.array_equal(F.pivots.numpy(), jpiv)
+    assert int(F.info) == jinfo == 0
+    # f32 factors of an O(1)-conditioned matrix through differently
+    # ordered (but equally blocked) updates: 1e-4 relative to the
+    # factor's scale (|U| ~ 2 sqrt(n) = 45)
+    lu = F.LU.data.numpy()
+    assert np.abs(lu - jlu).max() <= 1e-4 * np.abs(jlu).max()
+    # the solve: cond(A) = O(1), so forward errors of both routes are
+    # a few f32 ulps; 1e-4 relative leaves room for the f32 sums
+    x = X.to_numpy()
+    assert np.linalg.norm(x - jx) <= 1e-4 * np.linalg.norm(jx)
+    assert np.linalg.norm(a @ x - b) <= 1e-5 * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("trans", [st.Op.Trans, st.Op.ConjTrans, True])
+def test_getrs_transposed_matches_jax(system, jax_results, trans):
+    """Port getrs on the JAX factors (carried over with from_jax_state)
+    against JAX getrs: the same factors, so only the two triangular
+    solves' rounding differs (1e-5 relative)."""
+    a, b = system
+    JF = jax_results["cold"][0]
+    jtrans = trans if trans is True else jst.Op[trans.name]
+    jx = jst.getrs(JF, jst.Matrix(b, mb=NB), trans=jtrans).to_numpy()
+    F = st.from_jax_state({"LU": np.asarray(JF.LU.data),
+                           "pivots": np.asarray(JF.pivots),
+                           "info": np.asarray(JF.info)},
+                          _meta(JF.LU), device="cpu")
+    x = st.getrs(F, st.Matrix(b, mb=NB, device="cpu"),
+                 trans=trans).to_numpy()
+    assert np.linalg.norm(x - jx) <= 1e-5 * np.linalg.norm(jx)
+    assert np.linalg.norm(a.T @ x - b) <= 1e-5 * np.linalg.norm(b)
+
+
+def test_from_jax_state_round_trip(system, jax_results):
+    """numpy out of the JAX objects, into the port, and back: every
+    array bitwise, every field equal."""
+    a, _ = system
+    JA = jst.TriangularMatrix(jst.Uplo.Lower, a[:100, :100], mb=32,
+                              diag=jst.Diag.Unit).T
+    T = st.from_jax_state({"data": np.asarray(JA.data)}, _meta(JA),
+                          device="cpu")
+    assert np.array_equal(T.data.numpy(), np.asarray(JA.data))
+    assert _meta(T) == _meta(JA)
+    assert np.array_equal(T.to_numpy(), np.asarray(JA.to_dense()))
+    JF, jlu, jpiv, jinfo, _ = jax_results["pallas_rec"]
+    F = st.from_jax_state({"LU": jlu, "pivots": jpiv,
+                           "info": np.asarray(JF.info)}, _meta(JF.LU),
+                          device="cpu")
+    assert isinstance(F, st.LUFactors)
+    assert np.array_equal(F.LU.data.numpy(), jlu)
+    assert np.array_equal(F.pivots.numpy(), jpiv)
+    assert F.pivots.dtype == torch.int32 and int(F.info) == jinfo
+    assert _meta(F.LU) == _meta(JF.LU)
+    with pytest.raises(st.SlateError, match="band"):
+        st.from_jax_state({"LU": jlu, "pivots": jpiv},
+                          dict(_meta(JF.LU), band=True), device="cpu")
+
+
+def test_getrf_rectangular_and_ragged_tiles_match_jax():
+    """m != n and a size that is not a tile multiple: the identity
+    padding of the diagonal and the carry form's rectangular
+    assembly."""
+    rng = np.random.default_rng(2)
+    a, _ = permuted_boosted_system(rng, 300, 1)
+    a = a[:, :200]
+    JF = jst.getrf(jst.Matrix(a, mb=64), {jst.Option.BlockSize: 64})
+    F = st.getrf(st.Matrix(a, mb=64, device="cpu"),
+                 {st.Option.BlockSize: 64})
+    assert np.array_equal(F.pivots.numpy(), np.asarray(JF.pivots))
+    jlu = np.asarray(JF.LU.data)
+    # as in test_gesv_matches_jax
+    assert np.abs(F.LU.data.numpy() - jlu).max() \
+        <= 1e-4 * np.abs(jlu).max()
+
+
+def test_getrf_single_block_and_fused_match_jax(system):
+    """nt == 1 (the unrolled loop) and MethodFactor.Fused (one library
+    LU): pivots bitwise, factors as above."""
+    a, _ = system
+    for opts in ({"nb": 1024}, {st.Option.MethodFactor:
+                                st.MethodFactor.Fused}):
+        jopts = {jst.Option.BlockSize: 1024} if "nb" in opts else \
+            {jst.Option.MethodFactor: JMethodFactor.Fused}
+        JF = jst.getrf(jst.Matrix(a, mb=NB), jopts)
+        F = st.getrf(st.Matrix(a, mb=NB, device="cpu"), opts)
+        jlu = np.asarray(JF.LU.data)
+        assert np.array_equal(F.pivots.numpy(), np.asarray(JF.pivots))
+        assert np.abs(F.LU.data.numpy() - jlu).max() \
+            <= 1e-4 * np.abs(jlu).max()
+
+
+def test_singular_info_matches_jax():
+    # an exactly zero column: U(k,k) == 0 at the same k in both
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((256, 256)).astype(np.float32)
+    a[:, 77] = 0.0
+    JF = jst.getrf(jst.Matrix(a, mb=64), {jst.Option.BlockSize: 64})
+    F = st.getrf(st.Matrix(a, mb=64, device="cpu"),
+                 {st.Option.BlockSize: 64})
+    assert int(F.info) == int(JF.info) == 78
+
+
+def test_native_panel_pivots_match_xla(system):
+    """The cold panel: torch.linalg.lu_factor's 1-based pivots become
+    the 0-based swap targets of jax.lax.linalg.lu."""
+    import jax
+    a, _ = system
+    panel = a[:, :64]
+    jl, jp, _ = jax.lax.linalg.lu(jnp.asarray(panel))
+    lu, piv = tlu._native_lu(torch.as_tensor(panel))
+    assert piv.dtype == torch.int32
+    assert np.array_equal(piv.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(lu.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("opts,match", [
+    ({st.Option.MethodLU: st.MethodLU.CALU}, "getrf_tntpiv"),
+    ({st.Option.MethodLU: st.MethodLU.NoPiv}, "getrf_nopiv"),
+    ({st.Option.Grid: object()}, "grid"),
+    ({"nb": 8}, "scan form"),
+])
+def test_unported_branches_raise(opts, match):
+    """Branches of the reference this slice does not port raise,
+    naming what is missing, instead of taking another route."""
+    a = np.eye(1024, dtype=np.float32)
+    with pytest.raises(NotImplementedError, match=match):
+        st.getrf(st.Matrix(a, mb=128, device="cpu"), opts)
+
+
+def test_pipelined_form_raises_for_non_native_dtype():
+    a = torch.eye(256, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="pipelined"):
+        st.getrf(st.Matrix(a, mb=64, device="cpu"), {"nb": 64})
+
+
+# -- BLAS-3 and blocked pieces the solve uses -------------------------------
+
+@pytest.mark.parametrize("lower,unit", [(True, True), (True, False),
+                                        (False, False), (False, True)])
+def test_invert_triangular_matches_jax(lower, unit):
+    """Leaf (<= 512) and the recursive halves above it; a diagonally
+    dominant triangle keeps the inverse O(1), so 1e-5 relative is f32
+    rounding of the substitutions."""
+    from slate_tpu.linalg.blocked import invert_triangular as jinv
+    from slate_tpu_torch.linalg.blocked import invert_triangular
+    n = 640 if unit else 200
+    rng = np.random.default_rng(n + lower)
+    a = (rng.standard_normal((n, n)) / n + 2 * np.eye(n)).astype(np.float32)
+    a = np.tril(a) if lower else np.triu(a)
+    ref = np.asarray(jinv(jnp.asarray(a), lower, unit))
+    out = invert_triangular(torch.as_tensor(a), lower, unit).numpy()
+    assert np.linalg.norm(out - ref) <= 1e-5 * np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("side,uplo", [("Left", "Upper"), ("Right", "Lower"),
+                                       ("Right", "Upper")])
+def test_trsm_matches_jax(side, uplo):
+    # a well-conditioned triangle: f32 solves agree to 1e-5 relative
+    rng = np.random.default_rng(9)
+    n, k = 96, 40
+    a = (rng.standard_normal((n, n)) / n + 2 * np.eye(n)).astype(np.float32)
+    b = rng.standard_normal((n, k) if side == "Left" else (k, n)) \
+        .astype(np.float32)
+    JA = jst.TriangularMatrix(jst.Uplo[uplo], a, mb=32)
+    ref = jst.trsm(jst.Side[side], 2.0, JA, jst.Matrix(b, mb=32)).to_numpy()
+    A = st.TriangularMatrix(st.Uplo[uplo], a, mb=32, device="cpu")
+    out = st.trsm(st.Side[side], 2.0, A,
+                  st.Matrix(b, mb=32, device="cpu")).to_numpy()
+    assert np.linalg.norm(out - ref) <= 1e-5 * np.linalg.norm(ref)
+
+
+def test_gemm_matches_jax():
+    # O(1) entries, sums of 70 products: 1e-5 relative is f32 rounding
+    rng = np.random.default_rng(10)
+    a, b, c = (rng.standard_normal(s).astype(np.float32)
+               for s in ((50, 70), (50, 30), (70, 30)))
+    ref = jst.gemm(1.5, jst.Matrix(a, mb=16).T, jst.Matrix(b, mb=16), -0.5,
+                   jst.Matrix(c, mb=16)).to_numpy()
+    out = st.gemm(1.5, st.Matrix(a, mb=16, device="cpu").T,
+                  st.Matrix(b, mb=16, device="cpu"), -0.5,
+                  st.Matrix(c, mb=16, device="cpu")).to_numpy()
+    assert np.linalg.norm(out - ref) <= 1e-5 * np.linalg.norm(ref)
+    with pytest.raises(st.DimensionError):
+        st.gemm(1.0, st.Matrix(a, mb=16, device="cpu"),
+                st.Matrix(a, mb=16, device="cpu"), 0.0,
+                st.Matrix(c, mb=16, device="cpu"))
+
+
+def test_tune_decisions_counted(tmp_path, monkeypatch):
+    from slate_tpu_torch.tune import stats
+    _route("pallas_rec", monkeypatch, tmp_path)
+    stats.reset()
+    a, b = permuted_boosted_system(np.random.default_rng(6), 256, 2)
+    st.gesv(st.Matrix(a, mb=64, device="cpu"),
+            st.Matrix(b, mb=64, device="cpu"), {"nb": 64})
+    snap = stats.snapshot()
+    # getrf.nb explicit; one cached panel route per panel (4)
+    assert snap["decisions"]["getrf.nb[explicit]"] == 1
+    assert snap["decisions"]["lu_panel.method_lu_panel[cached]"] == 4
+    assert snap["cache_hits"] >= 4
