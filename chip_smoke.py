@@ -10,27 +10,52 @@ script exit non-zero without the final result line:
   2. build    compile every CUDA kernel from ops/csrc (nvcc, in
               parallel) and report the seconds and ptxas usage;
   3. kernels  each kernel against its plain PyTorch version on the
-              card, at the shapes the main path gives it, timed beside
-              the plain version, one PyTorch library call computing the
-              same function (timed only; the port never calls it) and
-              the least time the card could take;
-  4. gesv     the main path: gesv at n = 16384, 64 right-hand sides,
-              f32, tiles and Option.BlockSize of 512, with a tune cache
-              routing every LU panel to the recursive kernel; both
+              card, at the shapes the main paths give it, in f32 and
+              bf16 where the kernel takes both, timed beside the plain
+              version, one PyTorch library call computing the same
+              function (timed only; the port never calls it) and the
+              least time the card could take:
+                kernel.compose_swaps  the swap composition, bitwise;
+                kernel.lu_panel       the rank-1 panel;
+                kernel.lu_panel_rec   the recursive panel;
+                kernel.rank_update    the trailing update of its split;
+  4. gesv     the f32 main path: gesv at n = 16384, 64 right-hand
+              sides, tiles and Option.BlockSize of 512, with a tune
+              cache routing every LU panel to the recursive kernel; its
               kernels' launch counts must rise during the call, the
-              backward error must be <= 1e-6, and X must agree with
-              the cold route (library LU panels) to 1e-3;
-  5. profile  the same gesv, on both routes, once more under
-              torch.profiler: host wall, device busy time (the union
-              of the kernel, copy and memset intervals of the trace),
-              idle share and the heaviest kernels by device time;
-  6. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+              backward error must be <= 1e-6, and X must agree with the
+              cold route (library LU panels) to 1e-3;
+  5. gesv_mixed.cold  the users' default mixed-precision route, with
+              an empty tune cache: gesv_mixed at n = 4096, 64
+              right-hand sides, tiles 256, no options (the bf16 factor
+              caps the frozen nb 512 to the rank-1 kernel's 256: 16
+              pipelined steps, each panel one lu_panel launch), then
+              gesv_mixed_gmres with one right-hand side; both must
+              converge to a backward error <= 1e-6 and agree with the
+              f32 gesv to 1e-5;
+  6. gesv_mixed  the mixed-precision main path at the working size:
+              the system of phase 4, Option.BlockSize 512, a tune cache
+              routing f32 and bf16 panels to the recursive kernel; the
+              bf16 recursive panel, trailing update and swap
+              composition must launch, the refinement converge to a
+              backward error <= 1e-6, and X agree with phase 4's to
+              1e-5;
+  7. profile  the gesv of phase 4 on both routes and the gesv_mixed of
+              phase 6, once more under torch.profiler: host wall, device
+              busy time (the union of the kernel, copy and memset
+              intervals of the trace), idle share and the heaviest
+              kernels by device time;
+  8. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
-Needs a CUDA card: without one it exits 2 and prints no result.
+Bounds: the larger of bytes over the memory rate and operations over
+the peak rate of their type: a panel's per-column recurrence at the
+f32 CUDA-core rate, products of bf16 inputs at the bf16 tensor-core
+rate. Needs a CUDA card: without one it exits 2 and prints no result.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -44,27 +69,33 @@ import torch
 import slate_tpu_torch as st
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
-from slate_tpu_torch.testing import (EXACT_KINDS, panel_cases,
+from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, panel_cases,
                                      permuted_boosted_system)
 from slate_tpu_torch.tune import cache as tcache
 from slate_tpu_torch.tune import select as tselect
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the
-#: tensor cores, and HBM3 bandwidth
+#: tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 N, NRHS, NB = 16384, 64, 512
+N_COLD, NB_COLD = 4096, 256
+
+SRC = "slate_tpu_torch/ops/csrc/"
+PK = "slate_tpu/ops/pallas_kernels.py:"
+DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(flops, nbytes):
-    """Least time for the work: the larger of operations over the f32
-    peak and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """Least time for the work: the larger of operations over `peak`
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -83,10 +114,19 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def wall_s(fn):
+    """Host seconds of one call, ended by a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def lu_residual(a, packed, piv):
     """||P A - L U||_F / ||A||_F of a packed (m, w) panel, in f64."""
     m, w = a.shape
-    perm = pk.lu_pivots_to_permutation(piv, m)
+    perm = pk.compose_swaps_plain(piv, m)
     p64 = packed.double()
     L = torch.tril(p64, -1)
     L[:w].diagonal().fill_(1)
@@ -95,8 +135,65 @@ def lu_residual(a, packed, piv):
                  / torch.linalg.norm(a.double()))
 
 
+def values_ok(kind, dtype, kp, pp):
+    """The adversarial suite's value check: the zero-noise kinds are
+    exact in every operation, so bitwise; the others agree to rounding
+    of differently ordered sums: 1e-4 in f32, 2 bf16 ulps in bf16."""
+    err = float((kp.double() - pp.double()).abs().max())
+    if kind in EXACT_KINDS:
+        return err == 0.0, err
+    if dtype == torch.bfloat16:
+        return bf16_ulps(kp.float().cpu().numpy(),
+                         pp.float().cpu().numpy()) <= 2.0, err
+    return err <= 1e-4, err
+
+
 def panel_flops(m, w):
     return m * w * w - w ** 3 / 3.0
+
+
+def berr(A, X, B):
+    """||A X - B||_F / (||A||_F ||X||_F) in f64."""
+    a64, x64 = A.data.double(), X.data.double()
+    r = float(torch.linalg.norm(a64 @ x64 - B.data.double())
+              / (torch.linalg.norm(a64) * torch.linalg.norm(x64)))
+    return r
+
+
+def rel_diff(x, ref):
+    return float(torch.linalg.norm((x - ref).double())
+                 / torch.linalg.norm(ref.double()))
+
+
+_TUNE_DIRS = []
+
+
+def fresh_tune_cache(routes=()):
+    """Point the port's tune cache at a new empty directory and put
+    method_lu_panel = "pallas_rec" into it for each dtype in `routes`,
+    panel-height buckets 512 ... N."""
+    d = tempfile.TemporaryDirectory(prefix="slate_tpu_torch_tune_")
+    _TUNE_DIRS.append(d)
+    os.environ["SLATE_TPU_TORCH_TUNE_CACHE"] = d.name
+    os.environ.pop("SLATE_TPU_TORCH_TUNE", None)
+    tcache.reset_cache()
+    cache = tcache.get_cache()
+    for dtype in routes:
+        n = 512
+        while n <= N:
+            cache.put("lu_panel", dtype, n, {"method_lu_panel": "pallas_rec"})
+            n *= 2
+    cache.save()
+
+
+def entry(name, dtype, source, replaces, path, s, worst):
+    """One row of the {"kernels": [...]} line from a shape's numbers."""
+    return {"name": name, "dtype": dtype, "route": "cuda",
+            "source": SRC + source, "replaces": replaces, "path": path,
+            "shape": s["shape"], "launches": None, "max_abs_err": worst,
+            "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+            "library_ms": s["library_ms"]}
 
 
 def phase_device():
@@ -120,113 +217,199 @@ def phase_build():
             "libs": {k: v for k, v in _build.build_log.items()}}
 
 
-def phase_panel(rng, results):
-    """lu_panel_rec: the adversarial suite (m=256, w=32, ib=8), then
-    random panels at the main path's shapes."""
-    dev = torch.device("cuda")
-    ok, worst = True, 0.0
-    kinds = {}
-    for kind, a_np in panel_cases(rng, 256, 32, 8).items():
-        a = torch.as_tensor(a_np, device=dev)
-        kp, kpiv = pk.lu_panel_rec(a, ib=8)
-        pp, ppiv = pk.lu_panel_rec_plain(a, ib=8)
+def phase_compose_swaps(rng, results):
+    """m = 16384, 512 random swaps: bitwise equal to the plain
+    version."""
+    m, w = N, 512
+    piv = torch.as_tensor(np.array([j + rng.integers(0, m - j)
+                                    for j in range(w)], np.int32),
+                          device="cuda")
+    perm = pk.lu_pivots_to_permutation(piv, m)
+    ref = pk.compose_swaps_plain(piv, m)
+    torch.cuda.synchronize()
+    same = torch.equal(perm, ref)
+    ms = cuda_ms(lambda: pk.lu_pivots_to_permutation(piv, m), 50)
+    plain_ms = cuda_ms(lambda: pk.compose_swaps_plain(piv, m), 5)
+    b_ms, b_by = bound_ms(0.0, 4.0 * w + 8.0 * m)
+    s = {"shape": "%d swaps over %d" % (w, m), "ms": ms,
+         "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+         "bound_by": b_by}
+    results["compose_swaps"] = entry(
+        "compose_swaps", "int32", "compose_swaps.cu",
+        "slate_tpu/linalg/lu.py:63 (XLA lu_pivots_to_permutation)",
+        "gesv_mixed", s, 0.0 if same else None)
+    return {"phase": "kernel.compose_swaps", "ok": bool(same),
+            "bitwise": same, **s}
+
+
+def adversarial(dtype, run, plain):
+    """The adversarial suite (m = 256, w = 32, ib = 8) through `run`
+    and `plain`: pivots bitwise, values by values_ok."""
+    ok, worst, kinds = True, 0.0, {}
+    for kind, a_np in panel_cases(np.random.default_rng(42), 256, 32,
+                                  8).items():
+        a = torch.as_tensor(a_np, device="cuda").to(dtype)
+        kp, kpiv = run(a)
+        pp, ppiv = plain(a)
         torch.cuda.synchronize()
         piv_eq = torch.equal(kpiv, ppiv)
-        err = float((kp - pp).abs().max())
-        # the zero-noise kinds are exact in every operation: bitwise;
-        # the others agree to f32 rounding of differently ordered sums
-        val_ok = err == 0.0 if kind in EXACT_KINDS else err <= 1e-4
+        val_ok, err = values_ok(kind, dtype, kp, pp)
         ok &= piv_eq and val_ok
         worst = max(worst, err)
-        kinds[kind] = {"pivots_bitwise": piv_eq, "max_abs_err": err}
-    shapes = {}
-    for m, w in ((N, 128), (N, 512)):
-        a = torch.as_tensor(rng.standard_normal((m, w), dtype=np.float32),
-                            device=dev)
-        kp, kpiv = pk.lu_panel_rec(a)
-        pp, ppiv = pk.lu_panel_rec_plain(a)
-        res = lu_residual(a, kp, kpiv)
-        res_plain = lu_residual(a, pp, ppiv)
-        piv_eq = torch.equal(kpiv, ppiv)
-        err = float((kp - pp).abs().max()) if piv_eq else None
-        if err is not None:
-            worst = max(worst, err)
-        ok &= res <= 1e-5
-        reps = 5 if w == 128 else 3
-        ms = cuda_ms(lambda: pk.lu_panel_rec(a), reps)
-        plain_ms = cuda_ms(lambda: pk.lu_panel_rec_plain(a), 1)
-        lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(a), reps)
-        b_ms, b_by = bound_ms(panel_flops(m, w), 4.0 * (2 * m * w + w))
-        shapes["%dx%d" % (m, w)] = {
-            "residual": res, "residual_plain": res_plain,
+        kinds[kind] = {"pivots_bitwise": piv_eq, "max_abs_err": err,
+                       "values_ok": val_ok}
+    return ok, worst, kinds
+
+
+def time_panel(rng, dtype, m, w, run, plain, reps, peak):
+    """A random (m, w) panel: residual of the kernel's factors, pivots
+    against the plain version, and times."""
+    a = torch.as_tensor(rng.standard_normal((m, w), dtype=np.float32),
+                        device="cuda").to(dtype)
+    kp, kpiv = run(a)
+    pp, ppiv = plain(a)
+    res = lu_residual(a, kp, kpiv)
+    piv_eq = torch.equal(kpiv, ppiv)
+    err = float((kp.double() - pp.double()).abs().max()) if piv_eq \
+        else None
+    ms = cuda_ms(lambda: run(a), reps)
+    plain_ms = cuda_ms(lambda: plain(a), 1)
+    a32 = a.float()
+    lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(a32), reps)
+    b_ms, b_by = bound_ms(panel_flops(m, w), 2.0 * a.element_size() * m * w,
+                          peak)
+    return {"shape": "%dx%d" % (m, w), "residual": res,
+            "residual_plain": lu_residual(a, pp, ppiv),
             "pivots_equal_plain": piv_eq, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "split": m * w > pk.LU_REC_MAX_ELEMS}
-    s = shapes["%dx128" % N]
-    results["lu_panel_rec"] = {
-        "name": "lu_panel_rec", "route": "cuda",
-        "source": "slate_tpu_torch/ops/csrc/lu_panel_rec.cu",
-        "replaces": "slate_tpu/ops/pallas_kernels.py:454",
-        "shape": "%dx128" % N, "max_abs_err": worst, "ms": s["ms"],
-        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-        "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
-    return {"phase": "kernel.lu_panel_rec", "ok": bool(ok),
-            "adversarial": kinds, "shapes": shapes}
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "torch.linalg.lu_factor_ex"
+                       + (" (f32 upcast)" if dtype != torch.float32 else ""),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+#: residual limits of a random Gaussian panel. f32: rounding. bf16:
+#: every update is rounded to bf16 (u = 2^-8), and the error grows with
+#: the number of updates a value takes; the JAX reference's own bf16
+#: factors of such panels (its kernels through the Pallas interpreter on
+#: the CPU) have residuals of 0.05 (rank-1, 256 and 512 x 256) and 0.03
+#: (recursive, 256 and 512 x 256)
+RES_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 0.1}
+
+
+def phase_lu_panel(rng, results):
+    """lu_panel, f32 and bf16: the adversarial suite, then random
+    4096x256 (the cold mixed path's first panel) and 256x256 panels."""
+    ok, out = True, {"phase": "kernel.lu_panel"}
+    for dname, dtype in DTYPES:
+        a_ok, worst, kinds = adversarial(dtype, pk.lu_panel,
+                                         pk.lu_panel_plain)
+        ok &= a_ok
+        shapes = {}
+        for m, w in ((N_COLD, 256), (256, 256)):
+            s = time_panel(rng, dtype, m, w, pk.lu_panel, pk.lu_panel_plain,
+                           5, PEAK_F32_FLOPS)
+            ok &= s["residual"] <= RES_LIMIT[dtype]
+            shapes[s["shape"]] = s
+            if s["max_abs_err"] is not None:
+                worst = max(worst, s["max_abs_err"])
+        out[dname] = {"adversarial": kinds, "shapes": shapes}
+        if dtype == torch.bfloat16:
+            results["lu_panel.bfloat16"] = entry(
+                "lu_panel", dname, "lu_panel.cu", PK + "249",
+                "gesv_mixed.cold", shapes["%dx256" % N_COLD], worst)
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_panel_rec(rng, results):
+    """lu_panel_rec: the adversarial suite (m=256, w=32, ib=8), then
+    random panels at the main paths' shapes: one dispatch (f32
+    16384x128, bf16 16384x64) and the tall split (16384x512)."""
+    ok, out = True, {"phase": "kernel.lu_panel_rec"}
+    for dname, dtype in DTYPES:
+        a_ok, worst, kinds = adversarial(
+            dtype, lambda a: pk.lu_panel_rec(a, ib=8),
+            lambda a: pk.lu_panel_rec_plain(a, ib=8))
+        ok &= a_ok
+        one = 128 if dtype == torch.float32 else 64
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        shapes = {}
+        for m, w in ((N, one), (N, 512)):
+            s = time_panel(rng, dtype, m, w, pk.lu_panel_rec,
+                           pk.lu_panel_rec_plain, 5 if w == one else 3, peak)
+            s["split"] = m * w > pk._rec_max_elems(dtype, None)
+            ok &= s["residual"] <= RES_LIMIT[dtype]
+            shapes[s["shape"]] = s
+            if s["max_abs_err"] is not None:
+                worst = max(worst, s["max_abs_err"])
+        out[dname] = {"adversarial": kinds, "shapes": shapes}
+        results["lu_panel_rec." + dname] = entry(
+            "lu_panel_rec", dname, "lu_panel_rec.cu", PK + "454",
+            "gesv" if dtype == torch.float32 else "gesv_mixed",
+            shapes["%dx%d" % (N, one)], worst)
+    out["ok"] = bool(ok)
+    return out
 
 
 def phase_rank_update(rng, results):
-    """_rank_update at the two shapes the split of a 16384x512 panel
-    gives it."""
-    dev = torch.device("cuda")
-    ok, worst, shapes = True, 0.0, {}
-    for m2, w1, w2 in ((N - 256, 256, 256), (N - 128, 128, 128)):
-        a22, l21, u12 = (torch.as_tensor(
-            rng.standard_normal(s, dtype=np.float32), device=dev)
-            for s in ((m2, w2), (m2, w1), (w1, w2)))
-        out = pk._rank_update(a22, l21, u12)
-        ref = pk.rank_update_plain(a22, l21, u12)
-        rel = float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref))
-        err = float((out - ref).abs().max())
-        worst = max(worst, err)
-        # sums of w1 products in another order than cuBLAS's: 1e-4
-        # relative is far above f32 rounding (~1e-6)
-        ok &= rel <= 1e-4
-        ms = cuda_ms(lambda: pk._rank_update(a22, l21, u12), 20)
-        plain_ms = cuda_ms(lambda: pk.rank_update_plain(a22, l21, u12), 20)
-        lib_ms = cuda_ms(lambda: torch.addmm(a22, l21, u12, alpha=-1), 20)
-        b_ms, b_by = bound_ms(2.0 * m2 * w1 * w2,
-                              4.0 * (2 * m2 * w2 + m2 * w1 + w1 * w2))
-        shapes["%dx%dx%d" % (m2, w1, w2)] = {
-            "rel_err": rel, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
-    key = "%dx%dx%d" % (N - 256, 256, 256)
-    s = shapes[key]
-    results["rank_update"] = {
-        "name": "rank_update", "route": "cuda",
-        "source": "slate_tpu_torch/ops/csrc/rank_update.cu",
-        "replaces": "slate_tpu/ops/pallas_kernels.py:594",
-        "shape": key, "max_abs_err": worst, "ms": s["ms"],
-        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-        "bound_by": s["bound_by"], "library_ms": s["library_ms"]}
-    return {"phase": "kernel.rank_update", "ok": bool(ok), "shapes": shapes}
+    """_rank_update at the shapes the split of a 16384x512 panel gives
+    it: f32 (two) and bf16 (three)."""
+    ok, out = True, {"phase": "kernel.rank_update"}
+    for dname, dtype in DTYPES:
+        dims = [(N - 256, 256, 256), (N - 128, 128, 128)]
+        if dtype == torch.bfloat16:
+            dims.append((N - 64, 64, 64))
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        # sums of w1 products in another order than the plain version's:
+        # 1e-4 relative is far above f32 rounding (~1e-6); in bf16 the
+        # rounded product may differ by an ulp in a few entries, 2^-7
+        # normwise
+        lim = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        worst, shapes = 0.0, {}
+        for m2, w1, w2 in dims:
+            a22, l21, u12 = (torch.as_tensor(
+                rng.standard_normal(sh, dtype=np.float32),
+                device="cuda").to(dtype)
+                for sh in ((m2, w2), (m2, w1), (w1, w2)))
+            o = pk._rank_update(a22, l21, u12)
+            ref = pk.rank_update_plain(a22, l21, u12)
+            rel = rel_diff(o, ref)
+            err = float((o.double() - ref.double()).abs().max())
+            worst = max(worst, err)
+            ok &= rel <= lim
+            ms = cuda_ms(lambda: pk._rank_update(a22, l21, u12), 20)
+            plain_ms = cuda_ms(lambda: pk.rank_update_plain(a22, l21, u12),
+                               20)
+            lib_ms = cuda_ms(lambda: torch.addmm(a22, l21, u12, alpha=-1),
+                             20)
+            b_ms, b_by = bound_ms(2.0 * m2 * w1 * w2,
+                                  a22.element_size()
+                                  * (2 * m2 * w2 + m2 * w1 + w1 * w2), peak)
+            key = "%dx%dx%d" % (m2, w1, w2)
+            shapes[key] = {"shape": key, "rel_err": rel, "max_abs_err": err,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "library": "torch.addmm",
+                           "bound_ms": b_ms, "bound_by": b_by}
+        out[dname] = shapes
+        results["rank_update." + dname] = entry(
+            "rank_update", dname, "rank_update.cu", PK + "594",
+            "gesv" if dtype == torch.float32 else "gesv_mixed",
+            shapes["%dx%dx%d" % dims[0]], worst)
+    out["ok"] = bool(ok)
+    return out
+
+
+def set_launches(results, path, counts):
+    for e in results.values():
+        if e["path"] == path:
+            e["launches"] = counts[e["name"]]
 
 
 def phase_gesv(seed, results, system):
-    """The main path, routed to the recursive panel kernel by a tune
-    cache of its own. Leaves A, B and the options in `system` for the
-    profile phase."""
-    tmp = tempfile.mkdtemp(prefix="slate_tpu_torch_tune_")
-    os.environ["SLATE_TPU_TORCH_TUNE_CACHE"] = tmp
-    os.environ.pop("SLATE_TPU_TORCH_TUNE", None)
-    tcache.reset_cache()
-    cache = tcache.get_cache()
-    n = 512
-    while n <= N:
-        cache.put("lu_panel", torch.float32, n,
-                  {"method_lu_panel": "pallas_rec"})
-        n *= 2
-    cache.save()
+    """The f32 main path, routed to the recursive panel kernel by a
+    tune cache of its own. Leaves A, B, X and the options in `system`
+    for the later phases."""
+    fresh_tune_cache([torch.float32])
     a_np, b_np = permuted_boosted_system(np.random.default_rng(seed), N,
                                          NRHS)
     A = st.Matrix(a_np, mb=NB)
@@ -236,37 +419,89 @@ def phase_gesv(seed, results, system):
     st.gesv(A, B, opts)                       # warm-up
     torch.cuda.synchronize()
     pk.reset_launch_counts()
-    t0 = time.perf_counter()
-    F, X = st.gesv(A, B, opts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall, (F, X) = wall_s(lambda: st.gesv(A, B, opts))
     launches = pk.launch_counts()
-    for name, count in launches.items():
-        results[name]["launches"] = count
-    a64, x64 = A.data.double(), X.data.double()
-    berr = float(torch.linalg.norm(a64 @ x64 - B.data.double())
-                 / (torch.linalg.norm(a64) * torch.linalg.norm(x64)))
-    del a64, x64
+    set_launches(results, "gesv", launches)
+    e = berr(A, X, B)
     with tselect.disabled():                  # the cold route
         st.gesv(A, B, opts)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        Fc, Xc = st.gesv(A, B, opts)
-        torch.cuda.synchronize()
-        wall_cold = time.perf_counter() - t0
-    xdiff = float(torch.linalg.norm(X.data - Xc.data)
-                  / torch.linalg.norm(Xc.data))
-    ok = (all(c > 0 for c in launches.values()) and berr <= 1e-6
-          and xdiff <= 1e-3 and int(F.info) == 0
+        wall_cold, (Fc, Xc) = wall_s(lambda: st.gesv(A, B, opts))
+    xdiff = rel_diff(X.data, Xc.data)
+    ok = (all(launches[k] > 0 for k in ("lu_panel_rec", "rank_update",
+                                        "compose_swaps"))
+          and e <= 1e-6 and xdiff <= 1e-3 and int(F.info) == 0
           and bool(torch.isfinite(X.data).all()))
-    system.update(A=A, B=B, opts=opts)
+    system.update(A=A, B=B, X=X, opts=opts, wall=wall)
     return {"phase": "gesv", "ok": bool(ok), "n": N, "nrhs": NRHS,
             "nb": NB, "dtype": "float32", "seed": seed, "wall_s": wall,
-            "launches": launches, "backward_error": berr,
+            "launches": launches, "backward_error": e,
             "x_rel_diff_cold": xdiff,
             "pivots_equal_cold": torch.equal(F.pivots, Fc.pivots),
             "wall_s_cold_route": wall_cold,
             "gflops": (2.0 / 3.0 * N ** 3 + 2.0 * N * N * NRHS) / wall / 1e9,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def mixed_check(name, A, B, call, ref_x):
+    """One mixed solve, after a warm-up, with the launch counts of the
+    measured call: converged (iters >= 0), backward error <= 1e-6, X
+    within 1e-5 of the f32 solve's."""
+    call()
+    pk.reset_launch_counts()
+    wall, (F, X, iters) = wall_s(call)
+    launches = pk.launch_counts()
+    e = berr(A, X, B)
+    xdiff = rel_diff(X.data, ref_x)
+    ok = (iters >= 0 and e <= 1e-6 and xdiff <= 1e-5
+          and F.LU.dtype == torch.bfloat16
+          and bool(torch.isfinite(X.data).all()))
+    return ok, launches, {"driver": name, "wall_s": wall, "iters": iters,
+                          "launches": launches, "backward_error": e,
+                          "x_rel_diff_f32": xdiff,
+                          "factor_dtype": str(F.LU.dtype)}
+
+
+def phase_mixed_cold(seed, results):
+    """gesv_mixed and gesv_mixed_gmres on the cold route at n = 4096."""
+    fresh_tune_cache()
+    a_np, b_np = permuted_boosted_system(np.random.default_rng(seed),
+                                         N_COLD, NRHS)
+    A = st.Matrix(a_np, mb=NB_COLD)
+    B = st.Matrix(b_np, mb=NB_COLD)
+    B1 = st.Matrix(b_np[:, :1], mb=NB_COLD)
+    steps = N_COLD // min(512, pk.LU_PANEL_MAX_W)
+    out = {"phase": "gesv_mixed.cold", "n": N_COLD, "tiles": NB_COLD,
+           "lu_panel_launches_expected": steps}
+    ok = True
+    for name, fn, rhs in (("gesv_mixed", st.gesv_mixed, B),
+                          ("gesv_mixed_gmres", st.gesv_mixed_gmres, B1)):
+        wall_f32, (_, Xf) = wall_s(lambda: st.gesv(A, rhs))
+        c_ok, launches, rep = mixed_check(name, A, rhs,
+                                          lambda: fn(A, rhs), Xf.data)
+        c_ok &= launches["lu_panel"] == steps
+        rep["ok"] = bool(c_ok)
+        rep["gesv_f32_wall_s"] = wall_f32
+        out[name] = rep
+        ok &= c_ok
+        if name == "gesv_mixed":
+            set_launches(results, "gesv_mixed.cold", launches)
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_mixed(results, system):
+    """The mixed-precision main path at n = 16384 (the system of phase
+    gesv), recursive panels for f32 and bf16."""
+    fresh_tune_cache([torch.float32, torch.bfloat16])
+    A, B, opts = system["A"], system["B"], system["opts"]
+    ok, launches, rep = mixed_check(
+        "gesv_mixed", A, B, lambda: st.gesv_mixed(A, B, opts),
+        system["X"].data)
+    ok &= all(launches[k] > 0 for k in ("lu_panel_rec", "rank_update",
+                                        "compose_swaps"))
+    set_launches(results, "gesv_mixed", launches)
+    return {"phase": "gesv_mixed", "ok": bool(ok), "n": N, "nrhs": NRHS,
+            "nb": NB, **rep, "gesv_f32_wall_s": system["wall"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
@@ -275,17 +510,14 @@ def phase_gesv(seed, results, system):
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def profile_gesv(system, top=8):
-    """One gesv (already warm) under torch.profiler. Busy time is the
+def profile_call(fn, top=8):
+    """One (already warm) call under torch.profiler. Busy time is the
     union of the device intervals in the exported trace, so overlapping
     kernels count once."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        st.gesv(system["A"], system["B"], system["opts"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall, _ = wall_s(fn)
     with tempfile.TemporaryDirectory(prefix="slate_tpu_torch_prof_") as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -314,11 +546,17 @@ def profile_gesv(system, top=8):
 
 
 def phase_profile(system):
-    """Where the time of the main path's gesv goes, on both routes."""
+    """Where the time of the main paths goes: gesv on both routes (f32
+    recursive panels cached), then gesv_mixed (recursive panels cached
+    for both types)."""
+    A, B, opts = system["A"], system["B"], system["opts"]
+    fresh_tune_cache([torch.float32])
     out = {"phase": "profile", "ok": True,
-           "pallas_rec": profile_gesv(system)}
+           "pallas_rec": profile_call(lambda: st.gesv(A, B, opts))}
     with tselect.disabled():
-        out["cold"] = profile_gesv(system)
+        out["cold"] = profile_call(lambda: st.gesv(A, B, opts))
+    fresh_tune_cache([torch.float32, torch.bfloat16])
+    out["gesv_mixed"] = profile_call(lambda: st.gesv_mixed(A, B, opts))
     return out
 
 
@@ -334,31 +572,49 @@ def main():
     results, system = {}, {}
     failed = []
     device = None
-    for name, fn in (("device", phase_device), ("build", phase_build),
-                     ("kernel.lu_panel_rec",
-                      lambda: phase_panel(rng, results)),
-                     ("kernel.rank_update",
-                      lambda: phase_rank_update(rng, results)),
-                     ("gesv", lambda: phase_gesv(args.seed, results,
-                                                 system)),
-                     ("profile", lambda: phase_profile(system))):
-        try:
-            out = fn()
-        except Exception as e:          # report the phase, then stop
-            import traceback
-            traceback.print_exc()
-            out = {"phase": name, "ok": False,
-                   "error": "%s: %s" % (type(e).__name__, e)}
-        emit(out)
-        if name == "device":
-            device = out
-        if not out["ok"]:
-            failed.append(name)
-            break
+    phases = (
+        ("device", phase_device), ("build", phase_build),
+        ("kernel.compose_swaps",
+         lambda: phase_compose_swaps(rng, results)),
+        ("kernel.lu_panel", lambda: phase_lu_panel(rng, results)),
+        ("kernel.lu_panel_rec", lambda: phase_panel_rec(rng, results)),
+        ("kernel.rank_update", lambda: phase_rank_update(rng, results)),
+        ("gesv", lambda: phase_gesv(args.seed, results, system)),
+        ("gesv_mixed.cold", lambda: phase_mixed_cold(args.seed, results)),
+        ("gesv_mixed", lambda: phase_mixed(results, system)),
+        ("profile", lambda: phase_profile(system)))
+    try:
+        for name, fn in phases:
+            try:
+                out = fn()
+            except Exception as e:          # report the phase, then stop
+                import traceback
+                traceback.print_exc()
+                out = {"phase": name, "ok": False,
+                       "error": "%s: %s" % (type(e).__name__, e)}
+            emit(out)
+            if name == "device":
+                device = out
+            if not out["ok"]:
+                failed.append(name)
+                break
+    finally:
+        for d in _TUNE_DIRS:
+            d.cleanup()
+    if not failed:
+        unlaunched = [e["name"] + "." + e["dtype"] for e in results.values()
+                      if not e["launches"]]
+        if unlaunched:
+            print("chip_smoke: kernels not launched on their path: %s"
+                  % unlaunched, file=sys.stderr)
+            failed.append("launches")
     if failed:
         print("chip_smoke: failed phase(s): %s" % failed, file=sys.stderr)
         return 1
-    emit({"kernels": [results[k] for k in ("lu_panel_rec", "rank_update")]})
+    # MAGMA, under the library LU of the cold routes, writes its
+    # warnings through C stdio: flush them before the result lines
+    ctypes.CDLL(None).fflush(None)
+    emit({"kernels": list(results.values())})
     print(device["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                  "count": device["count"]}})

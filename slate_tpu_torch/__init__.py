@@ -3,8 +3,10 @@
 A second package beside the JAX one (``slate_tpu/``, the reference),
 ported slice by slice for one NVIDIA H100. Module paths mirror the JAX
 package; each module's docstring names its counterpart. This slice
-holds the dense partial-pivot LU solve (getrf / getrs / gesv) and the
-two hand-written kernels on its path (``ops/kernels.py``).
+holds the dense partial-pivot LU solve (getrf / getrs / gesv), the
+mixed-precision solves on it (gesv_mixed, gesv_mixed_gmres: a bf16
+factor refined to f32 accuracy) and the hand-written kernels on their
+paths (``ops/kernels.py``).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -17,14 +19,18 @@ import torch
 # for matmuls and for cuDNN alike.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# The reference's bf16 products accumulate in f32 (Precision.HIGHEST,
+# preferred_element_type f32); cuBLAS may otherwise reduce a bf16 GEMM
+# in bf16 along the way.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .core import (Diag, DimensionError, HermitianMatrix, Matrix,  # noqa: E402,F401
                    MatrixType, MethodFactor, MethodLU, MethodLUPanel, Op,
                    Option, Side, SlateError, SymmetricMatrix, TiledMatrix,
                    TriangularMatrix, Uplo)
 from .interop import from_jax_state  # noqa: E402,F401
-from .linalg import (LUFactors, apply_pivots, gemm, gesv, getrf,  # noqa: E402,F401
-                     getrs, trsm)
+from .linalg import (LUFactors, apply_pivots, gemm, gesv,  # noqa: E402,F401
+                     gesv_mixed, gesv_mixed_gmres, getrf, getrs, trsm)
 from .utils import Timers  # noqa: E402,F401
 from . import obs, ops, tune  # noqa: E402,F401
 

@@ -74,8 +74,9 @@ class MethodLUPanel(enum.Enum):
       * ``PallasRec``: the block-recursive hand kernel
         (ops/kernels.lu_panel_rec), the port of the reference's Pallas
         route of the same name;
-      * ``Pallas``: the reference's rank-1 Pallas panel; not ported
-        yet (the bf16 slice), so the port never resolves to it cold;
+      * ``Pallas``: the rank-1 hand kernel (ops/kernels.lu_panel), the
+        port of the reference's round-3 Pallas panel: the cold route
+        of bf16 panels on the card;
       * ``Fori``: the plain column loop (lu.lu_panel_fori).
 
     ``Auto`` resolves via the tune cache (a MEASURED
@@ -88,17 +89,22 @@ class MethodLUPanel(enum.Enum):
     PallasRec = "pallas_rec"
 
     @staticmethod
-    def cold_default(m: int, w: int, dtype) -> "MethodLUPanel":
-        """The frozen chain: native where the dtype allows, else the
-        fori loop. The reference's middle rung (its rank-1 Pallas
-        panel, eligible only on a TPU) is absent until that kernel is
-        ported."""
+    def cold_default(m: int, w: int, dtype, device=None
+                     ) -> "MethodLUPanel":
+        """The frozen chain of the reference: native where the dtype
+        allows, the rank-1 kernel where its gate takes the panel (a
+        CUDA tensor, f32/bf16, the reference's shape limits), else the
+        fori loop. `device` is the panel's: off the card the kernel's
+        gate rejects, as the reference's does off the TPU."""
         if MethodFactor.native_lu_ok(dtype, m):
             return MethodLUPanel.Native
+        from ..ops import kernels as pk
+        if pk.lu_panel_eligible(m, w, dtype, device):
+            return MethodLUPanel.Pallas
         return MethodLUPanel.Fori
 
     @staticmethod
-    def resolve(m: int, w: int, dtype) -> "MethodLUPanel":
+    def resolve(m: int, w: int, dtype, device=None) -> "MethodLUPanel":
         """Measured cache entry (validated against the hard gates),
         else cold_default."""
         from ..tune.select import tuned_method
@@ -108,7 +114,7 @@ class MethodLUPanel(enum.Enum):
             cached = None
         if cached is not None and cached is not MethodLUPanel.Auto:
             return cached
-        return MethodLUPanel.cold_default(m, w, dtype)
+        return MethodLUPanel.cold_default(m, w, dtype, device)
 
 
 def str2method(family: str, s: str):

@@ -2,7 +2,9 @@
 
 :func:`from_jax_state` takes only numpy arrays and plain metadata, so
 the port never imports JAX: the caller does the ``np.asarray`` on the
-JAX side. The metadata of a matrix are the TiledMatrix fields
+JAX side. A bf16 array arrives as numpy's view of JAX's bfloat16 type
+(``ml_dtypes``, which the port does not import): it is recognised by
+its dtype name and taken bit for bit. The metadata of a matrix are the TiledMatrix fields
 ``m, n, mb, nb`` and, optionally, ``mtype, uplo, op, diag`` (enum
 names or values, which the two packages share) and ``kl, ku``.
 """
@@ -32,6 +34,17 @@ def _enum(cls, v):
     raise SlateError(f"from_jax_state: unknown {cls.__name__} {v!r}")
 
 
+def _tensor(arr, device: torch.device) -> torch.Tensor:
+    """A copy of `arr` on `device`. numpy has no bfloat16 of its own:
+    an array whose dtype is named "bfloat16" (2 bytes) is reinterpreted
+    through uint16, so every bit carries over."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        bits = np.array(arr, order="C").view(np.uint16)   # a copy
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
 def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
             ) -> TiledMatrix:
     if meta.get("rb") is not None or meta.get("cb") is not None:
@@ -41,7 +54,7 @@ def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
     for k in ("kl", "ku"):
         if k in meta:
             kw[k] = int(meta[k])
-    t = torch.tensor(np.asarray(data), device=device)
+    t = _tensor(data, device)
     return TiledMatrix(data=t, m=int(meta["m"]), n=int(meta["n"]),
                        mb=int(meta["mb"]), nb=int(meta["nb"]), **kw)
 
@@ -57,7 +70,8 @@ def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
         + the metadata of ``F.LU`` -> LUFactors. Band factors
         (``meta["band"]`` true) are not ported and raise.
 
-    The padded storage is taken as it is, padding included."""
+    The padded storage is taken as it is, padding included; bf16
+    factors (gesv_mixed's) included."""
     dev = resolve_device(device)
     if "LU" in arrays:
         if meta.get("band", False):

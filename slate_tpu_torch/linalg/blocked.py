@@ -2,10 +2,10 @@
 reduced to what the LU slice uses: ``invert_triangular``,
 ``trsm_left``/``trsm_dense`` and ``assemble_packed``.
 
-The direct triangular solve is ``torch.linalg.solve_triangular``
-(LAPACK on the CPU, cuBLAS on the card), the counterpart of the
-reference's XLA TriangularSolve. The reference's grid (SPMD) paths
-wait for the distributed slice.
+The direct triangular solve is :func:`solve_triangular` over
+``torch.linalg.solve_triangular`` (LAPACK on the CPU, cuBLAS on the
+card), the counterpart of the reference's XLA TriangularSolve. The
+reference's grid (SPMD) paths wait for the distributed slice.
 """
 
 from __future__ import annotations
@@ -21,10 +21,31 @@ from ..core.tiles import ceil_div, round_up
 TRTRI_LEAF_MAX = 512
 
 
+#: dtypes the library triangular solve implements
+_SOLVE_DTYPES = (torch.float32, torch.float64, torch.complex64,
+                 torch.complex128)
+
+
+def solve_triangular(a: torch.Tensor, b: torch.Tensor, *, upper: bool,
+                     unitriangular: bool = False) -> torch.Tensor:
+    """X with A X = B, A triangular: one library solve. For a dtype the
+    library lacks (bf16: neither LAPACK nor cuBLAS trsm has it), the
+    solve runs in f32 on the upcast operands and the result is rounded
+    to the input type. This is where the port's rounding departs from
+    the reference, whose XLA expander solves bf16 blockwise with bf16
+    intermediates; the mixed-precision drivers' refinement absorbs the
+    difference."""
+    if b.dtype in _SOLVE_DTYPES:
+        return torch.linalg.solve_triangular(a, b, upper=upper, left=True,
+                                             unitriangular=unitriangular)
+    return torch.linalg.solve_triangular(
+        a.float(), b.float(), upper=upper, left=True,
+        unitriangular=unitriangular).to(b.dtype)
+
+
 def _solve_lower_left(a: torch.Tensor, b: torch.Tensor,
                       unit_diagonal: bool) -> torch.Tensor:
-    return torch.linalg.solve_triangular(a, b, upper=False, left=True,
-                                         unitriangular=unit_diagonal)
+    return solve_triangular(a, b, upper=False, unitriangular=unit_diagonal)
 
 
 def invert_triangular(a: torch.Tensor, lower: bool,
@@ -69,9 +90,8 @@ def trsm_left(a: torch.Tensor, b: torch.Tensor, lower: bool, nb: int,
     solve, the RHS slabbed by columns above SOLVE_TEMP_CAP (each slab
     is still a direct, backward-stable solve)."""
     def direct(rhs):
-        return torch.linalg.solve_triangular(
-            a, rhs, upper=not lower, left=True,
-            unitriangular=unit_diagonal)
+        return solve_triangular(a, rhs, upper=not lower,
+                                unitriangular=unit_diagonal)
 
     per_col = solve_temps_bytes(1, a.shape[0], b.element_size())
     if per_col * b.shape[1] > SOLVE_TEMP_CAP:

@@ -1,19 +1,23 @@
 """LU family (counterpart of ``slate_tpu/linalg/lu.py``), the dense
-partial-pivot slice: getrf / getrs / gesv on one device.
+partial-pivot slice on one device: getrf / getrs / gesv and the
+mixed-precision solves gesv_mixed / gesv_mixed_gmres.
 
 Pivots are a flat int32 tensor of global row swap targets (LAPACK
 ipiv convention, 0-based), as in the reference. ``getrf`` with Auto
-takes the Tiled blocked form; on one device that is the
-carry-the-trailing-matrix loop (``_getrf_carry``), whose panels go
-through ``_lu_panel``'s route arbitration: ``torch.linalg.lu_factor``
-cold, the hand-written recursive panel kernel when the tune cache
-routes ``pallas_rec``.
+takes the Tiled blocked form. On one device that is, for the dtypes
+the library LU takes, the carry-the-trailing-matrix loop
+(``_getrf_carry``), and for the others (bf16, the lo precision of
+gesv_mixed) the pipelined lookahead-1 loop (``_getrf_pipelined``).
+Panels go through ``_lu_panel``'s route arbitration: cold, the library
+LU (``torch.linalg.lu_factor``) where the dtype allows, the rank-1
+hand kernel for bf16 panels on the card, else the fori loop; the
+recursive hand kernel when the tune cache routes ``pallas_rec``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its
 ROADMAP item rather than taking another route): the scan form for
-more than LU_SCAN_THRESHOLD block steps, the pipelined (lookahead)
-form, tournament pivoting (CALU), no-pivot LU, the grid (mesh) paths,
-band factors and the mixed-precision / RBT drivers.
+more than LU_SCAN_THRESHOLD block steps, tournament pivoting (CALU),
+no-pivot LU, the grid (mesh) paths, band factors, getri and the RBT
+driver.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from ..core.options import Option, OptionsLike, get_option
 from ..core.tiles import TiledMatrix, ceil_div, pad_diag_identity
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
-from .blas3 import trsm
-from .blocked import assemble_packed
+from .blas3 import _store, trsm
+from .blocked import assemble_packed, solve_triangular
 from .info import lu_info
 
 
@@ -82,27 +86,55 @@ def apply_pivots(pivots: torch.Tensor, B: TiledMatrix,
 
 # -- panel ----------------------------------------------------------------
 
+#: (m, w, dtype) panels whose fori fallback was already surfaced: the
+#: obs instant fires once per shape
+_FORI_FALLBACK_SEEN: set = set()
+
+
+def _surface_fori_fallback(m: int, w: int, dtype, device) -> None:
+    """The first fori panel of each (m, w, dtype) publishes an obs
+    instant carrying WHY the rank-1 kernel rejected it, so a trace of
+    a slow getrf shows the panel route and its reason. With obs off the
+    one-shot is not consumed."""
+    key = (m, w, str(dtype))
+    if key in _FORI_FALLBACK_SEEN:
+        return
+    from ..obs import events as obs
+    if not obs.enabled():
+        return
+    _FORI_FALLBACK_SEEN.add(key)
+    obs.instant("getrf.panel_fori_fallback", cat="kernel", m=m, w=w,
+                dtype=str(dtype),
+                reason=pk.lu_panel_reject_reason(m, w, dtype, device))
+
+
 def _lu_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Partial-pivot LU of a (m, w) panel: (packed LU, local pivot
     swap targets (w,) int32).
 
     Route arbitration (MethodLUPanel): a MEASURED tune-cache entry
     wins, validated against the hard gates; a cold cache resolves to
-    the native library LU (torch.linalg.lu_factor) where the dtype
-    allows, else the fori loop. The pallas_rec route runs the
-    hand-written recursive panel kernel (ops/kernels.lu_panel_rec)."""
+    the frozen chain: the library LU (torch.linalg.lu_factor) where
+    the dtype allows, the rank-1 hand kernel (ops/kernels.lu_panel)
+    where its gate takes the panel (bf16 on the card), else the fori
+    loop. The pallas_rec route runs the hand-written recursive panel
+    kernel (ops/kernels.lu_panel_rec)."""
     m, w = a.shape
-    method = MethodLUPanel.resolve(m, w, a.dtype)
+    method = MethodLUPanel.resolve(m, w, a.dtype, a.device)
     if method is MethodLUPanel.PallasRec:
         fused = pk.lu_panel_rec(a)
         if fused is not None:
             return fused
-        method = MethodLUPanel.cold_default(m, w, a.dtype)
+        method = MethodLUPanel.cold_default(m, w, a.dtype, a.device)
     if method is MethodLUPanel.Pallas:
-        raise _not_ported("the rank-1 LU panel kernel (lu_panel)")
+        fused = pk.lu_panel(a)
+        if fused is not None:
+            return fused
+        method = MethodLUPanel.Fori
     if method is MethodLUPanel.Native:
         lu, piv = _native_lu(a)
         return lu, piv
+    _surface_fori_fallback(m, w, a.dtype, a.device)
     return lu_panel_fori(a)
 
 
@@ -158,9 +190,7 @@ def _getrf_carry(a: torch.Tensor, nb: int
         panels.append(lu)
         if k1 < N:
             rest = _permute_rows(trail[:, w:], perm)
-            u12 = torch.linalg.solve_triangular(
-                lu[:w, :w], rest[:w], upper=False, left=True,
-                unitriangular=True)
+            u12 = _lu_u12(lu[:w, :w], rest[:w])
             urows.append(u12)
             trail = rest[w:] - lu[w:, :w] @ u12 if k1 < M else rest[w:]
     # final row order per panel: panel k's rows get permuted by the
@@ -176,16 +206,96 @@ def _getrf_carry(a: torch.Tensor, nb: int
     return out, torch.cat(pivs)
 
 
+def _lu_u12(l11: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """U12 = L11^{-1} rhs with L11 the packed panel's diagonal block
+    (strict lower + implicit unit diagonal): one direct solve (bf16
+    solves in f32 and rounds, blocked.solve_triangular)."""
+    return solve_triangular(l11, rhs, upper=False, unitriangular=True)
+
+
+def _getrf_pipelined(a: torch.Tensor, nb: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Software-pipelined (lookahead-1) partial-pivot blocked LU
+    (reference getrf.cc's lookahead split of the trailing gemm). Panel
+    k+1 factors right after a NARROW update of its own column block;
+    the WIDE remainder of step k's trailing update does not depend on
+    that panel. Step-(k+1) row swaps of the non-panel columns are
+    deferred to the next iteration's head, which is exactly when the
+    plain loop would apply them, so the two orders compute identical
+    results. Updates a copy of `a` in place (the reference's functional
+    slice updates, same values)."""
+    M, N = a.shape
+    kmax = min(M, N)
+    nt = ceil_div(kmax, nb)
+    a = a.clone()
+    ipiv = torch.arange(kmax, dtype=torch.int32, device=a.device)
+    # prologue: factor panel 0 (swaps to other columns deferred)
+    k1 = min(nb, kmax)
+    panel, piv = _lu_panel(a[:, :k1])
+    a[:, :k1] = panel
+    ipiv[:k1] = piv
+    pend_piv, pend_k0 = piv, 0      # swaps not yet applied elsewhere
+    for k in range(nt):
+        k0, k1 = k * nb, min((k + 1) * nb, kmax)
+        k2 = min(k1 + nb, kmax)
+        # (1) apply the pending panel swaps to the non-panel columns
+        perm = _compose_swaps(pend_piv, M - pend_k0)
+        if pend_k0 > 0:
+            a[pend_k0:, :pend_k0] = _permute_rows(a[pend_k0:, :pend_k0],
+                                                  perm)
+        if k1 < N:
+            a[pend_k0:, k1:] = _permute_rows(a[pend_k0:, k1:], perm)
+        if k1 >= N:
+            break
+        lkk = a[k0:k1, k0:k1]
+        lcol = a[k1:, k0:k1]
+        # (2) narrow: update the next panel's column block only
+        if k2 > k1:
+            u12n = _lu_u12(lkk, a[k0:k1, k1:k2])
+            a[k0:k1, k1:k2] = u12n
+            a[k1:, k1:k2] -= lcol @ u12n
+            # (3) factor panel k+1 from it (critical path)
+            panel, piv = _lu_panel(a[k1:, k1:k2])
+            a[k1:, k1:k2] = panel
+            ipiv[k1:k2] = k1 + piv
+            pend_piv, pend_k0 = piv, k1
+        # (4) wide trailing update, independent of the panel above
+        if k2 < N:
+            u12w = _lu_u12(lkk, a[k0:k1, k2:])
+            a[k0:k1, k2:] = u12w
+            a[k1:, k2:] -= lcol @ u12w
+    return a, ipiv
+
+
 def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked right-looking LU on padded (M, N) dense; returns packed
     LU and global pivot swaps (length min(M, N)). The branches of the
-    reference this slice reaches: the single-device carry form, and
-    the unrolled loop (nt == 1). The reference's bf16 width cap to its
-    rank-1 Pallas panel is off here: that kernel is not ported. (getrf
-    turns the tournament, no-pivot and grid branches away first.)"""
+    reference this slice reaches, in its order: the width cap to the
+    rank-1 kernel for dtypes that take it, the single-device carry form
+    (library-LU dtypes), the pipelined form (others, lookahead >= 1),
+    and the unrolled loop. (getrf turns the tournament, no-pivot and
+    grid branches away first.)"""
     M, N = a.shape
     kmax = min(M, N)
+    # the rank-1 kernel's width cap, resolved ONCE through the tune
+    # arbitration (("lu_panel", "max_w")), so this planner and the
+    # kernel's gate agree
+    lu_max_w = pk._lu_max_w()
+    pallas_capped = (not MethodFactor.native_lu_dtype_ok(a.dtype)
+                     and pk.lu_panel_eligible(min(M, 128),
+                                              min(nb, lu_max_w), a.dtype,
+                                              a.device)
+                     # the reference's step-count limit (a TPU compile
+                     # budget), kept so both packages block alike
+                     and ceil_div(kmax, lu_max_w) <= 16)
+    if pallas_capped:
+        # cap the panel width at the rank-1 kernel's limit so each
+        # panel is one dispatch. The gate is probed at a nominal SHORT
+        # height: the kernel's height cap is per panel, so a tall first
+        # panel must not stop the cap (tall panels fall to the fori
+        # loop, where the narrow width bounds the sequential cost too)
+        nb = min(nb, lu_max_w)
     nt = ceil_div(kmax, nb)
     if M == N and nt > LU_SCAN_THRESHOLD:
         raise _not_ported("the scan form of getrf (more than %d block "
@@ -196,7 +306,7 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1
         # limit; native_lu_ok has no height limit here)
         return _getrf_carry(a, nb)
     if lookahead >= 1 and nt > 1:
-        raise _not_ported("the pipelined (lookahead) getrf form")
+        return _getrf_pipelined(a, nb)
     ipiv = torch.arange(kmax, dtype=torch.int32, device=a.device)
     a = a.clone()
     for k in range(nt):
@@ -210,9 +320,7 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1
             a[k0:, k1:] = _permute_rows(a[k0:, k1:], perm)
         ipiv[k0:k1] = k0 + piv
         if k1 < N:
-            u12 = torch.linalg.solve_triangular(
-                a[k0:k1, k0:k1], a[k0:k1, k1:], upper=False, left=True,
-                unitriangular=True)
+            u12 = _lu_u12(a[k0:k1, k0:k1], a[k0:k1, k1:])
             a[k0:k1, k1:] = u12
             if k1 < M:
                 a[k1:, k1:] -= a[k1:, k0:k1] @ u12
@@ -324,3 +432,53 @@ def gesv(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None
     with ph("gesv::getrs"):
         X = getrs(F, B, opts)
     return F, X
+
+
+# -- mixed precision ------------------------------------------------------
+
+@instrument_driver("gesv_mixed")
+def gesv_mixed(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None):
+    """Mixed-precision LU with iterative refinement (reference
+    src/gesv_mixed.cc:24-40): a lo-precision factor (f32 -> bf16,
+    f64 -> f32), hi-precision residuals, and a full-precision solve as
+    the fallback on non-convergence.
+
+    Returns (factors_lo, X, iters); iters < 0 means the fallback
+    full-precision solve produced X (reference info semantics)."""
+    from .refine import iterative_refinement, lo_dtype, lo_rhs_solver
+    r = A.resolve()
+    lo = lo_dtype(r.dtype)
+    A_lo = dataclasses.replace(r, data=r.data.to(lo))
+    F = getrf(A_lo, opts)
+    solve_lo = lo_rhs_solver(B, lo, lambda rhs: getrs(F, rhs, opts))
+
+    def full_solve():
+        return getrs(getrf(A, opts), B, opts).to_dense()
+
+    x, iters = iterative_refinement(A, B, solve_lo, full_solve, opts)
+    return F, _store(B, x), iters
+
+
+@instrument_driver("gesv_mixed_gmres")
+def gesv_mixed_gmres(A: TiledMatrix, B: TiledMatrix,
+                     opts: OptionsLike = None):
+    """Mixed-precision FGMRES-IR (reference src/gesv_mixed_gmres.cc:
+    restarted FGMRES, restart = min(30, itermax, mb - 1),
+    right-preconditioned by the lo-precision LU solve). One right-hand
+    side, like the reference."""
+    from .refine import fgmres_ir, lo_dtype, lo_rhs_solver
+    r = A.resolve()
+    slate_assert(B.shape[1] == 1,
+                 "gesv_mixed_gmres supports one right-hand side "
+                 "(reference gesv_mixed_gmres.cc nrhs==1 limitation)")
+    lo = lo_dtype(r.dtype)
+    A_lo = dataclasses.replace(r, data=r.data.to(lo))
+    F = getrf(A_lo, opts)
+    solve_lo = lo_rhs_solver(B, lo, lambda rhs: getrs(F, rhs, opts))
+
+    def full_solve():
+        return getrs(getrf(A, opts), B, opts).to_dense()
+
+    x, iters = fgmres_ir(A, B, solve_lo, full_solve,
+                         restart_cap=max(r.mb - 1, 1), opts=opts)
+    return F, _store(B, x), iters

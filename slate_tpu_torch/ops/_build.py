@@ -37,13 +37,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBS = {
     "lu_panel_rec": ("lu_panel_rec.cu", {
         "slate_set_device": [_I],
-        "lu_rec_base": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-        "lu_rec_solve_leaf": [_P, _I, _I, _I, _I, _I, _P],
-        "lu_rec_mm_update": [_P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "lu_rec_base": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+        "lu_rec_solve_leaf": [_P, _I, _I, _I, _I, _I, _I, _P],
+        "lu_rec_mm_update": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     }),
     "rank_update": ("rank_update.cu", {
         "slate_set_device": [_I],
-        "rank_update": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "rank_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+    "lu_panel": ("lu_panel.cu", {
+        "slate_set_device": [_I],
+        "lu_panel": [_P, _P, _I, _I, _P, _P, _I, _P],
+    }),
+    "compose_swaps": ("compose_swaps.cu", {
+        "slate_set_device": [_I],
+        "compose_swaps": [_P, _I, _I, _P, _P],
     }),
 }
 

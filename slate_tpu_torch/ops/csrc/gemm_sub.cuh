@@ -1,22 +1,32 @@
-// Shared-memory-tiled f32 GEMM-with-subtract: D = C - A * B.
+// Shared-memory-tiled GEMM-with-subtract: D = T(C - T(A * B)).
 //
 // The product step of both ported LU kernels: the masked rank-w/2
 // update inside the recursive panel (lu_panel_rec.cu) and the
 // row-gridded trailing update of the tall-panel split
-// (rank_update.cu). All operands are row-major strided views; D may
-// alias C (each element is read and then written by the same thread),
-// and A and B must not overlap D.
+// (rank_update.cu). All operands are row-major strided views of one
+// storage type T (float or __nv_bfloat16); D may alias C (each element
+// is read and then written by the same thread), and A and B must not
+// overlap D.
+//
+// Arithmetic is the reference's (pallas_kernels.py :490-494, :606-611):
+// the products accumulate in f32, the sum is rounded to T, and the
+// subtract is an f32 op rounded to T. For f32 both roundings are the
+// identity.
 //
 // Bound on an H100: f32 CUDA-core FLOPs (TF32 is off, and wgmma has no
-// f32 inputs). Design: 64x64 output tiles, 16-deep K slabs staged in
-// shared memory, 256 threads each accumulating a 4x4 register block
-// with fmaf; rows/columns strided by 16 so the shared-memory reads are
-// conflict-free broadcasts. Ragged edges are masked with zero fill, so
-// any M, N, K is taken. Not tuned: no double buffering, no cp.async.
+// f32 inputs); for bf16 the tensor cores could take the products, which
+// this kernel does not use yet. Design: 64x64 output tiles, 16-deep K
+// slabs staged in shared memory as f32, 256 threads each accumulating a
+// 4x4 register block with fmaf; rows/columns strided by 16 so the
+// shared-memory reads are conflict-free broadcasts. Ragged edges are
+// masked with zero fill, so any M, N, K is taken. Not tuned: no double
+// buffering, no cp.async, no wgmma.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "lu_base.cuh"
 
 namespace slate_torch {
 
@@ -25,11 +35,11 @@ constexpr int GS_BN = 64;
 constexpr int GS_BK = 16;
 constexpr int GS_THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(GS_THREADS)
-gemm_sub_kernel(const float* C, long ldc,
-                const float* __restrict__ A, long lda,
-                const float* __restrict__ B, long ldb,
-                float* D, long ldd, int M, int N, int K) {
+gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
+                const T* __restrict__ B, long ldb, T* D, long ldd, int M,
+                int N, int K) {
     __shared__ float As[GS_BK][GS_BM + 4];   // A tile, k-major
     __shared__ float Bs[GS_BK][GS_BN + 4];
     const int tid = threadIdx.x;
@@ -45,12 +55,14 @@ gemm_sub_kernel(const float* C, long ldc,
         for (int e = tid; e < GS_BM * GS_BK; e += GS_THREADS) {
             const int r = e / GS_BK, c = e % GS_BK;
             const int gr = row0 + r, gc = k0 + c;
-            As[c][r] = (gr < M && gc < K) ? A[(long)gr * lda + gc] : 0.f;
+            As[c][r] = (gr < M && gc < K) ? to_f(A[(long)gr * lda + gc])
+                                          : 0.f;
         }
         for (int e = tid; e < GS_BK * GS_BN; e += GS_THREADS) {
             const int r = e / GS_BN, c = e % GS_BN;
             const int gr = k0 + r, gc = col0 + c;
-            Bs[r][c] = (gr < K && gc < N) ? B[(long)gr * ldb + gc] : 0.f;
+            Bs[r][c] = (gr < K && gc < N) ? to_f(B[(long)gr * ldb + gc])
+                                          : 0.f;
         }
         __syncthreads();
 #pragma unroll
@@ -76,19 +88,20 @@ gemm_sub_kernel(const float* C, long ldc,
         for (int j = 0; j < 4; ++j) {
             const int c = col0 + tx + 16 * j;
             if (c < N)
-                D[(long)r * ldd + c] = C[(long)r * ldc + c] - acc[i][j];
+                D[(long)r * ldd + c] = from_f<T>(__fsub_rn(
+                    to_f(C[(long)r * ldc + c]), rnd<T>(acc[i][j])));
         }
     }
 }
 
 // Launch D = C - A B on `stream`; returns cudaGetLastError().
-inline int launch_gemm_sub(const float* C, long ldc, const float* A,
-                           long lda, const float* B, long ldb, float* D,
-                           long ldd, int M, int N, int K,
-                           cudaStream_t stream) {
+template <typename T>
+int launch_gemm_sub(const T* C, long ldc, const T* A, long lda, const T* B,
+                    long ldb, T* D, long ldd, int M, int N, int K,
+                    cudaStream_t stream) {
     if (M <= 0 || N <= 0) return (int)cudaGetLastError();
     dim3 grid((N + GS_BN - 1) / GS_BN, (M + GS_BM - 1) / GS_BM);
-    gemm_sub_kernel<<<grid, GS_THREADS, 0, stream>>>(
+    gemm_sub_kernel<T><<<grid, GS_THREADS, 0, stream>>>(
         C, ldc, A, lda, B, ldb, D, ldd, M, N, K);
     return (int)cudaGetLastError();
 }

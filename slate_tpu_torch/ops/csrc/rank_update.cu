@@ -8,9 +8,14 @@
 // multiples of a row-block height; the port launches it for every
 // height (ops/kernels.py _rank_update).
 //
-// Bound on an H100: f32 CUDA-core FLOPs (2 m2 w1 w2; TF32 is off);
-// design as in gemm_sub.cuh. Operands are row-major and contiguous;
-// the wrapper allocates `out`.
+// f32 and bf16 operands (bf16 != 0): the products accumulate in f32,
+// then out = T(A22 - T(P)), as the reference's
+// `a - P.astype(a.dtype)`.
+//
+// Bound on an H100: f32 CUDA-core FLOPs (2 m2 w1 w2; TF32 is off); for
+// bf16 the tensor cores could do the products at 989 TFLOP/s, so there
+// the bound is the bytes. Design as in gemm_sub.cuh. Operands are
+// row-major and contiguous; the wrapper allocates `out`.
 
 #include <cuda_runtime.h>
 
@@ -22,9 +27,17 @@ extern "C" int slate_set_device(int device) {
     return (int)cudaGetLastError();
 }
 
-extern "C" int rank_update(const float* a22, const float* l21,
-                           const float* u12, float* out, int m2, int w2,
-                           int w1, void* stream) {
-    return slate_torch::launch_gemm_sub(a22, w2, l21, w1, u12, w2, out, w2,
-                                        m2, w2, w1, (cudaStream_t)stream);
+extern "C" int rank_update(const void* a22, const void* l21,
+                           const void* u12, void* out, int m2, int w2,
+                           int w1, int bf16, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16) {
+        typedef __nv_bfloat16 T;
+        return slate_torch::launch_gemm_sub<T>(
+            (const T*)a22, w2, (const T*)l21, w1, (const T*)u12, w2,
+            (T*)out, w2, m2, w2, w1, s);
+    }
+    return slate_torch::launch_gemm_sub<float>(
+        (const float*)a22, w2, (const float*)l21, w1, (const float*)u12,
+        w2, (float*)out, w2, m2, w2, w1, s);
 }

@@ -1,31 +1,41 @@
 """Hand-written Hopper kernels (counterpart of
 ``slate_tpu/ops/pallas_kernels.py``), with the ported entries only:
-the block-recursive LU panel ``lu_panel_rec`` and the trailing update
-``_rank_update`` of its tall-panel split.
+the block-recursive LU panel ``lu_panel_rec``, the trailing update
+``_rank_update`` of its tall-panel split, the rank-1 LU panel
+``lu_panel``, and the swap composition ``lu_pivots_to_permutation``
+(the port of XLA's builtin of that name, which the reference calls
+between panels).
 
 Every kernel here has three parts side by side:
 
   * the CUDA C++ kernel, in ``csrc/`` (built by ``_build.py``);
-  * a launch wrapper (``_lu_panel_rec_launch``, ``_rank_update``, the
-    counterparts of ``_lu_panel_rec_pallas`` and ``_rank_update``) that launches the kernel for a CUDA
-    tensor and adds one to its ``launches`` count there, and nowhere
-    else; it raises on what the kernel does not take. There is no
-    fall back: for a tensor on the CPU, and only then, it computes the
-    kernel's plain version instead;
+  * a launch wrapper (``_lu_panel_rec_launch``, ``_rank_update``,
+    ``_lu_panel_launch``, ``lu_pivots_to_permutation``) that launches
+    the kernel for a CUDA tensor and adds one to its ``launches`` count
+    there, and nowhere else; it raises on what the kernel does not
+    take. There is no fall back: for a tensor on the CPU, and only
+    then, it computes the kernel's plain version instead;
   * the plain PyTorch version (``panel_rec_plain``,
-    ``rank_update_plain``), the same function with the same recursion
-    and pivot tie-break, which the CPU tests hold against the JAX
-    package and ``chip_smoke.py`` holds against the kernel on the card
+    ``rank_update_plain``, ``lu_panel_plain``, ``compose_swaps_plain``),
+    the same function with the same recursion, pivot tie-break and
+    rounding, which the CPU tests hold against the JAX package and
+    ``chip_smoke.py`` holds against the kernel on the card
     (``lu_panel_rec_plain`` is the whole public entry on plain parts).
 
-ARBITRATION CONTRACT, as in the reference: the public entry has an
-eligibility gate (``lu_panel_rec_reject_reason`` / ``_eligible``) and
-returns ``None`` when it rejects, so the caller keeps its fallback; it
-has a tune op with a FROZEN row (``KERNEL_REGISTRY``); with the tune
-cache cold, no driver routes to it. The gates use the reference's
-numbers (LU_REC_MAX_W, LU_REC_IB, LU_REC_MAX_ELEMS), so both packages
-split panels at the same points. f32 only in this slice: bf16 is
-rejected with reason "dtype".
+The panel kernels take f32 and bf16 panels. Arithmetic is f32 and each
+result is rounded to the panel type where the reference rounds it:
+multipliers ``bf16(f32(col) / f32(safe))``, rank-1 updates
+``bf16(x - bf16(mu * u))``, products accumulated in f32 and rounded
+before the subtract. torch's bf16 elementwise ops already round after
+each op, so the plain versions spell out only the f32 division and the
+f32 products.
+
+ARBITRATION CONTRACT, as in the reference: each public panel entry has
+an eligibility gate (``*_reject_reason`` / ``*_eligible``) and returns
+``None`` when it rejects, so the caller keeps its fallback; it has a
+tune op with a FROZEN row (``KERNEL_REGISTRY``). The gates use the
+reference's numbers (LU_REC_*, LU_PANEL_*), so both packages route and
+split panels at the same points.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from . import _build
 
 #: public kernel entry point -> (eligibility gate, tune-cache op)
 KERNEL_REGISTRY = {
+    "lu_panel": ("lu_panel_eligible", "lu_panel"),
     "lu_panel_rec": ("lu_panel_rec_eligible", "lu_panel"),
 }
 
@@ -48,6 +59,14 @@ LU_REC_MAX_W = 512
 LU_REC_IB = 32
 #: single-dispatch budget in f32-equivalent panel ELEMENTS (m * w)
 LU_REC_MAX_ELEMS = 8192 * 256
+
+#: widest rank-1 panel (tune key ("lu_panel", "max_w"))
+LU_PANEL_MAX_W = 256
+#: tallest f32 rank-1 panel; bf16 halves it (methods.vmem_height_cap)
+LU_PANEL_MAX_M = 8192
+
+#: panel types the kernels take
+PANEL_DTYPES = (torch.float32, torch.bfloat16)
 
 #: reject reason of a tensor the kernels cannot take (the reference's
 #: "platform")
@@ -63,18 +82,49 @@ def _reject(kernel: str, reason: str, **args) -> None:
                     reason=reason, **args)
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cuda(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
 # -- permutations ----------------------------------------------------------
 
-def lu_pivots_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
-    """Compose the swap sequence (j <-> piv[j], in order) into one
-    permutation of range(m): a plain port of XLA's
-    ``lu_pivots_to_permutation``. Runs on the host (the swaps are
-    sequential); returns int64 on piv's device."""
+def compose_swaps_plain(piv: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain version: the swaps composed on the host (numpy loop);
+    int64 on piv's device."""
     p = piv.detach().cpu().numpy()
     perm = np.arange(m)
     for j, t in enumerate(p.tolist()):
         perm[j], perm[t] = perm[t], perm[j]
     return torch.as_tensor(perm, device=piv.device)
+
+
+def lu_pivots_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
+    """Compose the swap sequence (j <-> piv[j], in order) into one
+    permutation of range(m), int64 on piv's device: the port of XLA's
+    ``lu_pivots_to_permutation``. A CUDA tensor goes through the
+    ``compose_swaps`` kernel (one launch, no host synchronisation,
+    counted); a CPU tensor through the plain version."""
+    if piv.device.type != "cuda":
+        return compose_swaps_plain(piv, m)
+    if piv.dim() != 1:
+        raise ValueError("compose_swaps kernel takes a 1-D pivot vector, "
+                         "got %s" % (tuple(piv.shape),))
+    lib = _build.load("compose_swaps")
+    _build.check(lib.slate_set_device(piv.get_device()), "slate_set_device")
+    piv = piv.to(torch.int32).contiguous()
+    perm = torch.empty(m, dtype=torch.int64, device=piv.device)
+    _build.check(lib.compose_swaps(piv.data_ptr(), piv.shape[0], m,
+                                   perm.data_ptr(), _stream(piv)),
+                 "compose_swaps")
+    lu_pivots_to_permutation.launches += 1
+    return perm
+
+
+lu_pivots_to_permutation.launches = 0
 
 
 # -- eligibility -----------------------------------------------------------
@@ -118,11 +168,11 @@ def lu_panel_rec_reject_reason(m: int, w: int, dtype, device=None,
                                ib: Optional[int] = None) -> Optional[str]:
     """Why (m, w) will not factor through the recursive panel kernel
     (None == eligible): NOT_CUDA (the data is not on a CUDA device),
-    'dtype' (f32 only in this slice), then the reference's shape
-    reasons 'width', 'aspect', 'align', 'height'."""
-    if device is None or torch.device(device).type != "cuda":
+    'dtype' (not f32/bf16), then the reference's shape reasons
+    'width', 'aspect', 'align', 'height'."""
+    if not _on_cuda(device):
         return NOT_CUDA
-    if dtype != torch.float32:
+    if dtype not in PANEL_DTYPES:
         return "dtype"
     return _rec_shape_reason(m, w, dtype, max_elems, ib)
 
@@ -130,6 +180,71 @@ def lu_panel_rec_reject_reason(m: int, w: int, dtype, device=None,
 def lu_panel_rec_eligible(m: int, w: int, dtype, device=None) -> bool:
     """ROUTING gate for the block-recursive panel."""
     return lu_panel_rec_reject_reason(m, w, dtype, device) is None
+
+
+def _lu_max_w() -> int:
+    """The rank-1 kernel's width cap (tune key ("lu_panel", "max_w"),
+    FROZEN default LU_PANEL_MAX_W), resolved like every other knob."""
+    from ..tune.select import tuned_int
+    return tuned_int("lu_panel", "max_w", LU_PANEL_MAX_W)
+
+
+def _lu_shape_ok(m: int, w: int, dtype) -> bool:
+    from ..core.methods import vmem_height_cap
+    return w <= _lu_max_w() and m <= vmem_height_cap(LU_PANEL_MAX_M, dtype) \
+        and m % 128 == 0 and w % 8 == 0
+
+
+def lu_panel_reject_reason(m: int, w: int, dtype, device=None
+                           ) -> Optional[str]:
+    """Why an (m, w) panel will NOT run as one rank-1 kernel (None ==
+    eligible), in the reference's order: NOT_CUDA (its 'platform'),
+    'dtype' (not f32/bf16), 'width' (> the tuned max_w), 'height'
+    (above the itemsize-scaled cap: 8192 rows f32, 4096 bf16, the
+    reference's numbers, so both packages route the same panels),
+    'align' (m % 128 / w % 8)."""
+    from ..core.methods import vmem_height_cap
+    if not _on_cuda(device):
+        return NOT_CUDA
+    if dtype not in PANEL_DTYPES:
+        return "dtype"
+    if w > _lu_max_w():
+        return "width"
+    if m > vmem_height_cap(LU_PANEL_MAX_M, dtype):
+        return "height"
+    if m % 128 != 0 or w % 8 != 0:
+        return "align"
+    return None
+
+
+def lu_panel_eligible(m: int, w: int, dtype, device=None) -> bool:
+    """ROUTING gate for the rank-1 panel, shared by lu._lu_panel and
+    the driver's panel-width cap."""
+    return lu_panel_reject_reason(m, w, dtype, device) is None
+
+
+# -- plain versions of the panel recurrences --------------------------------
+
+def _segment_plain(out: torch.Tensor, piv: list, c0: int, e: int) -> None:
+    """Columns [c0, e) of `out`, in place: per column the argmax pivot
+    (``torch.argmax`` returns the first maximum, so the lowest row wins
+    ties), the full-row swap, the f32 safe divide rounded to the panel
+    type, and the rank-1 update confined to the segment."""
+    for j in range(c0, min(e, out.shape[0])):
+        p = j + int(torch.argmax(out[j:, j].float().abs()))
+        piv[j] = p
+        if p != j:
+            out[[j, p]] = out[[p, j]]
+        pivval = out[j, j].float()
+        safe = torch.where(pivval == 0, torch.ones_like(pivval), pivval)
+        mults = (out[j + 1:, j].float() / safe).to(out.dtype)
+        out[j + 1:, j] = mults
+        out[j + 1:, j + 1:e] -= torch.outer(mults, out[j, j + 1:e])
+
+
+def _product(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """L @ U accumulated in f32, rounded to the operands' type."""
+    return (l.float() @ u.float()).to(l.dtype)
 
 
 # -- the recursion both versions share -------------------------------------
@@ -167,26 +282,14 @@ def _rec_drive(m: int, w: int, ib: int, base: Callable,
 def panel_rec_plain(a: torch.Tensor, ib: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ONE recursive panel dispatch, on any
-    device: (packed LU, int32 swap targets). Pivot search takes the
-    lowest row among equal magnitudes (``torch.argmax`` returns the
-    first maximum), as lu_panel_fori does."""
+    device: (packed LU, int32 swap targets), with the kernel's rounding
+    (module doc)."""
     m, w = a.shape
     out = a.clone()
     piv = [0] * w
 
     def base(c0, wseg):
-        e = c0 + wseg
-        for j in range(c0, e):
-            p = j + int(torch.argmax(out[j:, j].abs()))
-            piv[j] = p
-            if p != j:
-                out[[j, p]] = out[[p, j]]
-            pivval = out[j, j]
-            safe = torch.where(pivval == 0, torch.ones_like(pivval),
-                               pivval)
-            mults = out[j + 1:, j] / safe
-            out[j + 1:, j] = mults
-            out[j + 1:, j + 1:e] -= torch.outer(mults, out[j, j + 1:e])
+        _segment_plain(out, piv, c0, c0 + wseg)
 
     def leaf(c0, ws, c1, c2):
         for r in range(c0, c0 + ws):
@@ -194,53 +297,63 @@ def panel_rec_plain(a: torch.Tensor, ib: int
                 out[r + 1:c0 + ws, r], out[r, c1:c2])
 
     def mm(r0, r1, k0, k1, c0, c1):
-        out[r0:r1, c0:c1] -= out[r0:r1, k0:k1] @ out[k0:k1, c0:c1]
+        out[r0:r1, c0:c1] -= _product(out[r0:r1, k0:k1],
+                                      out[k0:k1, c0:c1])
 
     _rec_drive(m, w, ib, base, leaf, mm)
     return out, torch.tensor(piv, dtype=torch.int32, device=a.device)
 
 
-#: candidate slots of the base case's cooperative grid (MAX_BLOCKS in
-#: csrc/lu_panel_rec.cu)
+#: candidate slots of the base case's cooperative grid (BASE_MAX_BLOCKS
+#: in csrc/lu_base.cuh)
 _BASE_MAX_BLOCKS = 1024
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _panel_launch_setup(name: str, a: torch.Tensor):
+    """What both panel kernels take: the library on a's device, the
+    output (a contiguous copy of the panel, factored in place), the
+    int32 pivots, and the cooperative base case's scratch
+    (csrc/lu_base.cuh launch_lu_base: per-block pivot candidates and
+    posted rows, one grid-barrier counter). Raises on a panel the
+    kernels do not take."""
+    m, w = a.shape
+    if a.dtype not in PANEL_DTYPES or w > LU_REC_MAX_W:
+        raise ValueError("%s kernel takes an f32/bf16 (m, w) panel with "
+                         "w <= %d, got %s %s" % (name, LU_REC_MAX_W,
+                                                 tuple(a.shape), a.dtype))
+    lib = _build.load(name)
+    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    out = a.clone(memory_format=torch.contiguous_format)
+    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
+    scr_f = torch.empty(2 * _BASE_MAX_BLOCKS + 4 * w, dtype=torch.float32,
+                        device=a.device)
+    scr_i = torch.empty(1 + 2 * _BASE_MAX_BLOCKS, dtype=torch.int32,
+                        device=a.device)
+    return lib, out, piv, scr_f, scr_i
 
 
 def _lu_panel_rec_cuda(a: torch.Tensor, ib: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     m, w = a.shape
-    if a.dtype != torch.float32 or not (w <= m and w <= LU_REC_MAX_W
-                                        and ib >= 1):
-        raise ValueError("lu_panel_rec kernel takes an f32 (m, w) panel "
-                         "with w <= m and w <= %d, got %s %s ib=%d"
-                         % (LU_REC_MAX_W, tuple(a.shape), a.dtype, ib))
-    lib = _build.load("lu_panel_rec")
-    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
-    out = a.clone(memory_format=torch.contiguous_format)
-    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
-    # base-case scratch: per-block pivot candidates and posted rows
-    # (csrc/lu_panel_rec.cu lu_rec_base), one grid-barrier counter
-    scr_f = torch.empty(2 * _BASE_MAX_BLOCKS + 4 * w, dtype=torch.float32,
-                        device=a.device)
-    scr_i = torch.empty(1 + 2 * _BASE_MAX_BLOCKS, dtype=torch.int32,
-                        device=a.device)
+    if not (w <= m and ib >= 1):
+        raise ValueError("lu_panel_rec kernel takes w <= m and ib >= 1, "
+                         "got %s ib=%d" % (tuple(a.shape), ib))
+    lib, out, piv, scr_f, scr_i = _panel_launch_setup("lu_panel_rec", a)
     ptr, pptr, s = out.data_ptr(), piv.data_ptr(), _stream(a)
+    bf16 = int(a.dtype == torch.bfloat16)
 
     def base(c0, wseg):
         _build.check(lib.lu_rec_base(ptr, pptr, m, w, c0, wseg,
-                                     scr_f.data_ptr(), scr_i.data_ptr(), s),
-                     "lu_rec_base")
+                                     scr_f.data_ptr(), scr_i.data_ptr(),
+                                     bf16, s), "lu_rec_base")
 
     def leaf(c0, ws, c1, c2):
-        _build.check(lib.lu_rec_solve_leaf(ptr, w, c0, ws, c1, c2, s),
+        _build.check(lib.lu_rec_solve_leaf(ptr, w, c0, ws, c1, c2, bf16, s),
                      "lu_rec_solve_leaf")
 
     def mm(r0, r1, k0, k1, c0, c1):
         _build.check(lib.lu_rec_mm_update(ptr, w, r0, r1, k0, k1, c0, c1,
-                                          s), "lu_rec_mm_update")
+                                          bf16, s), "lu_rec_mm_update")
 
     _rec_drive(m, w, ib, base, leaf, mm)
     return out, piv
@@ -266,8 +379,9 @@ _lu_panel_rec_launch.launches = 0
 
 def rank_update_plain(a22: torch.Tensor, l21: torch.Tensor,
                       u12: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: A22 - L21 @ U12."""
-    return a22 - l21 @ u12
+    """Plain PyTorch version: A22 - L21 @ U12, the product accumulated
+    in f32 and rounded to A22's type before the subtract."""
+    return a22 - _product(l21, u12)
 
 
 def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
@@ -282,19 +396,22 @@ def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
         return rank_update_plain(a22, l21, u12)
     m2, w2 = a22.shape
     w1 = l21.shape[1]
-    if not (a22.dtype == l21.dtype == u12.dtype == torch.float32
+    if not (a22.dtype == l21.dtype == u12.dtype
+            and a22.dtype in PANEL_DTYPES
             and l21.shape[0] == m2 and tuple(u12.shape) == (w1, w2)
             and l21.device == u12.device == a22.device):
-        raise ValueError("rank_update kernel takes f32 CUDA (m2, w2), "
-                         "(m2, w1), (w1, w2); got %s %s %s"
-                         % (tuple(a22.shape), tuple(l21.shape),
-                            tuple(u12.shape)))
+        raise ValueError("rank_update kernel takes f32 or bf16 CUDA "
+                         "(m2, w2), (m2, w1), (w1, w2) of one type; got "
+                         "%s %s %s %s" % (tuple(a22.shape),
+                                          tuple(l21.shape),
+                                          tuple(u12.shape), a22.dtype))
     lib = _build.load("rank_update")
     _build.check(lib.slate_set_device(a22.get_device()), "slate_set_device")
     a22, l21, u12 = a22.contiguous(), l21.contiguous(), u12.contiguous()
     out = torch.empty_like(a22)
     _build.check(lib.rank_update(a22.data_ptr(), l21.data_ptr(),
                                  u12.data_ptr(), out.data_ptr(), m2, w2, w1,
+                                 int(a22.dtype == torch.bfloat16),
                                  _stream(a22)), "rank_update")
     _rank_update.launches += 1
     return out
@@ -303,7 +420,7 @@ def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
 _rank_update.launches = 0
 
 
-# -- the public entry ------------------------------------------------------
+# -- the recursive panel's public entry ------------------------------------
 
 def _lu_rec_split(a: torch.Tensor, ib: Optional[int], max_elems: int,
                   panel: Callable = None, update: Callable = None
@@ -314,7 +431,9 @@ def _lu_rec_split(a: torch.Tensor, ib: Optional[int], max_elems: int,
     on the right, then permute the left half's lower rows by the
     right's pivots. The pivot SEQUENCE equals factoring the whole
     panel column by column. `panel`/`update` default to the kernel
-    wrappers; lu_panel_rec_plain passes the plain versions."""
+    wrappers; lu_panel_rec_plain passes the plain versions. Nothing
+    here reads a device value on the host."""
+    from ..linalg.blocked import solve_triangular
     panel = panel or _lu_panel_rec_launch
     update = update or _rank_update
     m, w = a.shape
@@ -323,15 +442,21 @@ def _lu_rec_split(a: torch.Tensor, ib: Optional[int], max_elems: int,
     w1 = w // 2
     left, piv1 = _lu_rec_split(a[:, :w1], ib, max_elems, panel, update)
     right = a[:, w1:][lu_pivots_to_permutation(piv1, m)]
-    u12 = torch.linalg.solve_triangular(left[:w1, :w1], right[:w1],
-                                        upper=False, left=True,
-                                        unitriangular=True)
+    u12 = solve_triangular(left[:w1, :w1], right[:w1], upper=False,
+                           unitriangular=True)
     a22 = update(right[w1:], left[w1:, :w1], u12)
     sub, piv2 = _lu_rec_split(a22, ib, max_elems, panel, update)
     perm2 = lu_pivots_to_permutation(piv2, m - w1)
     left = torch.cat([left[:w1], left[w1:][perm2]], dim=0)
     packed = torch.cat([left, torch.cat([u12, sub], dim=0)], dim=1)
     return packed, torch.cat([piv1, w1 + piv2])
+
+
+def _runnable_on_cpu(reason: Optional[str], dtype, shape_ok: bool) -> bool:
+    """A rejection the plain versions still serve: the tensor is on the
+    CPU (the counterpart of the reference's interpret mode off-TPU) and
+    the kernel would take its type and shape."""
+    return reason == NOT_CUDA and dtype in PANEL_DTYPES and shape_ok
 
 
 def lu_panel_rec(a: torch.Tensor, ib: Optional[int] = None,
@@ -341,16 +466,15 @@ def lu_panel_rec(a: torch.Tensor, ib: Optional[int] = None,
     one kernel dispatch when (m, w) fits the element budget, the
     host-level halving with the trailing-update kernel when taller.
     Returns None (with the reason as an obs instant) when the shape or
-    dtype is ineligible. A CPU tensor of an eligible shape takes the
-    plain versions (the counterpart of the reference's interpret mode
-    off-TPU). `ib` overrides the tuned base-case width, `max_elems`
-    the single-dispatch budget."""
+    dtype is ineligible. A CPU tensor of an eligible shape and type
+    takes the plain versions. `ib` overrides the tuned base-case
+    width, `max_elems` the single-dispatch budget."""
     m, w = a.shape
     reason = lu_panel_rec_reject_reason(m, w, a.dtype, a.device,
                                         max_elems, ib)
-    if reason is not None and not (
-            reason == NOT_CUDA and a.dtype == torch.float32
-            and _rec_shape_reason(m, w, a.dtype, max_elems, ib) is None):
+    if reason is not None and not _runnable_on_cpu(
+            reason, a.dtype,
+            _rec_shape_reason(m, w, a.dtype, max_elems, ib) is None):
         _reject("lu_panel_rec", reason, m=m, w=w, dtype=str(a.dtype))
         return None
     return _lu_rec_split(a, ib, _rec_max_elems(a.dtype, max_elems))
@@ -366,12 +490,65 @@ def lu_panel_rec_plain(a: torch.Tensor, ib: Optional[int] = None,
                          panel_rec_plain, rank_update_plain)
 
 
+# -- the rank-1 panel --------------------------------------------------------
+
+def lu_panel_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the rank-1 panel, on any device: the
+    base-case recurrence over the whole width; (packed LU, int32 swap
+    targets)."""
+    out = a.clone()
+    piv = [0] * a.shape[1]
+    _segment_plain(out, piv, 0, a.shape[1])
+    return out, torch.tensor(piv, dtype=torch.int32, device=a.device)
+
+
+def _lu_panel_launch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ONE panel through the rank-1 kernel (the counterpart of one
+    ``_lu_panel_pallas`` dispatch): the CUDA kernel for a CUDA tensor,
+    counted; the plain version for a CPU tensor."""
+    if a.device.type != "cuda":
+        return lu_panel_plain(a)
+    m, w = a.shape
+    lib, out, piv, scr_f, scr_i = _panel_launch_setup("lu_panel", a)
+    _build.check(lib.lu_panel(out.data_ptr(), piv.data_ptr(), m, w,
+                              scr_f.data_ptr(), scr_i.data_ptr(),
+                              int(a.dtype == torch.bfloat16), _stream(a)),
+                 "lu_panel")
+    _lu_panel_launch.launches += 1
+    return out, piv
+
+
+_lu_panel_launch.launches = 0
+
+
+def lu_panel(a: torch.Tensor
+             ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(packed, piv int32) partial-pivot LU panel via the rank-1
+    kernel; None, with the reason as an obs instant, when the gate
+    rejects it (the caller falls back to the fori loop). A CPU tensor
+    of a shape and type the kernel takes runs the plain version."""
+    m, w = a.shape
+    reason = lu_panel_reject_reason(m, w, a.dtype, a.device)
+    if reason is not None and not _runnable_on_cpu(
+            reason, a.dtype, _lu_shape_ok(m, w, a.dtype)):
+        _reject("lu_panel", reason, m=m, w=w, dtype=str(a.dtype))
+        return None
+    return _lu_panel_launch(a)
+
+
+# -- counters ----------------------------------------------------------------
+
+_COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
+            "rank_update": _rank_update,
+            "lu_panel": _lu_panel_launch,
+            "compose_swaps": lu_pivots_to_permutation}
+
+
 def launch_counts() -> dict:
     """Launch count of every kernel wrapper, by kernel name."""
-    return {"lu_panel_rec": _lu_panel_rec_launch.launches,
-            "rank_update": _rank_update.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    _lu_panel_rec_launch.launches = 0
-    _rank_update.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0

@@ -52,6 +52,18 @@ def panel_cases(rng, m: int, w: int, ib: int) -> Dict[str, np.ndarray]:
 EXACT_KINDS = ("ties", "zerocol")
 
 
+def bf16_ulps(x, y) -> float:
+    """Largest |x - y| in units of the bf16 ulp (2^-7 relative to the
+    leading bit) of max(|x|, |y|), over arrays of bf16 values given as
+    float; 0 where x == y."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    _, e = np.frexp(np.maximum(np.abs(x), np.abs(y)))
+    d = np.abs(x - y)
+    ulps = np.where(d == 0, 0.0, d / np.ldexp(1.0, e - 8))
+    return float(ulps.max()) if ulps.size else 0.0
+
+
 def permuted_boosted_system(rng, n: int, nrhs: int
                             ) -> Tuple[np.ndarray, np.ndarray]:
     """(A, B) f32: the rows of a diagonally boosted Gaussian matrix

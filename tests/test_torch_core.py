@@ -124,8 +124,8 @@ def test_entry_point_without_device_raises_without_cuda(rng, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """The package and chip_smoke.py import neither jax nor slate_tpu
-    (checked in a fresh interpreter)."""
+    """The package and chip_smoke.py import neither jax, ml_dtypes nor
+    slate_tpu (checked in a fresh interpreter)."""
     code = (
         "import sys, importlib.util\n"
         "import slate_tpu_torch, slate_tpu_torch.testing\n"
@@ -133,8 +133,8 @@ def test_port_imports_no_jax():
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'slate_tpu' or m.startswith('slate_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'slate_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ)
@@ -162,13 +162,20 @@ def test_port_sources_name_no_jax():
                 mods = [node.module or ""]
             for mod in mods:
                 top = mod.split(".")[0]
-                assert top not in ("jax", "jaxlib", "slate_tpu"), \
+                assert top not in ("jax", "jaxlib", "ml_dtypes",
+                                   "slate_tpu"), \
                     (path, mod)
 
 
 def test_tf32_off_at_import():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_bf16_reduced_precision_reduction_off_at_import():
+    # bf16 products accumulate in f32, as the reference's HIGHEST
+    assert torch.backends.cuda.matmul \
+        .allow_bf16_reduced_precision_reduction is False
 
 
 # -- options, tune, methods ----------------------------------------------

@@ -18,7 +18,8 @@ from slate_tpu.tune import cache as jcache
 
 from slate_tpu_torch.linalg.lu import lu_panel_fori
 from slate_tpu_torch.ops import kernels as pk
-from slate_tpu_torch.testing import EXACT_KINDS, panel_cases, spiked
+from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, panel_cases,
+                                     spiked)
 from slate_tpu_torch.tune import cache as tcache
 
 KINDS = ("antidiag", "boundary", "randperm", "ties", "zerocol")
@@ -177,14 +178,19 @@ def test_rank_update_exact_on_dyadic_inputs():
 
 
 def test_pivots_to_permutation_matches_xla():
+    # the CPU wrapper (the plain version) and the plain version itself,
+    # up to the main path's 512 swaps over 16384 rows
     rng = np.random.default_rng(13)
-    m = 300
-    piv = np.array([j + rng.integers(0, m - j) for j in range(64)],
-                   np.int32)
-    ref = np.asarray(jax.lax.linalg.lu_pivots_to_permutation(
-        jnp.asarray(piv), m))
-    out = pk.lu_pivots_to_permutation(torch.as_tensor(piv), m)
-    assert np.array_equal(out.numpy(), ref)
+    for m, w in ((300, 64), (16384, 512)):
+        piv = np.array([j + rng.integers(0, m - j) for j in range(w)],
+                       np.int32)
+        ref = np.asarray(jax.lax.linalg.lu_pivots_to_permutation(
+            jnp.asarray(piv), m))
+        out = pk.lu_pivots_to_permutation(torch.as_tensor(piv), m)
+        assert out.dtype == torch.int64
+        assert np.array_equal(out.numpy(), ref)
+        assert np.array_equal(
+            pk.compose_swaps_plain(torch.as_tensor(piv), m).numpy(), ref)
 
 
 # -- gates, constants, counters -------------------------------------------
@@ -219,27 +225,43 @@ def test_shape_reasons_match_jax(m, w, kw):
 
 
 def test_reject_reasons():
-    # the reference's 'platform' is the tensor's device here
+    # the reference's 'platform' is the tensor's device here; bf16 is a
+    # panel type of the kernel now, other types are 'dtype'
     assert pk.lu_panel_rec_reject_reason(256, 64, torch.float32) \
         == pk.NOT_CUDA
     assert pk.lu_panel_rec_reject_reason(256, 64, torch.float32,
                                          "cpu") == pk.NOT_CUDA
     cuda = torch.device("cuda")
-    assert pk.lu_panel_rec_reject_reason(256, 64, torch.bfloat16,
+    assert pk.lu_panel_rec_reject_reason(256, 64, torch.float16,
                                          cuda) == "dtype"
-    assert pk.lu_panel_rec_reject_reason(256, 64, torch.float32,
-                                         cuda) is None
-    assert pk.lu_panel_rec_eligible(256, 64, torch.float32, cuda)
+    assert pk.lu_panel_rec_reject_reason(256, 64, torch.float64,
+                                         cuda) == "dtype"
+    for dt in (torch.float32, torch.bfloat16):
+        assert pk.lu_panel_rec_reject_reason(256, 64, dt, cuda) is None
+        assert pk.lu_panel_rec_eligible(256, 64, dt, cuda)
     assert not pk.lu_panel_rec_eligible(256, 64, torch.float32, "cpu")
+    # the bf16 element budget (2^20) splits a 16384x512 panel down to
+    # 16384x64 dispatches: 16384 * 32 fits, 65536 * 32 does not
+    assert pk._rec_max_elems(torch.bfloat16, None) == 1 << 20
+    assert pk.lu_panel_rec_reject_reason(16384, 512, torch.bfloat16,
+                                         cuda) is None
+    assert pk.lu_panel_rec_reject_reason(65536, 64, torch.bfloat16,
+                                         cuda) == "height"
 
 
 def test_ineligible_panel_returns_none():
     # CPU runs the plain versions only where the shape is eligible and
-    # the dtype is f32, as the reference's interpret mode
+    # the dtype is one the kernel takes (f32, bf16), as the reference's
+    # interpret mode
     a = torch.zeros((200, 24))
     assert pk.lu_panel_rec(a) is None                  # align
     assert pk.lu_panel_rec(torch.zeros((256, 64),
-                                       dtype=torch.bfloat16)) is None
+                                       dtype=torch.float64)) is None
+    assert pk.lu_panel(torch.zeros((200, 24))) is None
+    assert pk.lu_panel(torch.zeros((256, 64), dtype=torch.float64)) is None
+    assert pk.lu_panel(torch.zeros((256, 264))) is None   # width
+    out = pk.lu_panel_rec(torch.eye(256, 64, dtype=torch.bfloat16))
+    assert out is not None and out[0].dtype == torch.bfloat16
 
 
 def test_cpu_calls_count_no_launch():
@@ -250,4 +272,185 @@ def test_cpu_calls_count_no_launch():
     a = torch.as_tensor(rng.standard_normal((512, 64)).astype(np.float32))
     pk.lu_panel_rec(a, ib=8, max_elems=512 * 16)       # split path
     pk._rank_update(a[:, :8], a[:, 8:16], a[:8, :8])
-    assert pk.launch_counts() == {"lu_panel_rec": 0, "rank_update": 0}
+    pk.lu_panel(a)
+    pk.lu_panel_rec(a.bfloat16(), ib=8, max_elems=512 * 16)
+    pk.lu_pivots_to_permutation(torch.arange(64, dtype=torch.int32), 512)
+    assert pk.launch_counts() == {"lu_panel_rec": 0, "rank_update": 0,
+                                  "lu_panel": 0, "compose_swaps": 0}
+
+
+# -- bf16 panels, the rank-1 panel, the swap composition ---------------------
+
+DTYPES = ("float32", "bfloat16")
+
+
+def _to_jax(a, dtype):
+    return jnp.asarray(a).astype(jnp.dtype(dtype))
+
+
+def _to_torch(a, dtype):
+    return torch.as_tensor(a).to(getattr(torch, dtype))
+
+
+def _f32(x):
+    """float32 numpy view of a port tensor or a JAX array (bf16 ones
+    included: both convert exactly)."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def _assert_values(kind, dtype, out, ref):
+    """Values of a port panel against the JAX kernel's. The zero-noise
+    kinds are exact in every operation: bitwise. Otherwise f32 agrees
+    to rounding of differently ordered sums (1e-5), and bf16 to 2 ulps:
+    XLA on the CPU may keep excess f32 precision inside a bf16 fusion
+    where the port rounds after each op."""
+    out, ref = _f32(out), _f32(ref)
+    if kind in EXACT_KINDS:
+        assert np.array_equal(out, ref)
+    elif dtype == "bfloat16":
+        assert bf16_ulps(out, ref) <= 2.0
+    else:
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def adversarial_rank1():
+    """The adversarial suite through the JAX rank-1 kernel, in both
+    types, once."""
+    cases = panel_cases(np.random.default_rng(42), 256, 32, 8)
+    return {(kind, dt): (a,) + tuple(map(np.asarray,
+                                         jpk.lu_panel(_to_jax(a, dt))))
+            for kind, a in cases.items() for dt in DTYPES}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_lu_panel_adversarial_matches_jax(adversarial_rank1, kind, dtype):
+    a, jp, jpiv = adversarial_rank1[(kind, dtype)]
+    packed, piv = pk.lu_panel(_to_torch(a, dtype))
+    assert piv.dtype == torch.int32
+    assert packed.dtype == getattr(torch, dtype)
+    # the spikes force the pivot sequence: bitwise
+    assert np.array_equal(piv.numpy(), jpiv)
+    _assert_values(kind, dtype, packed, jp)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_lu_panel_rec_bf16_adversarial_matches_jax(kind):
+    a = panel_cases(np.random.default_rng(42), 256, 32, 8)[kind]
+    jp, jpiv = jpk.lu_panel_rec(_to_jax(a, "bfloat16"), ib=8)
+    packed, piv = pk.lu_panel_rec(_to_torch(a, "bfloat16"), ib=8)
+    assert packed.dtype == torch.bfloat16
+    assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+    _assert_values(kind, "bfloat16", packed, jp)
+
+
+def test_lu_panel_rec_bf16_tall_split_matches_jax():
+    """The bf16 tall split (budget forced down to (m, 8)): the pivot
+    sequence bitwise, values within 2 bf16 ulps of the JAX split."""
+    rng = np.random.default_rng(7)
+    m, w = 1024, 32
+    a = spiked(rng, m, w, [m - 1 - j for j in range(w)])
+    jp, jpiv = jpk.lu_panel_rec(_to_jax(a, "bfloat16"), ib=8,
+                                max_elems=m * 8)
+    packed, piv = pk.lu_panel_rec(_to_torch(a, "bfloat16"), ib=8,
+                                  max_elems=m * 8)
+    assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+    # the split's U12 solve runs in f32 and rounds once
+    # (blocked.solve_triangular) where XLA's expander rounds bf16
+    # intermediates: a few entries that cancel far below the noise scale
+    # (1/2) differ by more ulps of their own, so 2 bf16 ulps at that
+    # scale absolute, 2 ulps relative elsewhere
+    np.testing.assert_allclose(_f32(packed), _f32(jp), atol=2.0 ** -8,
+                               rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("m,w", [(256, 256), (512, 128)])
+def test_lu_panel_random_bf16_matches_jax(m, w):
+    """A random Gaussian panel (pivots not forced by spikes): the JAX
+    rank-1 kernel and the port's plain version pick the same pivots and
+    factor to within 2 bf16 ulps; their residuals agree."""
+    a = np.random.default_rng(m + w).standard_normal((m, w)) \
+        .astype(np.float32)
+    jp, jpiv = jpk.lu_panel(_to_jax(a, "bfloat16"))
+    packed, piv = pk.lu_panel(_to_torch(a, "bfloat16"))
+    assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+    assert bf16_ulps(_f32(packed), _f32(jp)) <= 2.0
+
+
+@pytest.mark.parametrize("m2,w1,w2", [(256, 16, 32), (16128, 32, 16),
+                                      (200, 24, 40)])
+def test_rank_update_bf16_matches_jax(m2, w1, w2):
+    """bf16 A22 - bf16(L21 U12), the product accumulated in f32, against
+    the reference's kernel (or its matmul where no row-block height
+    divides m2)."""
+    rng = np.random.default_rng(m2 + w2)
+    ops = [rng.standard_normal(s).astype(np.float32)
+           for s in ((m2, w2), (m2, w1), (w1, w2))]
+    ref = jpk._rank_update(*(_to_jax(x, "bfloat16") for x in ops))
+    out = pk._rank_update(*(_to_torch(x, "bfloat16") for x in ops))
+    assert out.dtype == torch.bfloat16
+    # the f32 sums differ in order only: the rounded products may differ
+    # by an ulp, and the subtract is exact up to its own rounding
+    assert bf16_ulps(_f32(out), _f32(ref)) <= 2.0
+
+
+def test_rank_update_bf16_exact_on_dyadic_inputs():
+    # A22 = k/16 (|k| <= 8), L21 and U12 = k/4 (|k| <= 2), w1 = 4: every
+    # product, sum and difference is a multiple of 1/16 below 2, exact
+    # in bf16 (8 significant bits): bitwise
+    rng = np.random.default_rng(12)
+    a22 = (rng.integers(-8, 9, (256, 32)) / 16.0).astype(np.float32)
+    l21, u12 = ((rng.integers(-2, 3, s) / 4.0).astype(np.float32)
+                for s in ((256, 4), (4, 32)))
+    out = pk._rank_update(*(_to_torch(x, "bfloat16")
+                            for x in (a22, l21, u12)))
+    assert np.array_equal(_f32(out), a22 - l21 @ u12)
+
+
+def test_lu_panel_gates_match_jax():
+    """The rank-1 panel's numbers are the reference's: the same shapes
+    pass its shape gate in both types, and the reasons come in its
+    order (with the card in place of the TPU)."""
+    assert (pk.LU_PANEL_MAX_W, pk.LU_PANEL_MAX_M) == \
+        (jpk.LU_PANEL_MAX_W, jpk.LU_PANEL_MAX_M)
+    assert tcache.FROZEN[("lu_panel", "max_w")] == pk.LU_PANEL_MAX_W
+    assert pk._lu_max_w() == jpk._lu_max_w()
+    for m in (128, 200, 4096, 4224, 8192, 8320):
+        for w in (8, 60, 64, 256, 264):
+            for dt in DTYPES:
+                assert pk._lu_shape_ok(m, w, getattr(torch, dt)) == \
+                    jpk._lu_shape_ok(m, w, jnp.dtype(dt)), (m, w, dt)
+    cuda = torch.device("cuda")
+    reason = pk.lu_panel_reject_reason
+    assert reason(4096, 256, torch.bfloat16) == pk.NOT_CUDA
+    assert reason(4096, 256, torch.float64, cuda) == "dtype"
+    assert reason(9000, 264, torch.float32, cuda) == "width"
+    assert reason(4224, 256, torch.bfloat16, cuda) == "height"
+    assert reason(8192, 256, torch.float32, cuda) is None
+    assert reason(200, 64, torch.float32, cuda) == "align"
+    assert reason(4096, 256, torch.bfloat16, cuda) is None
+    assert pk.lu_panel_eligible(4096, 256, torch.bfloat16, cuda)
+
+
+def test_cuda_paths_make_no_host_copy():
+    """The pivot paths read nothing back to the host on the card: no
+    .cpu(), .numpy(), .item(), .tolist() or int() in apply_pivots,
+    _getrf_carry, _getrf_pipelined, _lu_rec_split, or the CUDA branch of
+    lu_pivots_to_permutation (the plain version, for CPU tensors, is
+    the only host loop)."""
+    import inspect
+    import re
+    from slate_tpu_torch.linalg import lu as tlu
+    bad = re.compile(r"\.cpu\(|\.numpy\(|\.item\(|\.tolist\(|\bint\(")
+    for fn in (tlu.apply_pivots, tlu._getrf_carry, tlu._getrf_pipelined,
+               pk._lu_rec_split):
+        body = inspect.getsource(fn).split('"""')[-1]
+        assert not bad.search(body), fn.__name__
+    src = inspect.getsource(pk.lu_pivots_to_permutation).split('"""')[-1]
+    cuda_branch = src.split("return compose_swaps_plain(piv, m)")[1]
+    assert not bad.search(cuda_branch)
+    assert "compose_swaps_plain" in inspect.getsource(
+        pk.lu_pivots_to_permutation)

@@ -220,10 +220,21 @@ def test_unported_branches_raise(opts, match):
         st.getrf(st.Matrix(a, mb=128, device="cpu"), opts)
 
 
-def test_pipelined_form_raises_for_non_native_dtype():
+def test_pipelined_form_raises_for_non_native_dtype(monkeypatch):
+    """A dtype the library LU lacks (bf16) now takes the pipelined
+    form instead of raising; what still raises for it is the scan form
+    (more than LU_SCAN_THRESHOLD block steps), which is not ported."""
+    calls = []
+    orig = tlu._getrf_pipelined
+    monkeypatch.setattr(tlu, "_getrf_pipelined",
+                        lambda a, nb: calls.append(nb) or orig(a, nb))
     a = torch.eye(256, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        st.getrf(st.Matrix(a, mb=64, device="cpu"), {"nb": 64})
+    F = st.getrf(st.Matrix(a, mb=64, device="cpu"), {"nb": 64})
+    assert calls == [64] and F.LU.dtype == torch.bfloat16
+    assert torch.equal(F.LU.data, a) and int(F.info) == 0
+    with pytest.raises(NotImplementedError, match="scan form"):
+        st.getrf(st.Matrix(torch.eye(1024, dtype=torch.bfloat16), mb=128,
+                           device="cpu"), {"nb": 8})
 
 
 # -- BLAS-3 and blocked pieces the solve uses -------------------------------
