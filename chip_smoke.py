@@ -19,6 +19,19 @@ script exit non-zero without the final result line:
                 kernel.lu_panel       the rank-1 panel;
                 kernel.lu_panel_rec   the recursive panel;
                 kernel.rank_update    the trailing update of its split;
+                kernel.qr_panel       the Householder panel (f32, bf16):
+                                      an adversarial suite, then
+                                      8192x128 and 4096x128;
+                kernel.chol_panel     the Cholesky block: adversarial
+                                      suite, then n = 1024, 512, 256,
+                                      each also with its blocks
+                                      launched one at a time;
+                kernel.trtri_lower    the triangular inverse, unit and
+                                      non-unit: adversarial suite, then
+                                      n = 512, 256, 128;
+              the last two have no driver call site (as in the
+              reference): their launches are counted over a run of
+              their public entries on the random cases;
   4. gesv     the f32 main path: gesv at n = 16384, 64 right-hand
               sides, tiles and Option.BlockSize of 512, with a tune
               cache routing every LU panel to the recursive kernel; its
@@ -40,12 +53,31 @@ script exit non-zero without the final result line:
               composition must launch, the refinement converge to a
               backward error <= 1e-6, and X agree with phase 4's to
               1e-5;
-  7. profile  the gesv of phase 4 on both routes and the gesv_mixed of
-              phase 6, once more under torch.profiler: host wall, device
-              busy time (the union of the kernel, copy and memset
-              intervals of the trace), idle share and the heaviest
-              kernels by device time;
-  8. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+  7. posv     f32 posv at n = 16384, 64 right-hand sides, tiles 512, on
+              S = G G^T / n + I made on the card from --seed: the Fused
+              route (one library Cholesky) and MethodFactor.Tiled (the
+              pipelined blocked loop); backward error <= 1e-6 on both,
+              X equal between them to 1e-5, no hand kernel launched;
+  8. posv_mixed  the same system with a bf16 factor: converged,
+              backward error <= 1e-6, X within 1e-5 of phase 7's;
+  9. gels     f32 least squares: the square system of phase 4 through
+              the QR route (the geqrf carry form, nb 1024, library
+              panels, no qr_panel launch): backward error <= 1e-6, X
+              within 1e-4 of phase 4's; and a tall Gaussian 65536 x
+              2048 with 64 right-hand sides through Auto (CholQR) and
+              MethodGels.QR: ||A^T (A X - B)|| / (||A|| ||A X - B||)
+              <= 1e-4 on both, their X equal to 1e-4;
+ 10. gels_bf16  bf16 gels on the permuted boosted system at n = 8192,
+              64 right-hand sides, tiles 512: the carry form, nb 512,
+              every 128-wide sub-panel through the qr_panel kernel
+              (exactly 64 launches); X within GELS_BF16_LIMIT of the
+              f32 gels;
+ 11. profile  gesv on both routes, gesv_mixed, posv on both routes and
+              the square gels, once more under torch.profiler: host
+              wall, device busy time (the union of the kernel, copy and
+              memset intervals of the trace), idle share and the
+              heaviest kernels by device time;
+ 12. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -69,8 +101,11 @@ import torch
 import slate_tpu_torch as st
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
-from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, panel_cases,
-                                     permuted_boosted_system)
+from slate_tpu_torch.linalg import qr as tqr
+from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
+                                     panel_cases, permuted_boosted_system,
+                                     qr_panel_cases, spd_system,
+                                     trtri_cases)
 from slate_tpu_torch.tune import cache as tcache
 from slate_tpu_torch.tune import select as tselect
 
@@ -82,6 +117,16 @@ PEAK_BYTES = 3.35e12
 
 N, NRHS, NB = 16384, 64, 512
 N_COLD, NB_COLD = 4096, 256
+#: the bf16 gels path: the largest square whose every 128-wide
+#: sub-panel passes qr_panel's 8192-row gate
+N_QR_BF16 = 8192
+M_TALL, N_TALL = 65536, 2048
+#: bf16 gels X against the f32 gels, relative (Frobenius): twice what
+#: the JAX package's own bf16 gels gives against its f32 gels on this
+#: system on the CPU (0.0248 at n = 512, 0.0217 at n = 1024)
+GELS_BF16_LIMIT = 0.05
+#: path name of the kernels the reference calls from no driver
+PUBLIC_ENTRY = "public entry (no driver call site in the reference)"
 
 SRC = "slate_tpu_torch/ops/csrc/"
 PK = "slate_tpu/ops/pallas_kernels.py:"
@@ -399,6 +444,226 @@ def phase_rank_update(rng, results):
     return out
 
 
+def scaled_err(kp, pp):
+    """max |kernel - plain| over the plain version's largest |value|
+    (the adversarial suites sit at scales 2^-40 ... 2^40)."""
+    d = float((kp.double() - pp.double()).abs().max())
+    return d / max(float(pp.double().abs().max()), 1e-300)
+
+
+def qr_values_ok(kind, dtype, kp, kt, pp, pt):
+    """A qr_panel kernel result against its plain version: f32 to 1e-5
+    of the scale (norms and v^T A sums taken in another order), bf16
+    normwise to 2^-8 (a rounding that flips differently feeds every
+    later column), taus (in [0, 2]) to 1e-6 / 2^-7. "equal": after the
+    first column the rest is rounding noise with arbitrary reflectors,
+    so only R and the first tau count."""
+    if kind == "equal":
+        kp, pp, kt, pt = kp.triu(), pp.triu(), kt[:1], pt[:1]
+    if dtype == torch.bfloat16:
+        err = rel_diff(kp, pp)
+        ok = err <= 2.0 ** -8
+    else:
+        err = scaled_err(kp, pp)
+        ok = err <= 1e-5
+    terr = float((kt.double() - pt.double()).abs().max())
+    return ok and terr <= (2.0 ** -7 if dtype == torch.bfloat16 else 1e-6), \
+        err, terr
+
+
+def qr_residual(a, packed, taus):
+    """||A - Q R||_F / ||A||_F of a packed (m, w) Householder panel in
+    f64: R's rows with the reflectors applied in reverse."""
+    m, w = a.shape
+    p = packed.double()
+    x = torch.zeros((m, w), dtype=torch.float64, device=a.device)
+    x[:w] = torch.triu(p[:w])
+    V = torch.tril(p, -1)
+    V[:w].diagonal().fill_(1)
+    t = taus.double()
+    for j in reversed(range(w)):
+        x -= t[j] * torch.outer(V[:, j], V[:, j] @ x)
+    return float(torch.linalg.norm(a.double() - x)
+                 / torch.linalg.norm(a.double()))
+
+
+#: residual limits of a random Gaussian QR panel: f32 rounding; bf16:
+#: every stored value is rounded to bf16 (u = 2^-8)
+QR_RES_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 0.05}
+
+
+def phase_qr_panel(rng, results):
+    """qr_panel, f32 and bf16: the adversarial suite (m = 256, w = 32),
+    then random 8192x128 (the bf16 gels path's first sub-panel) and
+    4096x128 panels: kernel against plain, the factors' residual, and
+    times."""
+    ok, out = True, {"phase": "kernel.qr_panel"}
+    for dname, dtype in DTYPES:
+        kinds, worst = {}, 0.0
+        for kind, a_np in qr_panel_cases(np.random.default_rng(21), 256,
+                                         32).items():
+            a = torch.as_tensor(a_np, device="cuda").to(dtype)
+            kp, kt = pk._qr_panel_launch(a)
+            pp, pt = pk.qr_panel_plain(a)
+            torch.cuda.synchronize()
+            v_ok, err, terr = qr_values_ok(kind, dtype, kp, kt, pp, pt)
+            ok &= v_ok
+            kinds[kind] = {"err": err, "tau_err": terr, "ok": v_ok}
+        shapes = {}
+        for m, w in ((N_QR_BF16, 128), (4096, 128)):
+            a = torch.as_tensor(rng.standard_normal((m, w),
+                                                    dtype=np.float32),
+                                device="cuda").to(dtype)
+            kp, kt = pk._qr_panel_launch(a)
+            pp, pt = pk.qr_panel_plain(a)
+            v_ok, err, terr = qr_values_ok("random", dtype, kp, kt, pp, pt)
+            res = qr_residual(a, kp, kt)
+            ok &= v_ok and res <= QR_RES_LIMIT[dtype]
+            worst = max(worst, float((kp.double() - pp.double()).abs()
+                                     .max()))
+            ms = cuda_ms(lambda: pk._qr_panel_launch(a), 5)
+            plain_ms = cuda_ms(lambda: pk.qr_panel_plain(a), 1)
+            a32 = a.float()
+            lib_ms = cuda_ms(lambda: torch.geqrf(a32), 5)
+            b_ms, b_by = bound_ms(2.0 * m * w * w - 2.0 * w ** 3 / 3.0,
+                                  2.0 * a.element_size() * m * w + 4.0 * w)
+            key = "%dx%d" % (m, w)
+            shapes[key] = {"shape": key, "err": err, "tau_err": terr,
+                           "residual": res,
+                           "residual_plain": qr_residual(a, pp, pt),
+                           "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms,
+                           "library": "torch.geqrf"
+                           + (" (f32 upcast)" if dtype != torch.float32
+                              else ""),
+                           "bound_ms": b_ms, "bound_by": b_by}
+        out[dname] = {"adversarial": kinds, "shapes": shapes}
+        if dtype == torch.bfloat16:
+            results["qr_panel.bfloat16"] = entry(
+                "qr_panel", dname, "qr_panel.cu", PK + "136", "gels_bf16",
+                shapes["%dx128" % N_QR_BF16], worst)
+    out["ok"] = bool(ok)
+    return out
+
+
+def exact_or_scaled(kind, kp, pp, exact):
+    """Bitwise for the kinds whose every operation is exact, else to
+    1e-5 of the scale (products summed in another order)."""
+    if kind in exact:
+        return bool(torch.equal(kp, pp)), 0.0
+    err = scaled_err(kp, pp)
+    return err <= 1e-5, err
+
+
+def phase_chol_panel(results):
+    """chol_panel: the adversarial suite (n = 256, two stripes), then
+    SPD blocks at n = 1024, 512, 256 (the public entry, counted), each
+    against the plain version, the library's factor, its own launch
+    with the blocks started one at a time, and times."""
+    ok, out, kinds = True, {"phase": "kernel.chol_panel"}, {}
+    for kind, a_np in chol_cases(np.random.default_rng(22), 256).items():
+        a = torch.as_tensor(a_np, device="cuda")
+        kp = pk._chol_panel_launch(a)
+        pp = pk.chol_panel_plain(a)
+        torch.cuda.synchronize()
+        k_ok, err = exact_or_scaled(kind, kp, pp, ("diag", "equal"))
+        k_ok &= bool(torch.equal(kp, torch.tril(kp)))
+        ok &= k_ok
+        kinds[kind] = {"err": err, "ok": k_ok}
+    gen = torch.Generator("cuda").manual_seed(22)
+    blocks = {n: spd_system(gen, n, 1)[0] for n in (1024, 512, 256)}
+    pk.reset_launch_counts()
+    outs = {n: pk.chol_panel(s) for n, s in blocks.items()}
+    torch.cuda.synchronize()
+    launches = pk.launch_counts()["chol_panel"]
+    shapes, worst = {}, 0.0
+    for n, s in blocks.items():
+        pp = pk.chol_panel_plain(s)
+        err = scaled_err(outs[n], pp)
+        lib = torch.linalg.cholesky(s)
+        # the stripe's blocks one at a time, block 0 (which writes the
+        # diagonal block) first: bitwise the concurrent launch's factor
+        serial_eq = bool(torch.equal(pk._chol_panel_launch(s, serial=True),
+                                     pk._chol_panel_launch(s)))
+        ok &= err <= 1e-5 and serial_eq
+        worst = max(worst, float((outs[n] - pp).abs().max()))
+        ms = cuda_ms(lambda: pk._chol_panel_launch(s), 10)
+        plain_ms = cuda_ms(lambda: pk.chol_panel_plain(s), 1)
+        lib_ms = cuda_ms(lambda: torch.linalg.cholesky(s), 10)
+        b_ms, b_by = bound_ms(n ** 3 / 3.0, 2.0 * 4 * n * n)
+        shapes[str(n)] = {"shape": "%dx%d" % (n, n), "err": err,
+                          "err_library": scaled_err(outs[n], lib),
+                          "serial_equal": serial_eq,
+                          "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms,
+                          "library": "torch.linalg.cholesky",
+                          "bound_ms": b_ms, "bound_by": b_by}
+    ok &= launches == len(blocks)
+    results["chol_panel"] = entry("chol_panel", "float32", "chol_panel.cu",
+                                  PK + "933", PUBLIC_ENTRY, shapes["1024"],
+                                  worst)
+    results["chol_panel"]["launches"] = launches
+    out.update(ok=bool(ok), adversarial=kinds, shapes=shapes,
+               launches=launches)
+    return out
+
+
+def phase_trtri_lower(results):
+    """trtri_lower, non-unit and unit: the adversarial suite (n = 256),
+    then Cholesky factors at n = 512, 256, 128 (the public entry,
+    counted), each against the plain version, and times."""
+    ok, out, kinds = True, {"phase": "kernel.trtri_lower"}, {}
+    for kind, a_np in trtri_cases(np.random.default_rng(23), 256).items():
+        a = torch.as_tensor(a_np, device="cuda")
+        for unit in (False, True):
+            if (kind, unit) == ("huge", True):
+                continue        # a unit triangle at 2^40 has no f32 inverse
+            kp = pk._trtri_lower_launch(a, unit)
+            pp = pk.trtri_lower_plain(a, unit)
+            torch.cuda.synchronize()
+            k_ok, err = exact_or_scaled(kind, kp, pp, ("diag", "equal"))
+            ok &= k_ok
+            kinds["%s.%s" % (kind, "unit" if unit else "nonunit")] = {
+                "err": err, "ok": k_ok}
+    gen = torch.Generator("cuda").manual_seed(23)
+    blocks = {n: torch.linalg.cholesky(spd_system(gen, n, 1)[0])
+              for n in (512, 256, 128)}
+    pk.reset_launch_counts()
+    outs = {(n, u): pk.trtri_lower(L, unit_diagonal=u)
+            for n, L in blocks.items() for u in (False, True)}
+    torch.cuda.synchronize()
+    launches = pk.launch_counts()["trtri_lower"]
+    shapes, worst = {}, 0.0
+    for (n, unit), X in outs.items():
+        L = blocks[n]
+        pp = pk.trtri_lower_plain(L, unit)
+        err = scaled_err(X, pp)
+        ok &= err <= 1e-5
+        worst = max(worst, float((X - pp).abs().max()))
+        if unit:
+            continue
+        eye = torch.eye(n, device="cuda")
+        ms = cuda_ms(lambda: pk._trtri_lower_launch(L, False), 10)
+        plain_ms = cuda_ms(lambda: pk.trtri_lower_plain(L), 1)
+        lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+            L, eye, upper=False), 10)
+        b_ms, b_by = bound_ms(n ** 3 / 3.0, 2.0 * 4 * n * n)
+        shapes[str(n)] = {"shape": "%dx%d" % (n, n), "err": err,
+                          "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms,
+                          "library": "torch.linalg.solve_triangular "
+                                     "against I",
+                          "bound_ms": b_ms, "bound_by": b_by}
+    ok &= launches == len(outs)
+    results["trtri_lower"] = entry("trtri_lower", "float32",
+                                   "trtri_lower.cu", PK + "854",
+                                   PUBLIC_ENTRY, shapes["512"], worst)
+    results["trtri_lower"]["launches"] = launches
+    out.update(ok=bool(ok), adversarial=kinds, shapes=shapes,
+               launches=launches)
+    return out
+
+
 def set_launches(results, path, counts):
     for e in results.values():
         if e["path"] == path:
@@ -442,23 +707,25 @@ def phase_gesv(seed, results, system):
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def mixed_check(name, A, B, call, ref_x):
+def mixed_check(name, A, B, call, ref_x, factor="LU"):
     """One mixed solve, after a warm-up, with the launch counts of the
     measured call: converged (iters >= 0), backward error <= 1e-6, X
-    within 1e-5 of the f32 solve's."""
+    within 1e-5 of the f32 solve's, the factor (attribute `factor` of
+    the first result) in bf16."""
     call()
     pk.reset_launch_counts()
     wall, (F, X, iters) = wall_s(call)
     launches = pk.launch_counts()
     e = berr(A, X, B)
     xdiff = rel_diff(X.data, ref_x)
+    fdt = getattr(F, factor).dtype
     ok = (iters >= 0 and e <= 1e-6 and xdiff <= 1e-5
-          and F.LU.dtype == torch.bfloat16
+          and fdt == torch.bfloat16
           and bool(torch.isfinite(X.data).all()))
     return ok, launches, {"driver": name, "wall_s": wall, "iters": iters,
                           "launches": launches, "backward_error": e,
                           "x_rel_diff_f32": xdiff,
-                          "factor_dtype": str(F.LU.dtype)}
+                          "factor_dtype": str(fdt)}
 
 
 def phase_mixed_cold(seed, results):
@@ -505,6 +772,157 @@ def phase_mixed(results, system):
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def no_hand_kernel(launches):
+    return all(v == 0 for v in launches.values())
+
+
+def phase_posv(seed, system):
+    """f32 posv at n = 16384 on both routes, on an SPD system made on
+    the card. Leaves the system and X in `system`."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    s, b = spd_system(gen, N, NRHS)
+    A = st.HermitianMatrix(st.Uplo.Lower, s, mb=NB)
+    B = st.Matrix(b, mb=NB)
+    del s, b
+    out = {"phase": "posv", "n": N, "nrhs": NRHS, "tiles": NB,
+           "dtype": "float32", "seed": seed}
+    ok, xs = True, {}
+    for name, opts in (("fused", None),
+                       ("tiled", {st.Option.MethodFactor:
+                                  st.MethodFactor.Tiled})):
+        st.posv(A, B, opts)                     # warm-up
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        wall, (L, X) = wall_s(lambda: st.posv(A, B, opts))
+        launches = pk.launch_counts()
+        e = berr(A, X, B)
+        ok &= (e <= 1e-6 and no_hand_kernel(launches)
+               and bool(torch.isfinite(X.data).all()))
+        xs[name] = X
+        out[name] = {"wall_s": wall, "backward_error": e,
+                     "launches": launches,
+                     "gflops": (N ** 3 / 3.0 + 2.0 * N * N * NRHS)
+                     / wall / 1e9}
+    xdiff = rel_diff(xs["tiled"].data, xs["fused"].data)
+    ok &= xdiff <= 1e-5
+    system.update(SA=A, SB=B, SX=xs["fused"], posv_wall=out["fused"]
+                  ["wall_s"])
+    out.update(ok=bool(ok), x_rel_diff_routes=xdiff,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def phase_posv_mixed(system):
+    """posv_mixed on the system of phase posv: a bf16 factor (the f32
+    library Cholesky of the upcast, rounded), f32 refinement."""
+    A, B = system["SA"], system["SB"]
+    ok, launches, rep = mixed_check("posv_mixed", A, B,
+                                    lambda: st.posv_mixed(A, B),
+                                    system["SX"].data, factor="data")
+    ok &= no_hand_kernel(launches)
+    return {"phase": "posv_mixed", "ok": bool(ok), "n": N, "nrhs": NRHS,
+            **rep, "posv_f32_wall_s": system["posv_wall"]}
+
+
+def ls_orthogonality(a, x, b):
+    """||A^T (A X - B)||_F / (||A||_F ||A X - B||_F) in f64: the
+    least-squares residual's angle to the range of A."""
+    a64 = a.double()
+    r = a64 @ x.double() - b.double()
+    return float(torch.linalg.norm(a64.T @ r)
+                 / (torch.linalg.norm(a64) * torch.linalg.norm(r)))
+
+
+def phase_gels(seed, system):
+    """f32 gels: the square system of phase gesv through the QR route
+    (the geqrf carry form, library panels), then a tall Gaussian
+    through Auto (CholQR) and MethodGels.QR."""
+    A, B = system["A"], system["B"]
+    opts = {st.Option.MethodGels: st.MethodGels.QR}
+    carry_nb = []
+    orig = tqr._geqrf_carry
+    tqr._geqrf_carry = lambda a, nb, *r: carry_nb.append(nb) \
+        or orig(a, nb, *r)
+    try:
+        st.gels(A, B, opts)                     # warm-up
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        wall, X = wall_s(lambda: st.gels(A, B, opts))
+        launches = pk.launch_counts()
+    finally:
+        tqr._geqrf_carry = orig
+    e = berr(A, X, B)
+    xdiff = rel_diff(X.data[:N, :NRHS], system["X"].data[:N, :NRHS])
+    ok = (e <= 1e-6 and xdiff <= 1e-4 and carry_nb[-1] == 1024
+          and no_hand_kernel(launches)
+          and bool(torch.isfinite(X.data).all()))
+    system.update(gels_X=X)
+    out = {"phase": "gels", "square": {
+        "n": N, "nrhs": NRHS, "tiles": NB, "route": "qr", "wall_s": wall,
+        "geqrf_carry_nb": carry_nb[-1], "launches": launches,
+        "backward_error": e, "x_rel_diff_gesv": xdiff,
+        "gflops": (4.0 / 3.0 * N ** 3) / wall / 1e9}}
+    gen = torch.Generator("cuda").manual_seed(seed + 1)
+    at = torch.randn((M_TALL, N_TALL), generator=gen, device="cuda")
+    bt = torch.randn((M_TALL, NRHS), generator=gen, device="cuda")
+    At, Bt = st.Matrix(at, mb=NB), st.Matrix(bt, mb=NB)
+    del at, bt
+    xs = {}
+    for name, o in (("auto", None),
+                    ("qr", {st.Option.MethodGels: st.MethodGels.QR})):
+        st.gels(At, Bt, o)
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        wall, Xt = wall_s(lambda: st.gels(At, Bt, o))
+        launches = pk.launch_counts()
+        x = Xt.data[:N_TALL, :NRHS]
+        orth = ls_orthogonality(At.data[:M_TALL, :N_TALL], x,
+                                Bt.data[:M_TALL, :NRHS])
+        ok &= orth <= 1e-4 and no_hand_kernel(launches)
+        xs[name] = x
+        out["tall." + name] = {
+            "m": M_TALL, "n": N_TALL, "nrhs": NRHS, "wall_s": wall,
+            "resolves_to": st.MethodGels.select(M_TALL, N_TALL).value
+            if o is None else "qr", "orthogonality": orth,
+            "launches": launches,
+            "gflops": (2.0 * M_TALL * N_TALL ** 2) / wall / 1e9}
+    xdiff_t = rel_diff(xs["auto"], xs["qr"])
+    ok &= xdiff_t <= 1e-4
+    out.update(ok=bool(ok), tall_x_rel_diff_routes=xdiff_t,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def phase_gels_bf16(seed, results, system):
+    """bf16 gels at n = 8192: every sub-panel through the qr_panel
+    kernel (64 launches), X against the f32 gels."""
+    a_np, b_np = permuted_boosted_system(np.random.default_rng(seed),
+                                         N_QR_BF16, NRHS)
+    A = st.Matrix(a_np, mb=NB)
+    B = st.Matrix(b_np, mb=NB)
+    del a_np, b_np
+    Ab = st.Matrix(A.data.bfloat16(), mb=NB)
+    Bb = st.Matrix(B.data.bfloat16(), mb=NB)
+    wall_f32, X32 = wall_s(lambda: st.gels(A, B))
+    st.gels(Ab, Bb)                             # warm-up
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    wall, X = wall_s(lambda: st.gels(Ab, Bb))
+    launches = pk.launch_counts()
+    set_launches(results, "gels_bf16", launches)
+    expected = (N_QR_BF16 // tqr.geqrf_default_nb(N_QR_BF16, NB)) \
+        * (tqr.geqrf_default_nb(N_QR_BF16, NB) // 128)
+    xdiff = rel_diff(X.data.float(), X32.data)
+    ok = (launches["qr_panel"] == expected == 64
+          and xdiff <= GELS_BF16_LIMIT and X.dtype == torch.bfloat16
+          and bool(torch.isfinite(X.data).all()))
+    return {"phase": "gels_bf16", "ok": bool(ok), "n": N_QR_BF16,
+            "nrhs": NRHS, "tiles": NB, "wall_s": wall,
+            "gels_f32_wall_s": wall_f32, "launches": launches,
+            "qr_panel_launches_expected": expected,
+            "x_rel_diff_f32": xdiff, "limit": GELS_BF16_LIMIT}
+
+
 #: trace categories of work on the card; other rows of a profiler trace
 #: (operators, runtime calls, the profiler's own buffer flushes) are not
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -547,8 +965,8 @@ def profile_call(fn, top=8):
 
 def phase_profile(system):
     """Where the time of the main paths goes: gesv on both routes (f32
-    recursive panels cached), then gesv_mixed (recursive panels cached
-    for both types)."""
+    recursive panels cached), gesv_mixed (recursive panels cached for
+    both types), posv on both routes and the square gels."""
     A, B, opts = system["A"], system["B"], system["opts"]
     fresh_tune_cache([torch.float32])
     out = {"phase": "profile", "ok": True,
@@ -557,6 +975,13 @@ def phase_profile(system):
         out["cold"] = profile_call(lambda: st.gesv(A, B, opts))
     fresh_tune_cache([torch.float32, torch.bfloat16])
     out["gesv_mixed"] = profile_call(lambda: st.gesv_mixed(A, B, opts))
+    fresh_tune_cache()
+    SA, SB = system["SA"], system["SB"]
+    out["posv.fused"] = profile_call(lambda: st.posv(SA, SB))
+    out["posv.tiled"] = profile_call(lambda: st.posv(
+        SA, SB, {st.Option.MethodFactor: st.MethodFactor.Tiled}))
+    out["gels.qr"] = profile_call(lambda: st.gels(
+        A, B, {st.Option.MethodGels: st.MethodGels.QR}))
     return out
 
 
@@ -579,9 +1004,16 @@ def main():
         ("kernel.lu_panel", lambda: phase_lu_panel(rng, results)),
         ("kernel.lu_panel_rec", lambda: phase_panel_rec(rng, results)),
         ("kernel.rank_update", lambda: phase_rank_update(rng, results)),
+        ("kernel.qr_panel", lambda: phase_qr_panel(rng, results)),
+        ("kernel.chol_panel", lambda: phase_chol_panel(results)),
+        ("kernel.trtri_lower", lambda: phase_trtri_lower(results)),
         ("gesv", lambda: phase_gesv(args.seed, results, system)),
         ("gesv_mixed.cold", lambda: phase_mixed_cold(args.seed, results)),
         ("gesv_mixed", lambda: phase_mixed(results, system)),
+        ("posv", lambda: phase_posv(args.seed, system)),
+        ("posv_mixed", lambda: phase_posv_mixed(system)),
+        ("gels", lambda: phase_gels(args.seed, system)),
+        ("gels_bf16", lambda: phase_gels_bf16(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:

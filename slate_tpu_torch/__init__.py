@@ -2,11 +2,14 @@
 
 A second package beside the JAX one (``slate_tpu/``, the reference),
 ported slice by slice for one NVIDIA H100. Module paths mirror the JAX
-package; each module's docstring names its counterpart. This slice
-holds the dense partial-pivot LU solve (getrf / getrs / gesv), the
-mixed-precision solves on it (gesv_mixed, gesv_mixed_gmres: a bf16
-factor refined to f32 accuracy) and the hand-written kernels on their
-paths (``ops/kernels.py``).
+package; each module's docstring names its counterpart. Ported so far,
+on one device: the dense partial-pivot LU solve (getrf / getrs / gesv)
+and its mixed-precision solves (gesv_mixed, gesv_mixed_gmres: a bf16
+factor refined to f32 accuracy); the Cholesky family (potrf / potrs /
+posv, trtri / trtrm / potri, posv_mixed, posv_mixed_gmres); QR and
+least squares (geqrf / unmqr, gelqf / unmlq, cholqr, gels over QR,
+CholQR and TSQR); the BLAS-3 drivers they use; and the hand-written
+kernels (``ops/kernels.py``).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -25,12 +28,17 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .core import (Diag, DimensionError, HermitianMatrix, Matrix,  # noqa: E402,F401
-                   MatrixType, MethodFactor, MethodLU, MethodLUPanel, Op,
-                   Option, Side, SlateError, SymmetricMatrix, TiledMatrix,
-                   TriangularMatrix, Uplo)
+                   MatrixType, MethodCholQR, MethodFactor, MethodGels,
+                   MethodLU, MethodLUPanel, Op, Option, Side, SlateError,
+                   SymmetricMatrix, TiledMatrix, TriangularMatrix, Uplo)
 from .interop import from_jax_state  # noqa: E402,F401
-from .linalg import (LUFactors, apply_pivots, gemm, gesv,  # noqa: E402,F401
-                     gesv_mixed, gesv_mixed_gmres, getrf, getrs, trsm)
+from .linalg import (LQFactors, LUFactors, QRFactors,  # noqa: E402,F401
+                     apply_pivots, cholqr, gelqf, gemm, geqrf, gels,
+                     gels_cholqr, gels_qr, gels_tsqr, gesv, gesv_mixed,
+                     gesv_mixed_gmres, getrf, getrs, hemm, her2k, herk,
+                     pbsv, pbtrf, pbtrs, posv, posv_mixed,
+                     posv_mixed_gmres, potrf, potri, potrs, symm, syr2k,
+                     syrk, trmm, trsm, trtri, trtrm, unmlq, unmqr)
 from .utils import Timers  # noqa: E402,F401
 from . import obs, ops, tune  # noqa: E402,F401
 

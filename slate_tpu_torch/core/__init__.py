@@ -5,6 +5,7 @@ from .exceptions import (DimensionError, OptionError, SlateError,  # noqa: F401
                          slate_assert)
 from .matrix import (HermitianMatrix, Matrix, SymmetricMatrix,  # noqa: F401
                      TriangularMatrix)
-from .methods import MethodFactor, MethodLU, MethodLUPanel  # noqa: F401
-from .options import get_option  # noqa: F401
+from .methods import (MethodCholQR, MethodFactor, MethodGels,  # noqa: F401
+                      MethodLU, MethodLUPanel)
+from .options import get_option, get_option_tuned  # noqa: F401
 from .tiles import TiledMatrix, ceil_div, round_up  # noqa: F401

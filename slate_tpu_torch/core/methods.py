@@ -1,6 +1,7 @@
 """Algorithm-variant selection (counterpart of
-``slate_tpu/core/methods.py``), reduced to the LU slice: MethodLU,
-MethodFactor, MethodLUPanel and the shared height-cap rule.
+``slate_tpu/core/methods.py``), reduced to the ported slices: MethodLU,
+MethodFactor, MethodLUPanel, MethodCholQR, MethodGels and the shared
+height-cap rule.
 
 "Native" here means ``torch.linalg.lu_factor`` (LAPACK on the CPU,
 cuSOLVER on the card) where the reference means XLA's LU custom call.
@@ -11,6 +12,38 @@ from __future__ import annotations
 import enum
 
 import torch
+
+
+class MethodCholQR(enum.Enum):
+    """Reference method.hh:184: how to form A^H A (one product here,
+    whichever is named)."""
+    Auto = "auto"
+    GemmA = "gemmA"
+    GemmC = "gemmC"
+    HerkA = "herkA"
+    HerkC = "herkC"
+
+    @staticmethod
+    def select(m: int, n: int) -> "MethodCholQR":
+        return MethodCholQR.HerkC
+
+
+class MethodGels(enum.Enum):
+    """Reference method.hh:237: QR (robust) vs CholQR (fast,
+    well-conditioned tall-skinny) vs TSQR (the tree QR of
+    linalg/ca.py)."""
+    Auto = "auto"
+    QR = "qr"
+    CholQR = "cholqr"
+    TSQR = "tsqr"
+
+    @staticmethod
+    def select(m: int, n: int, on_grid: bool = False) -> "MethodGels":
+        """The reference's heuristic: tall-skinny (m >= 3n) takes
+        CholQR on one device (TSQR on a mesh), else QR."""
+        if m >= 3 * n:
+            return MethodGels.TSQR if on_grid else MethodGels.CholQR
+        return MethodGels.QR
 
 
 class MethodLU(enum.Enum):
@@ -66,6 +99,15 @@ class MethodFactor(enum.Enum):
         not capped here."""
         return MethodFactor.native_lu_dtype_ok(dtype)
 
+    @staticmethod
+    def select(data, dtype_ok: bool = True) -> "MethodFactor":
+        """Auto resolution on one device: Fused, unless the driver
+        reports that its library call cannot take the dtype
+        (`dtype_ok=False`), then Tiled. (The reference's third case, an
+        array sharded over several devices, has no counterpart until
+        the distributed slice.)"""
+        return MethodFactor.Fused if dtype_ok else MethodFactor.Tiled
+
 
 class MethodLUPanel(enum.Enum):
     """Execution route for ONE LU panel factorization (lu._lu_panel):
@@ -119,7 +161,8 @@ class MethodLUPanel(enum.Enum):
 
 def str2method(family: str, s: str):
     fam = {"lu": MethodLU, "factor": MethodFactor,
-           "lu_panel": MethodLUPanel}[family]
+           "lu_panel": MethodLUPanel, "cholqr": MethodCholQR,
+           "gels": MethodGels}[family]
     for mem in fam:
         if mem.value.lower() == s.lower() or mem.name.lower() == s.lower():
             return mem

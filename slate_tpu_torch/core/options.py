@@ -68,6 +68,32 @@ def get_option(opts: OptionsLike, key: Option, default: Any = None) -> Any:
     return _DEFAULTS.get(key)
 
 
+#: options whose value the tune cache may supply (tune param name)
+_TUNE_PARAM = {
+    Option.BlockSize: "nb",
+    Option.InnerBlocking: "ib",
+    Option.Lookahead: "lookahead",
+}
+
+
+def get_option_tuned(opts: OptionsLike, key: Option, op: str,
+                     n: Optional[int] = None, dtype: Any = None,
+                     fallback: Any = None) -> Any:
+    """get_option with the tune cache between explicit options and
+    defaults (reference get_option_tuned): an explicit `opts` value,
+    then a measured entry for (op, dtype, size bucket), then
+    `fallback`, then the FROZEN table (whose "*" rows equal _DEFAULTS
+    for these keys). Keys outside _TUNE_PARAM degrade to get_option."""
+    param = _TUNE_PARAM.get(key)
+    if param is None:
+        return get_option(opts, key, fallback)
+    from ..tune.select import resolve
+    if fallback is None:
+        return resolve(op, param, opts=opts, option=key, n=n, dtype=dtype)
+    return resolve(op, param, opts=opts, option=key, n=n, dtype=dtype,
+                   fallback=fallback)
+
+
 def has_option(opts: OptionsLike, key: Option) -> bool:
     """True iff the caller EXPLICITLY passed `key` (directly or via a
     string alias): tuning never overrides a user choice."""

@@ -9,9 +9,10 @@ Padding invariant: out-of-range rows/cols of ``data`` are zero.
 Routines that need a nonsingular padded diagonal (getrf) patch it to
 identity with :func:`pad_diag_identity`.
 
-Not ported: non-uniform tiles (the reference's ``rb``/``cb``
-boundaries, ``from_func``) and the ``sub``/``slice`` views; the dense
-LU slice does not use them.
+``sub``/``slice`` are copies of the selected tiles or elements, as the
+reference's functional views. Not ported: non-uniform tiles (the
+reference's ``rb``/``cb`` boundaries, ``from_func``); ``uniform`` is
+therefore the identity.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from ..utils.backend import DeviceLike, resolve_device
 from .enums import Diag, MatrixType, Op, Uplo
-from .exceptions import DimensionError
+from .exceptions import DimensionError, slate_assert
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -118,6 +119,12 @@ class TiledMatrix:
         return cls(data=a, m=m, n=n, mb=mb, nb=nb, mtype=mtype, uplo=uplo,
                    diag=diag, kl=kl, ku=ku)
 
+    def uniform(self) -> "TiledMatrix":
+        """The uniform padded layout the factorization drivers assume:
+        every port matrix already has it (non-uniform tiles are not
+        ported)."""
+        return self
+
     @classmethod
     def zeros(cls, m: int, n: int, mb: int = 256, nb: Optional[int] = None,
               dtype=torch.float32, device: DeviceLike = None, **kw
@@ -155,6 +162,33 @@ class TiledMatrix:
         """Tile (i, j) of the stored tensor, padding included."""
         return self.data[i * self.mb:(i + 1) * self.mb,
                          j * self.nb:(j + 1) * self.nb]
+
+    def sub(self, i1: int, i2: int, j1: int, j2: int) -> "TiledMatrix":
+        """Tile-index submatrix [i1..i2] x [j1..j2] inclusive (reference
+        sub()), a General matrix; a transposed view resolves first."""
+        base = self if self.op is Op.NoTrans else self.resolve()
+        mm = min((i2 + 1) * base.mb, base.m) - i1 * base.mb
+        nn = min((j2 + 1) * base.nb, base.n) - j1 * base.nb
+        data = base.data[i1 * base.mb:(i2 + 1) * base.mb,
+                         j1 * base.nb:(j2 + 1) * base.nb]
+        return dataclasses.replace(base, data=data, m=mm, n=nn,
+                                   mtype=MatrixType.General,
+                                   uplo=Uplo.General)
+
+    def slice(self, row1: int, row2: int, col1: int, col2: int
+              ) -> "TiledMatrix":
+        """Element-index submatrix [row1..row2] x [col1..col2] inclusive
+        (reference slice()), re-tiled from element 0, structure flags
+        kept; a structured slice must be diagonal-aligned."""
+        r = self.resolve()
+        if r.mtype is not MatrixType.General:
+            slate_assert(row1 == col1,
+                         "slice of structured matrix must be "
+                         "diagonal-aligned (row1 == col1)")
+        d = r.data[:r.m, :r.n][row1:row2 + 1, col1:col2 + 1]
+        return TiledMatrix.from_dense(d, r.mb, r.nb, mtype=r.mtype,
+                                      uplo=r.uplo, diag=r.diag, kl=r.kl,
+                                      ku=r.ku, device=d.device)
 
     # -- densification -----------------------------------------------------
     def resolve(self) -> "TiledMatrix":

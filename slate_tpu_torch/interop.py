@@ -20,6 +20,7 @@ from .core.enums import Diag, MatrixType, Op, Uplo
 from .core.exceptions import SlateError
 from .core.tiles import TiledMatrix
 from .linalg.lu import LUFactors
+from .linalg.qr import LQFactors, QRFactors
 from .utils.backend import DeviceLike, resolve_device
 
 _ENUMS = {"mtype": MatrixType, "uplo": Uplo, "op": Op, "diag": Diag}
@@ -61,18 +62,33 @@ def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
 
 def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
                    device: DeviceLike = None
-                   ) -> Union[TiledMatrix, LUFactors]:
-    """Turn a JAX ``TiledMatrix`` or ``LUFactors``, given as numpy,
-    into the port's counterpart on `device` (CUDA unless named):
+                   ) -> Union[TiledMatrix, LUFactors, QRFactors, LQFactors]:
+    """Turn a JAX ``TiledMatrix``, ``LUFactors``, ``QRFactors`` or
+    ``LQFactors``, given as numpy, into the port's counterpart on
+    `device` (CUDA unless named):
 
-      * ``arrays={"data": A.data}`` + the matrix metadata -> TiledMatrix;
+      * ``arrays={"data": A.data}`` + the matrix metadata -> TiledMatrix
+        (potrf's triangular factor: its mtype and uplo in the metadata);
       * ``arrays={"LU": F.LU.data, "pivots": F.pivots[, "info": F.info]}``
         + the metadata of ``F.LU`` -> LUFactors. Band factors
-        (``meta["band"]`` true) are not ported and raise.
+        (``meta["band"]`` true) are not ported and raise;
+      * ``arrays={"QR": F.QR.data, "taus": F.taus[, "Q": F.Q.data]}`` +
+        the metadata of ``F.QR`` (with that of ``F.Q`` under
+        ``meta["Q"]``) -> QRFactors;
+      * ``arrays={"LQ": F.LQ.data, "taus": F.taus}`` + the metadata of
+        ``F.LQ`` -> LQFactors.
 
     The padded storage is taken as it is, padding included; bf16
     factors (gesv_mixed's) included."""
     dev = resolve_device(device)
+    if "QR" in arrays:
+        q = arrays.get("Q")
+        return QRFactors(_matrix(arrays["QR"], meta, dev),
+                         _tensor(arrays["taus"], dev),
+                         None if q is None else _matrix(q, meta["Q"], dev))
+    if "LQ" in arrays:
+        return LQFactors(_matrix(arrays["LQ"], meta, dev),
+                         _tensor(arrays["taus"], dev))
     if "LU" in arrays:
         if meta.get("band", False):
             raise SlateError("from_jax_state: band LU factors (gbtrf) are "

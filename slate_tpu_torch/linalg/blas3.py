@@ -1,7 +1,8 @@
-"""BLAS-3 drivers (counterpart of ``slate_tpu/linalg/blas3.py``),
-reduced to the LU slice: ``gemm`` and ``trsm``. Each driver is one
-dense op on the logical matrix, written back into the output's padded
-tiled storage. Other BLAS-3 routines wait for later slices.
+"""BLAS-3 drivers (counterpart of ``slate_tpu/linalg/blas3.py``):
+gemm, hemm/symm, trmm, trsm, herk/syrk and her2k/syr2k. Each driver is
+one dense op on the logical matrix (``to_dense`` applies the structure),
+written back into the output's padded tiled storage. The band routines
+(gbmm, hbmm, tbsm) wait for the band slice.
 """
 
 from __future__ import annotations
@@ -10,8 +11,8 @@ import dataclasses
 
 import torch
 
-from ..core.enums import Side, Uplo
-from ..core.exceptions import DimensionError
+from ..core.enums import MatrixType, Side, Uplo
+from ..core.exceptions import DimensionError, slate_assert
 from ..core.options import OptionsLike
 from ..core.tiles import TiledMatrix
 
@@ -42,6 +43,34 @@ def gemm(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
     return _store(C, c)
 
 
+def _sided_mm(side: Side, alpha, A, B, beta, C) -> TiledMatrix:
+    a, b, c = _logical(A), _logical(B), _logical(C)
+    prod = a @ b if side is Side.Left else b @ a
+    return _store(C, alpha * prod + beta * c)
+
+
+def hemm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix, beta,
+         C: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """C := alpha A B + beta C (Left) or alpha B A + beta C (Right), A
+    Hermitian (reference src/hemm.cc)."""
+    return _sided_mm(side, alpha, A, B, beta, C)
+
+
+def symm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix, beta,
+         C: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """The symmetric counterpart of hemm (reference src/symm.cc)."""
+    return _sided_mm(side, alpha, A, B, beta, C)
+
+
+def trmm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
+         opts: OptionsLike = None) -> TiledMatrix:
+    """B := alpha op(A) B (Left) or alpha B op(A) (Right), A triangular
+    (reference src/trmm.cc)."""
+    a, b = _logical(A), _logical(B)
+    prod = a @ b if side is Side.Left else b @ a
+    return _store(B, alpha * prod)
+
+
 def trsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
          opts: OptionsLike = None) -> TiledMatrix:
     """Solve op(A) X = alpha B (Left) or X op(A) = alpha B (Right);
@@ -54,3 +83,43 @@ def trsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
     x = trsm_dense(ra.to_dense(), alpha * b, left=(side is Side.Left),
                    lower=ra.uplo is Uplo.Lower, nb=ra.nb)
     return _store(B, x)
+
+
+# -- rank-k / rank-2k updates ---------------------------------------------
+
+def _conj(alpha):
+    return alpha.conjugate() if isinstance(alpha, complex) else alpha
+
+
+def herk(alpha, A: TiledMatrix, beta, C: TiledMatrix,
+         opts: OptionsLike = None) -> TiledMatrix:
+    """C := alpha op(A) op(A)^H + beta C, C Hermitian (reference
+    src/herk.cc); alpha and beta real."""
+    slate_assert(C.mtype in (MatrixType.Hermitian, MatrixType.Symmetric),
+                 "herk: C must be Hermitian")
+    a = _logical(A)
+    return _store(C, alpha * (a @ a.T.conj()) + beta * _logical(C))
+
+
+def syrk(alpha, A: TiledMatrix, beta, C: TiledMatrix,
+         opts: OptionsLike = None) -> TiledMatrix:
+    """C := alpha op(A) op(A)^T + beta C, C symmetric (reference
+    src/syrk.cc)."""
+    a = _logical(A)
+    return _store(C, alpha * (a @ a.T) + beta * _logical(C))
+
+
+def her2k(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
+          opts: OptionsLike = None) -> TiledMatrix:
+    """C := alpha A B^H + conj(alpha) B A^H + beta C (reference
+    src/her2k.cc)."""
+    a, b = _logical(A), _logical(B)
+    prod = alpha * (a @ b.T.conj()) + _conj(alpha) * (b @ a.T.conj())
+    return _store(C, prod + beta * _logical(C))
+
+
+def syr2k(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
+          opts: OptionsLike = None) -> TiledMatrix:
+    """C := alpha (A B^T + B A^T) + beta C (reference src/syr2k.cc)."""
+    a, b = _logical(A), _logical(B)
+    return _store(C, alpha * (a @ b.T + b @ a.T) + beta * _logical(C))

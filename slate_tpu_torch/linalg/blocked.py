@@ -1,16 +1,22 @@
-"""Blocked solve core (counterpart of ``slate_tpu/linalg/blocked.py``),
-reduced to what the LU slice uses: ``invert_triangular``,
-``trsm_left``/``trsm_dense`` and ``assemble_packed``.
+"""Blocked factorization / solve core (counterpart of
+``slate_tpu/linalg/blocked.py``): ``invert_triangular``,
+``trsm_left``/``trsm_dense``, ``assemble_packed`` and the blocked
+Cholesky (``chol_diag_factor``, ``chol_loop``, ``chol_loop_pipelined``,
+``cholesky_blocked``).
 
 The direct triangular solve is :func:`solve_triangular` over
 ``torch.linalg.solve_triangular`` (LAPACK on the CPU, cuBLAS on the
-card), the counterpart of the reference's XLA TriangularSolve. The
-reference's grid (SPMD) paths wait for the distributed slice.
+card), the counterpart of the reference's XLA TriangularSolve; the
+diagonal-block Cholesky is :func:`chol_diag_factor` over
+``torch.linalg.cholesky_ex``, the counterpart of XLA's ``cholesky``.
+The reference's grid (SPMD) paths wait for the distributed slice.
+Where the reference updates slices functionally, the loops here update
+a copy of the input in place (same values).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -27,19 +33,20 @@ _SOLVE_DTYPES = (torch.float32, torch.float64, torch.complex64,
 
 
 def solve_triangular(a: torch.Tensor, b: torch.Tensor, *, upper: bool,
-                     unitriangular: bool = False) -> torch.Tensor:
-    """X with A X = B, A triangular: one library solve. For a dtype the
-    library lacks (bf16: neither LAPACK nor cuBLAS trsm has it), the
-    solve runs in f32 on the upcast operands and the result is rounded
-    to the input type. This is where the port's rounding departs from
-    the reference, whose XLA expander solves bf16 blockwise with bf16
-    intermediates; the mixed-precision drivers' refinement absorbs the
-    difference."""
+                     unitriangular: bool = False,
+                     left: bool = True) -> torch.Tensor:
+    """X with A X = B (or X A = B with left=False), A triangular: one
+    library solve. For a dtype the library lacks (bf16: neither LAPACK
+    nor cuBLAS trsm has it), the solve runs in f32 on the upcast
+    operands and the result is rounded to the input type. This is where
+    the port's rounding departs from the reference, whose XLA expander
+    solves bf16 blockwise with bf16 intermediates; the mixed-precision
+    drivers' refinement absorbs the difference."""
     if b.dtype in _SOLVE_DTYPES:
-        return torch.linalg.solve_triangular(a, b, upper=upper, left=True,
+        return torch.linalg.solve_triangular(a, b, upper=upper, left=left,
                                              unitriangular=unitriangular)
     return torch.linalg.solve_triangular(
-        a.float(), b.float(), upper=upper, left=True,
+        a.float(), b.float(), upper=upper, left=left,
         unitriangular=unitriangular).to(b.dtype)
 
 
@@ -130,3 +137,122 @@ def assemble_packed(panels: List[torch.Tensor],
         k0, k1 = k * nb, min((k + 1) * nb, kmax)
         out[k0:k0 + strip.shape[0], k1:k1 + strip.shape[1]] = strip
     return out
+
+
+# -- blocked Cholesky -------------------------------------------------------
+
+def chol_diag_factor(s: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of one SPD block by the library
+    (``torch.linalg.cholesky_ex``: LAPACK potrf on the CPU, cuSOLVER on
+    the card), zeros above the diagonal. Only the lower triangle is
+    read: callers hand blocks whose upper triangle may be stale (the
+    reference's symmetrize_input=False). No singularity check (a
+    non-PD block gives a partial factor; info comes from the guarded
+    path, ``info.cholesky_blocked_info``), so nothing is read back to
+    the host.
+
+    For a dtype the library lacks (bf16: neither LAPACK nor cuSOLVER
+    has a bf16 potrf) the f32 upcast is factored and the factor rounded
+    to the input type: one rounding where the reference's XLA expander
+    rounds its bf16 intermediates (ROADMAP queue 3), the same kind of
+    departure as :func:`solve_triangular`."""
+    if s.dtype in _SOLVE_DTYPES:
+        return torch.linalg.cholesky_ex(s)[0]
+    return torch.linalg.cholesky_ex(s.float())[0].to(s.dtype)
+
+
+def _chol_panel_solve(lkk: torch.Tensor, bpanel: torch.Tensor
+                      ) -> torch.Tensor:
+    """pan = B L^{-H}, the Cholesky panel step: one direct right-side
+    library solve (the reference's single-device branch; its grid
+    branch, invert-then-matmul under sharding constraints, waits for
+    the distributed slice)."""
+    return solve_triangular(lkk.mH, bpanel, upper=True, left=False)
+
+
+DiagFactor = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def chol_loop(a: torch.Tensor, nb: int, diag_factor: DiagFactor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Right-looking blocked Cholesky (reference impl::potrf,
+    potrf.cc:85-192): per step, factor the diagonal block with
+    `diag_factor(s) -> (lkk, local_info)`, solve the panel, apply one
+    dense trailing update (the full square, as the reference). Returns
+    (L, info), info the first failed global pivot (1-based, 0 if none)
+    accumulated like potrf.cc:104-105 ``info = kk + iinfo``; info stays
+    on the device."""
+    n = a.shape[0]
+    nt = ceil_div(n, nb)
+    a = a.clone()
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    for k in range(nt):
+        k0, k1 = k * nb, min((k + 1) * nb, n)
+        lkk, bad = diag_factor(a[k0:k1, k0:k1])
+        info = torch.where((info == 0) & (bad > 0), k0 + bad, info)
+        a[k0:k1, k0:k1] = lkk
+        if k1 < n:
+            pan = _chol_panel_solve(lkk, a[k1:, k0:k1])
+            a[k1:, k0:k1] = pan
+            a[k1:, k1:] -= pan @ pan.mH
+    return a, info
+
+
+def chol_loop_pipelined(a: torch.Tensor, nb: int, diag_factor: DiagFactor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lookahead-1 form of chol_loop (reference potrf.cc:136-176): the
+    step-k trailing update is split into the next panel's column
+    (narrow, on the critical path) and the rest (wide). The next panel
+    factors right after the narrow update, so the wide product does not
+    wait for it. Same arithmetic as chol_loop, so the lower triangles
+    agree to rounding; the strictly-upper strip right of each diagonal
+    block keeps stale values (the triangular result's to_dense masks
+    them)."""
+    n = a.shape[0]
+    nt = ceil_div(n, nb)
+    a = a.clone()
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    k1 = min(nb, n)
+    lkk, bad = diag_factor(a[:k1, :k1])
+    info = torch.where(bad > 0, bad, info)
+    a[:k1, :k1] = lkk
+    pan = None
+    if k1 < n:
+        pan = _chol_panel_solve(lkk, a[k1:, :k1])
+        a[k1:, :k1] = pan
+    for k in range(nt - 1):
+        k1 = min((k + 1) * nb, n)
+        k2 = min(k1 + nb, n)
+        w = k2 - k1
+        # narrow update: the next panel's column only (critical path)
+        colblk = a[k1:, k1:k2] - pan @ pan[:w].mH
+        lkk, bad = diag_factor(colblk[:w])
+        info = torch.where((info == 0) & (bad > 0), k1 + bad, info)
+        a[k1:k2, k1:k2] = lkk
+        next_pan = None
+        if k2 < n:
+            next_pan = _chol_panel_solve(lkk, colblk[w:])
+            a[k2:, k1:k2] = next_pan
+            # wide trailing update with step k's panel
+            a[k2:, k2:] -= pan[w:] @ pan[w:].mH
+        pan = next_pan
+    return a, info
+
+
+def cholesky_blocked(a: torch.Tensor, nb: int,
+                     lookahead: int = 1) -> torch.Tensor:
+    """Lower Cholesky of a padded (N, N) matrix whose padded diagonal
+    is identity: the pipelined loop (lookahead >= 1, Option.Lookahead)
+    or the plain right-looking one (0), at any number of block steps.
+    Diagonal blocks by the library (chol_diag_factor), panels by one
+    direct solve, trailing updates dense. The reference's fixed-shape
+    step past CHOL_SCAN_THRESHOLD steps (``cholesky_scan``) bounds XLA's
+    compile time, which eager PyTorch does not have, at the cost of a
+    full-size trailing update every step: it is not ported."""
+
+    def diag_factor(s):
+        return chol_diag_factor(s), torch.zeros((), dtype=torch.int32,
+                                                device=s.device)
+
+    loop = chol_loop_pipelined if lookahead >= 1 else chol_loop
+    return loop(a, nb, diag_factor)[0]

@@ -1,0 +1,227 @@
+"""Cholesky family (counterpart of ``slate_tpu/linalg/chol.py``) on one
+device: potrf / potrs / posv (with ``return_info``), trtri / trtrm /
+potri, and the mixed-precision solves posv_mixed / posv_mixed_gmres.
+
+``potrf`` with Auto takes the Fused route, one library Cholesky of the
+whole matrix (``blocked.chol_diag_factor``: cuSOLVER on the card,
+LAPACK on the CPU), as the reference hands it to XLA's ``cholesky``;
+``MethodFactor.Tiled`` runs the blocked loop
+(``blocked.cholesky_blocked``). A bf16 factor (the lo precision of
+posv_mixed) factors the f32 upcast and rounds, because no library has
+a bf16 Cholesky (ROADMAP queue 3). No hand kernel runs on these paths:
+the reference's Cholesky paths call XLA, not its ``chol_panel`` or
+``trtri_lower`` Pallas kernels, whose ports are the public entries in
+``ops/kernels.py``.
+
+Not ported (raise ``NotImplementedError`` naming ROADMAP queue 1): the
+band factors pbtrf / pbtrs / pbsv and every grid (mesh) path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.enums import Diag, MatrixType, Side, Uplo
+from ..core.exceptions import slate_assert
+from ..core.methods import MethodFactor
+from ..core.options import Option, OptionsLike, get_option, get_option_tuned
+from ..core.tiles import TiledMatrix, ceil_div, pad_diag_identity, round_up
+from ..obs.events import instrument_driver
+from .blas3 import _store, trsm
+from .lu import _not_ported
+
+
+@instrument_driver("potrf")
+def potrf(A: TiledMatrix, opts: OptionsLike = None,
+          return_info: bool = False):
+    """Cholesky factor A = L L^H (or U^H U); returns a TriangularMatrix
+    with A's uplo (reference src/potrf.cc:262). With return_info=True
+    returns (L, info): info == 0 on success, k > 0 if the leading minor
+    of order k is not positive definite (a 0-d int32 tensor on A's
+    device)."""
+    slate_assert(A.mtype in (MatrixType.Hermitian, MatrixType.Symmetric),
+                 "potrf: A must be Hermitian/symmetric")
+    if get_option(opts, Option.Grid, None) is not None:
+        raise _not_ported("potrf on a grid (mesh) of devices")
+    r = A.uniform().resolve()
+    nb = r.nb
+    method = get_option(opts, Option.MethodFactor, MethodFactor.Auto)
+    if method is MethodFactor.Auto:
+        from ..tune.select import tuned_method
+        cached = tuned_method("potrf", "factor", opts=opts,
+                              option=Option.MethodFactor, n=r.n,
+                              dtype=r.dtype)
+        method = cached if cached is not None \
+            and cached is not MethodFactor.Auto \
+            else MethodFactor.select(r.data)
+    # square padded storage, a multiple of nb; the factor uses mb = nb
+    np_ = ceil_div(max(r.n, 1), nb) * nb
+    if method is MethodFactor.Fused and not return_info \
+            and r.data.shape == (np_, np_) and r.mb == nb:
+        # the factorization reads only the stored triangle: hand the raw
+        # padded storage (transposed for Upper) without mirroring it
+        a = r.data if r.uplo is Uplo.Lower else r.data.mH
+        a = pad_diag_identity(a, r.n, r.n)
+    else:
+        full = A.to_dense()
+        a = torch.nn.functional.pad(full, (0, np_ - r.n, 0, np_ - r.m))
+        a = pad_diag_identity(a, r.m, r.n)
+    info = None
+    if method is MethodFactor.Fused and not return_info:
+        from .blocked import chol_diag_factor
+        L = chol_diag_factor(a)
+    else:
+        from .blocked import cholesky_blocked
+        from .info import cholesky_blocked_info
+        lookahead = get_option_tuned(opts, Option.Lookahead, "potrf",
+                                     n=r.n, dtype=r.dtype)
+        if return_info:
+            L, info = cholesky_blocked_info(a, nb, lookahead=lookahead)
+        else:
+            L = cholesky_blocked(a, nb, lookahead=lookahead)
+    data = L.mH if r.uplo is Uplo.Upper else L
+    out = dataclasses.replace(r, data=data, mb=nb, nb=nb,
+                              mtype=MatrixType.Triangular,
+                              diag=Diag.NonUnit, kl=-1, ku=-1)
+    if return_info:
+        return out, info
+    return out
+
+
+def potrs(A: TiledMatrix, B: TiledMatrix,
+          opts: OptionsLike = None) -> TiledMatrix:
+    """Solve with the factor from potrf (reference src/potrs.cc:75-77:
+    two triangular solves)."""
+    if A.uplo is Uplo.Lower:
+        X = trsm(Side.Left, 1.0, A, B, opts)                   # L y = b
+        return trsm(Side.Left, 1.0, A.conj_transpose(), X, opts)
+    X = trsm(Side.Left, 1.0, A.conj_transpose(), B, opts)      # U^H y = b
+    return trsm(Side.Left, 1.0, A, X, opts)
+
+
+@instrument_driver("posv")
+def posv(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None,
+         return_info: bool = False):
+    """Solve A X = B, A Hermitian positive definite (reference
+    src/posv.cc:83-91). Returns (factor, X), or (factor, X, info) with
+    return_info=True. When info > 0, X is NaN (the reference skips the
+    solve; here both branches are computed and one is selected on the
+    device, so info is never read back to the host)."""
+    from ..utils.trace import phases
+    ph = phases(opts)
+    if return_info:
+        with ph("posv::potrf"):
+            L, info = potrf(A, opts, return_info=True)
+        with ph("posv::potrs"):
+            X = potrs(L, B, opts)
+            data = torch.where(info == 0, X.data,
+                               torch.full_like(X.data, float("nan")))
+        return L, dataclasses.replace(X, data=data), info
+    with ph("posv::potrf"):
+        L = potrf(A, opts)
+    with ph("posv::potrs"):
+        X = potrs(L, B, opts)
+    return L, X
+
+
+def trtri(A: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """Triangular inverse (reference src/trtri.cc): the block is
+    identity-padded to a multiple of 128 and inverted by
+    ``blocked.invert_triangular``."""
+    from .blocked import invert_triangular
+    r = A.resolve()
+    a = r.to_dense()
+    n = a.shape[0]
+    npd = round_up(max(n, 1), 128)
+    if npd != n:
+        # inv of blkdiag(A, I) is blkdiag(inv(A), I)
+        a = pad_diag_identity(
+            torch.nn.functional.pad(a, (0, npd - n, 0, npd - n)), n, n)
+    inv = invert_triangular(a, lower=(r.uplo is Uplo.Lower),
+                            unit_diagonal=(r.diag is Diag.Unit))[:n, :n]
+    return _store(r, inv)
+
+
+def trtrm(A: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """L := L^H L or U := U U^H on the triangle (reference
+    src/trtrm.cc), the second half of potri."""
+    r = A.resolve()
+    a = r.to_dense()
+    prod = a.mH @ a if r.uplo is Uplo.Lower else a @ a.mH
+    out = _store(r, prod)
+    return dataclasses.replace(out, mtype=MatrixType.Hermitian,
+                               diag=Diag.NonUnit)
+
+
+def potri(A: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """A^{-1} from the potrf factor (reference src/potri.cc: trtri then
+    trtrm)."""
+    return trtrm(trtri(A, opts), opts)
+
+
+# -- band Cholesky (not ported) -------------------------------------------
+
+def pbtrf(A: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """Band Cholesky (reference src/pbtrf.cc): waits for the band
+    slice."""
+    raise _not_ported("pbtrf (band Cholesky)")
+
+
+def pbtrs(A: TiledMatrix, B: TiledMatrix,
+          opts: OptionsLike = None) -> TiledMatrix:
+    """Band solve from the pbtrf factor: waits for the band slice."""
+    raise _not_ported("pbtrs (band Cholesky solve)")
+
+
+def pbsv(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None):
+    """Band positive-definite solve: waits for the band slice."""
+    raise _not_ported("pbsv (band Cholesky solve)")
+
+
+# -- mixed precision --------------------------------------------------------
+
+def _lo_factor(A: TiledMatrix, opts: OptionsLike):
+    from .refine import lo_dtype
+    r = A.resolve()
+    lo = lo_dtype(r.dtype)
+    return lo, potrf(dataclasses.replace(r, data=r.data.to(lo)), opts)
+
+
+@instrument_driver("posv_mixed")
+def posv_mixed(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None):
+    """Mixed-precision Cholesky with iterative refinement (reference
+    src/posv_mixed.cc): a lo-precision factor (f32 -> bf16, f64 ->
+    f32), hi-precision residuals, the full-precision solve as the
+    fallback. Returns (factor_lo, X, iters); iters < 0 means the
+    fallback produced X."""
+    from .refine import iterative_refinement, lo_rhs_solver
+    lo, L = _lo_factor(A, opts)
+    solve_lo = lo_rhs_solver(B, lo, lambda rhs: potrs(L, rhs, opts))
+
+    def full_solve():
+        return potrs(potrf(A, opts), B, opts).to_dense()
+
+    x, iters = iterative_refinement(A, B, solve_lo, full_solve, opts)
+    return L, _store(B, x), iters
+
+
+@instrument_driver("posv_mixed_gmres")
+def posv_mixed_gmres(A: TiledMatrix, B: TiledMatrix,
+                     opts: OptionsLike = None):
+    """Mixed-precision FGMRES-IR Cholesky (reference
+    src/posv_mixed_gmres.cc), right-preconditioned by the lo-precision
+    Cholesky solve. One right-hand side."""
+    from .refine import fgmres_ir, lo_rhs_solver
+    slate_assert(B.shape[1] == 1,
+                 "posv_mixed_gmres supports one right-hand side")
+    lo, L = _lo_factor(A, opts)
+    solve_lo = lo_rhs_solver(B, lo, lambda rhs: potrs(L, rhs, opts))
+
+    def full_solve():
+        return potrs(potrf(A, opts), B, opts).to_dense()
+
+    x, iters = fgmres_ir(A, B, solve_lo, full_solve,
+                         restart_cap=max(A.resolve().mb - 1, 1), opts=opts)
+    return L, _store(B, x), iters

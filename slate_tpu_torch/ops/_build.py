@@ -53,6 +53,19 @@ LIBS = {
         "slate_set_device": [_I],
         "compose_swaps": [_P, _I, _I, _P, _P],
     }),
+    "qr_panel": ("qr_panel.cu", {
+        "slate_set_device": [_I],
+        "qr_panel_scratch": [_I],
+        "qr_panel": [_P, _P, _I, _I, _P, _P, _I, _P],
+    }),
+    "chol_panel": ("chol_panel.cu", {
+        "slate_set_device": [_I],
+        "chol_panel": [_P, _P, _I, _I, _P],
+    }),
+    "trtri_lower": ("trtri_lower.cu", {
+        "slate_set_device": [_I],
+        "trtri_lower": [_P, _P, _I, _I, _P],
+    }),
 }
 
 _lock = threading.Lock()

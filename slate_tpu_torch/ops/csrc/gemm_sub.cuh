@@ -1,12 +1,13 @@
-// Shared-memory-tiled GEMM-with-subtract: D = T(C - T(A * B)).
+// Shared-memory-tiled GEMM-with-subtract: D = T(C - T(A * op(B))).
 //
-// The product step of both ported LU kernels: the masked rank-w/2
+// The product step of the ported LU kernels: the masked rank-w/2
 // update inside the recursive panel (lu_panel_rec.cu) and the
 // row-gridded trailing update of the tall-panel split
-// (rank_update.cu). All operands are row-major strided views of one
-// storage type T (float or __nv_bfloat16); D may alias C (each element
-// is read and then written by the same thread), and A and B must not
-// overlap D.
+// (rank_update.cu); with op(B) = B^T, the left-looking stripe update of
+// the Cholesky panel (chol_panel.cu). All operands are row-major
+// strided views of one storage type T (float or __nv_bfloat16); D may
+// alias C (each element is read and then written by the same thread),
+// and A and B must not overlap D.
 //
 // Arithmetic is the reference's (pallas_kernels.py :490-494, :606-611):
 // the products accumulate in f32, the sum is rounded to T, and the
@@ -26,7 +27,7 @@
 
 #include <cuda_runtime.h>
 
-#include "lu_base.cuh"
+#include "coop.cuh"
 
 namespace slate_torch {
 
@@ -35,7 +36,9 @@ constexpr int GS_BN = 64;
 constexpr int GS_BK = 16;
 constexpr int GS_THREADS = 256;
 
-template <typename T>
+// BT: B is given as its transpose, (N, K) row-major with leading
+// dimension ldb, and op(B) = B^T.
+template <typename T, bool BT>
 __global__ void __launch_bounds__(GS_THREADS)
 gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
                 const T* __restrict__ B, long ldb, T* D, long ldd, int M,
@@ -59,10 +62,12 @@ gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
                                           : 0.f;
         }
         for (int e = tid; e < GS_BK * GS_BN; e += GS_THREADS) {
-            const int r = e / GS_BN, c = e % GS_BN;
+            // neighbouring threads on neighbouring addresses of B
+            const int r = BT ? e % GS_BK : e / GS_BN;
+            const int c = BT ? e / GS_BK : e % GS_BN;
             const int gr = k0 + r, gc = col0 + c;
-            Bs[r][c] = (gr < K && gc < N) ? to_f(B[(long)gr * ldb + gc])
-                                          : 0.f;
+            const long at = BT ? (long)gc * ldb + gr : (long)gr * ldb + gc;
+            Bs[r][c] = (gr < K && gc < N) ? to_f(B[at]) : 0.f;
         }
         __syncthreads();
 #pragma unroll
@@ -94,14 +99,14 @@ gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
     }
 }
 
-// Launch D = C - A B on `stream`; returns cudaGetLastError().
-template <typename T>
+// Launch D = C - A op(B) on `stream`; returns cudaGetLastError().
+template <typename T, bool BT = false>
 int launch_gemm_sub(const T* C, long ldc, const T* A, long lda, const T* B,
                     long ldb, T* D, long ldd, int M, int N, int K,
                     cudaStream_t stream) {
     if (M <= 0 || N <= 0) return (int)cudaGetLastError();
     dim3 grid((N + GS_BN - 1) / GS_BN, (M + GS_BM - 1) / GS_BM);
-    gemm_sub_kernel<T><<<grid, GS_THREADS, 0, stream>>>(
+    gemm_sub_kernel<T, BT><<<grid, GS_THREADS, 0, stream>>>(
         C, ldc, A, lda, B, ldb, D, ldd, M, N, K);
     return (int)cudaGetLastError();
 }

@@ -35,32 +35,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "coop.cuh"
+
 namespace slate_torch {
 
 constexpr int BASE_THREADS = 256;
 constexpr int BASE_MAX_BLOCKS = 1024;   // candidate slots per parity
 
-// -- storage type <-> f32, and the panel type's rounding -----------------
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back: the identity for f32
-template <typename T>
-__device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
-
-// -- reductions and the grid barrier -------------------------------------
+// -- reductions ------------------------------------------------------------
 
 // (value, row) argmax step: larger |a| wins, equal values go to the
 // lower row (the lu_panel_fori tie-break).
@@ -76,22 +58,6 @@ __device__ __forceinline__ void warp_argmax(float& v, int& r) {
     for (int off = 16; off > 0; off >>= 1)
         argmax_merge(v, r, __shfl_down_sync(0xffffffffu, v, off),
                      __shfl_down_sync(0xffffffffu, r, off));
-}
-
-// Grid-wide barrier over a co-resident (cooperative) grid: a counter
-// that only grows; barrier number `epoch` waits for epoch * nblocks
-// arrivals. The counter is zeroed before each launch.
-__device__ __forceinline__ void grid_barrier(unsigned int* count,
-                                             unsigned int epoch) {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        __threadfence();
-        atomicAdd(count, 1u);
-        const unsigned int target = epoch * gridDim.x;
-        while (*(volatile unsigned int*)count < target) __nanosleep(20);
-        __threadfence();
-    }
-    __syncthreads();
 }
 
 // -- the segment factorization -------------------------------------------
@@ -230,39 +196,19 @@ lu_base_kernel(T* a, int* piv, int m, int w, int c0, int wseg, int ncols,
 template <typename T>
 int launch_lu_base(T* a, int* piv, int m, int w, int c0, int wseg,
                    float* scratch_f, int* scratch_i, cudaStream_t s) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     // at least 16 rows per block, at most one block per SM
-    int blocks = min(sms, max(1, (m + 15) / 16));
-    blocks = min(blocks, BASE_MAX_BLOCKS);
+    const int blocks = coop_blocks(m, 16, BASE_MAX_BLOCKS);
     const int rows = (m + blocks - 1) / blocks;
     const int ncols = max(0, min(wseg, m - c0));
     const size_t smem = sizeof(float) * ((size_t)rows * wseg + wseg + rows);
-    cudaError_t e = cudaSuccess;
-    if (smem > 48 * 1024)
-        e = cudaFuncSetAttribute(lu_base_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, lu_base_kernel<T>, BASE_THREADS, smem);
-    if (e != cudaSuccess) {
-        cudaGetLastError();
-        return (int)e;
-    }
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     unsigned int* bar = (unsigned int*)scratch_i;
-    cudaMemsetAsync(bar, 0, sizeof(unsigned int), s);
     float* cand_val = scratch_f;
     float* xrow = scratch_f + 2 * BASE_MAX_BLOCKS;
     int* cand_row = scratch_i + 1;
     void* args[] = {&a, &piv, &m, &w, &c0, &wseg, (void*)&ncols,
                     (void*)&rows, &cand_val, &cand_row, &xrow, &bar};
-    e = cudaLaunchCooperativeKernel((void*)lu_base_kernel<T>, dim3(blocks),
-                                    dim3(BASE_THREADS), args, smem, s);
-    const cudaError_t last = cudaGetLastError();
-    return (int)(e != cudaSuccess ? e : last);
+    return coop_launch(lu_base_kernel<T>, blocks, BASE_THREADS, smem, args,
+                       bar, s);
 }
 
 }  // namespace slate_torch

@@ -2,21 +2,25 @@
 ``slate_tpu/ops/pallas_kernels.py``), with the ported entries only:
 the block-recursive LU panel ``lu_panel_rec``, the trailing update
 ``_rank_update`` of its tall-panel split, the rank-1 LU panel
-``lu_panel``, and the swap composition ``lu_pivots_to_permutation``
-(the port of XLA's builtin of that name, which the reference calls
-between panels).
+``lu_panel``, the swap composition ``lu_pivots_to_permutation`` (the
+port of XLA's builtin of that name, which the reference calls between
+panels), the Householder panel ``qr_panel``, the Cholesky block
+``chol_panel`` and the lower-triangular inverse ``trtri_lower``.
 
 Every kernel here has three parts side by side:
 
   * the CUDA C++ kernel, in ``csrc/`` (built by ``_build.py``);
   * a launch wrapper (``_lu_panel_rec_launch``, ``_rank_update``,
-    ``_lu_panel_launch``, ``lu_pivots_to_permutation``) that launches
+    ``_lu_panel_launch``, ``lu_pivots_to_permutation``,
+    ``_qr_panel_launch``, ``_chol_panel_launch``,
+    ``_trtri_lower_launch``) that launches
     the kernel for a CUDA tensor and adds one to its ``launches`` count
     there, and nowhere else; it raises on what the kernel does not
     take. There is no fall back: for a tensor on the CPU, and only
     then, it computes the kernel's plain version instead;
   * the plain PyTorch version (``panel_rec_plain``,
-    ``rank_update_plain``, ``lu_panel_plain``, ``compose_swaps_plain``),
+    ``rank_update_plain``, ``lu_panel_plain``, ``compose_swaps_plain``,
+    ``qr_panel_plain``, ``chol_panel_plain``, ``trtri_lower_plain``),
     the same function with the same recursion, pivot tie-break and
     rounding, which the CPU tests hold against the JAX package and
     ``chip_smoke.py`` holds against the kernel on the card
@@ -49,8 +53,11 @@ from . import _build
 
 #: public kernel entry point -> (eligibility gate, tune-cache op)
 KERNEL_REGISTRY = {
+    "qr_panel": ("qr_panel_eligible", "qr_panel"),
     "lu_panel": ("lu_panel_eligible", "lu_panel"),
     "lu_panel_rec": ("lu_panel_rec_eligible", "lu_panel"),
+    "trtri_lower": ("trtri_eligible", "trtri"),
+    "chol_panel": ("chol_panel_eligible", "chol_panel"),
 }
 
 #: widest recursive panel (one dispatch OR the tall split)
@@ -536,12 +543,314 @@ def lu_panel(a: torch.Tensor
     return _lu_panel_launch(a)
 
 
+# -- the Householder panel ----------------------------------------------------
+
+#: widest QR panel of one dispatch (tune key ("qr_panel", "max_w"))
+QR_PANEL_MAX_W = 128
+#: tallest QR panel of one dispatch
+QR_PANEL_MAX_M = 8192
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as the kernels' sqrtf:
+    through f64 (exact after one rounding), since torch's f32 sqrt on
+    the CPU may be an ulp off."""
+    return torch.sqrt(x.double()).float()
+
+
+def _qr_shape_ok(m: int, w: int) -> bool:
+    from ..tune.select import tuned_int
+    return w <= tuned_int("qr_panel", "max_w", QR_PANEL_MAX_W) \
+        and m <= QR_PANEL_MAX_M and m % 128 == 0 and w % 8 == 0
+
+
+def qr_panel_reject_reason(m: int, w: int, dtype, device=None
+                           ) -> Optional[str]:
+    """Why an (m, w) panel will NOT run as one qr_panel kernel (None ==
+    eligible): NOT_CUDA (the reference's 'platform'), 'dtype' (not
+    f32/bf16), 'shape' (the reference's caps: w <= the tuned max_w,
+    m <= 8192, m % 128 == 0, w % 8 == 0)."""
+    if not _on_cuda(device):
+        return NOT_CUDA
+    if dtype not in PANEL_DTYPES:
+        return "dtype"
+    if not _qr_shape_ok(m, w):
+        return "shape"
+    return None
+
+
+def qr_panel_eligible(m: int, w: int, dtype, device=None) -> bool:
+    """ROUTING gate for the Householder panel (qr._qr_panel consults it
+    after the library geqrf, which takes no bf16)."""
+    return qr_panel_reject_reason(m, w, dtype, device) is None
+
+
+def qr_panel_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the Householder panel, on any device:
+    (packed V\\R in a's type, taus f32), with the kernel's arithmetic
+    (the reference's ``_qr_panel_pallas``): per column j the scalars in
+    f32 (a zero column gives tau 0, a zero denominator is replaced by
+    1), v = x / (alpha - beta) kept in f32, vta = v^T f32(panel), the
+    update T(x - T((tau v) vta)), then T(v) below the diagonal and
+    T(beta) on it."""
+    m, w = a.shape
+    out = a.clone()
+    taus = torch.zeros(w, dtype=torch.float32, device=a.device)
+    one = torch.ones((), dtype=torch.float32, device=a.device)
+    for j in range(min(m, w)):
+        x = out[j:, j].to(torch.float32, copy=True)
+        alpha = x[0]
+        nrm2 = (x * x).sum()
+        nrm = _sqrt(nrm2)
+        beta = torch.where(alpha >= 0, -nrm, nrm)
+        degenerate = nrm2 <= 0
+        safe_beta = torch.where(degenerate, one, beta)
+        tau = torch.where(degenerate, torch.zeros_like(one),
+                          (beta - alpha) / safe_beta)
+        denom = alpha - safe_beta
+        denom = torch.where(denom == 0, one, denom)
+        v = x / denom
+        v[0] = 1.0
+        vta = v @ out[j:, j + 1:].float()
+        out[j:, j + 1:] -= ((tau * v)[:, None] * vta[None, :]).to(a.dtype)
+        v[0] = beta
+        out[j:, j] = v.to(a.dtype)
+        taus[j] = tau
+    return out, taus
+
+
+def _qr_panel_launch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ONE panel through the qr_panel kernel (the counterpart of one
+    ``_qr_panel_pallas`` dispatch): the CUDA kernel for a CUDA tensor,
+    counted; the plain version for a CPU tensor. Taus come back f32."""
+    if a.device.type != "cuda":
+        return qr_panel_plain(a)
+    m, w = a.shape
+    if a.dtype not in PANEL_DTYPES or not 0 < w <= m:
+        raise ValueError("qr_panel kernel takes an f32/bf16 (m, w) panel "
+                         "with 0 < w <= m, got %s %s"
+                         % (tuple(a.shape), a.dtype))
+    lib = _build.load("qr_panel")
+    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    out = a.clone(memory_format=torch.contiguous_format)
+    taus = torch.empty(w, dtype=torch.float32, device=a.device)
+    scr = torch.empty(lib.qr_panel_scratch(w), dtype=torch.float32,
+                      device=a.device)
+    bar = torch.empty(1, dtype=torch.int32, device=a.device)
+    _build.check(lib.qr_panel(out.data_ptr(), taus.data_ptr(), m, w,
+                              scr.data_ptr(), bar.data_ptr(),
+                              int(a.dtype == torch.bfloat16), _stream(a)),
+                 "qr_panel")
+    _qr_panel_launch.launches += 1
+    return out, taus
+
+
+_qr_panel_launch.launches = 0
+
+
+def qr_panel(a: torch.Tensor
+             ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(packed, taus in a's type) Householder panel via the qr_panel
+    kernel; None, with the reason as an obs instant, when the gate
+    rejects it (the caller falls back to the column loop). A CPU tensor
+    of a shape and type the kernel takes runs the plain version."""
+    m, w = a.shape
+    reason = qr_panel_reject_reason(m, w, a.dtype, a.device)
+    if reason is not None and not _runnable_on_cpu(reason, a.dtype,
+                                                   _qr_shape_ok(m, w)):
+        _reject("qr_panel", reason, m=m, w=w, dtype=str(a.dtype))
+        return None
+    packed, taus = _qr_panel_launch(a)
+    return packed, taus.to(a.dtype)
+
+
+# -- the Cholesky block and the triangular inverse --------------------------
+
+#: stripe width of the Cholesky block kernel
+_CHOL_BLK = 128
+#: largest block factored in one dispatch (tune key
+#: ("chol_panel", "fused_max"))
+CHOL_FUSED_MAX = 1024
+#: largest block inverted in one dispatch (tune key ("trtri",
+#: "fused_max"))
+TRTRI_FUSED_MAX = 512
+
+
+def _chol_shape_ok(n: int) -> bool:
+    from ..tune.select import tuned_int
+    return n <= tuned_int("chol_panel", "fused_max", CHOL_FUSED_MAX) \
+        and n % _CHOL_BLK == 0
+
+
+def _trtri_shape_ok(n: int) -> bool:
+    from ..tune.select import tuned_int
+    return n <= tuned_int("trtri", "fused_max", TRTRI_FUSED_MAX) \
+        and n % 128 == 0
+
+
+def _f32_reason(shape_ok: bool, dtype, device) -> Optional[str]:
+    if not _on_cuda(device):
+        return NOT_CUDA
+    if dtype != torch.float32:
+        return "dtype"
+    return None if shape_ok else "shape"
+
+
+def chol_panel_eligible(n: int, dtype, device=None) -> bool:
+    """ROUTING gate for the Cholesky block kernel: an f32 CUDA block of
+    order n <= the tuned fused_max (1024), n % 128 == 0."""
+    return _f32_reason(_chol_shape_ok(n), dtype, device) is None
+
+
+def trtri_eligible(n: int, dtype, device=None) -> bool:
+    """ROUTING gate for the triangular-inverse kernel: an f32 CUDA block
+    of order n <= the tuned fused_max (512), n % 128 == 0."""
+    return _f32_reason(_trtri_shape_ok(n), dtype, device) is None
+
+
+def chol_panel_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Cholesky block, on any device, in
+    the kernel's (and ``_chol_fused_pallas``'s) order: 128-wide stripes
+    left to right, each taking the left-looking update
+    A[k0:, stripe] - L[k0:, :k0] L[stripe, :k0]^T (products summed in
+    f32), then the per-column recurrence inside it (d = sqrt(s_jj), a
+    zero d divides by 1, the rank-1 update of the stripe's columns
+    right of j). Only the lower triangle of `a` is read; the result has
+    zeros above the diagonal."""
+    n = a.shape[0]
+    L = torch.zeros_like(a)
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    for k0 in range(0, n, _CHOL_BLK):
+        k1 = min(k0 + _CHOL_BLK, n)
+        S = a[k0:, k0:k1] - L[k0:, :k0] @ L[k0:k1, :k0].T
+        for jj in range(k1 - k0):
+            d = _sqrt(S[jj, jj])
+            v = S[jj + 1:, jj] / torch.where(d == 0, one, d)
+            S[jj, jj] = d
+            S[jj + 1:, jj] = v
+            S[jj + 1:, jj + 1:] -= torch.outer(v, v[:k1 - k0 - jj - 1])
+        L[k0:, k0:k1] = S
+        L[k0:k1, k0:k1] = torch.tril(S[:k1 - k0])
+    return L
+
+
+def _chol_panel_launch(a: torch.Tensor, serial: bool = False
+                       ) -> torch.Tensor:
+    """ONE block through the Cholesky kernel (the counterpart of one
+    ``_chol_fused_pallas`` dispatch): the CUDA kernel for a CUDA
+    tensor, counted; the plain version for a CPU tensor. serial=True
+    launches each stripe's blocks one at a time, block 0 first: the
+    same result, bitwise, if no block depends on when another starts."""
+    if a.device.type != "cuda":
+        return chol_panel_plain(a)
+    n = a.shape[0]
+    if a.dtype != torch.float32 or tuple(a.shape) != (n, n) \
+            or n % _CHOL_BLK:
+        raise ValueError("chol_panel kernel takes an f32 (n, n) block with "
+                         "n %% %d == 0, got %s %s"
+                         % (_CHOL_BLK, tuple(a.shape), a.dtype))
+    lib = _build.load("chol_panel")
+    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    work = a.clone(memory_format=torch.contiguous_format)
+    out = torch.zeros_like(work)
+    _build.check(lib.chol_panel(work.data_ptr(), out.data_ptr(), n,
+                                int(serial), _stream(a)),
+                 "chol_panel")
+    _chol_panel_launch.launches += 1
+    return out
+
+
+_chol_panel_launch.launches = 0
+
+
+def chol_panel(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of an SPD block: the Cholesky kernel where its
+    gate takes the block, the plain version for an f32 CPU block of a
+    shape it takes (the reference's interpret mode), else the library
+    Cholesky (``blocked.chol_diag_factor``, the reference's XLA
+    fallback). The upper triangle of the result is unspecified, as
+    LAPACK's; only the lower triangle of `a` is read."""
+    n = a.shape[0]
+    reason = _f32_reason(_chol_shape_ok(n), a.dtype, a.device)
+    if reason is None or (reason == NOT_CUDA and a.dtype == torch.float32
+                          and _chol_shape_ok(n)):
+        return _chol_panel_launch(a)
+    _reject("chol_panel", reason, n=n, dtype=str(a.dtype))
+    from ..linalg.blocked import chol_diag_factor
+    return chol_diag_factor(a)
+
+
+def trtri_lower_plain(a: torch.Tensor, unit_diagonal: bool = False
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of the triangular inverse, on any device:
+    forward substitution by rows, x_j = (e_j - L[j, :j] X[:j]) / L_jj
+    (products summed in f32, a zero L_jj taken as 1, no divide with a
+    unit diagonal), zeros above the diagonal (``_trtri_lower_pallas``)."""
+    n = a.shape[0]
+    X = torch.zeros_like(a)
+    for j in range(n):
+        xj = -(a[j, :j] @ X[:j])
+        xj[j] += 1.0
+        if not unit_diagonal:
+            ljj = a[j, j]
+            xj = xj / torch.where(ljj == 0, torch.ones_like(ljj), ljj)
+        X[j] = xj
+    return X
+
+
+def _trtri_lower_launch(a: torch.Tensor, unit_diagonal: bool
+                        ) -> torch.Tensor:
+    """ONE block through the triangular-inverse kernel (the counterpart
+    of one ``_trtri_lower_pallas`` dispatch): the CUDA kernel for a
+    CUDA tensor, counted; the plain version for a CPU tensor."""
+    if a.device.type != "cuda":
+        return trtri_lower_plain(a, unit_diagonal)
+    n = a.shape[0]
+    if a.dtype != torch.float32 or tuple(a.shape) != (n, n) \
+            or n > TRTRI_FUSED_MAX:
+        raise ValueError("trtri_lower kernel takes an f32 (n, n) block with "
+                         "n <= %d, got %s %s"
+                         % (TRTRI_FUSED_MAX, tuple(a.shape), a.dtype))
+    lib = _build.load("trtri_lower")
+    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    a = a.contiguous()
+    out = torch.zeros_like(a)
+    _build.check(lib.trtri_lower(a.data_ptr(), out.data_ptr(), n,
+                                 int(unit_diagonal), _stream(a)),
+                 "trtri_lower")
+    _trtri_lower_launch.launches += 1
+    return out
+
+
+_trtri_lower_launch.launches = 0
+
+
+def trtri_lower(a: torch.Tensor, unit_diagonal: bool = False
+                ) -> torch.Tensor:
+    """Inverse of a lower-triangular block: the kernel where its gate
+    takes the block, the plain version for an f32 CPU block of a shape
+    it takes, else one library solve against the identity (the
+    reference's XLA fallback)."""
+    n = a.shape[0]
+    reason = _f32_reason(_trtri_shape_ok(n), a.dtype, a.device)
+    if reason is None or (reason == NOT_CUDA and a.dtype == torch.float32
+                          and _trtri_shape_ok(n)):
+        return _trtri_lower_launch(a, unit_diagonal)
+    _reject("trtri_lower", reason, n=n, dtype=str(a.dtype))
+    from ..linalg.blocked import solve_triangular
+    return solve_triangular(a, torch.eye(n, dtype=a.dtype, device=a.device),
+                            upper=False, unitriangular=unit_diagonal)
+
+
 # -- counters ----------------------------------------------------------------
 
 _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
             "rank_update": _rank_update,
             "lu_panel": _lu_panel_launch,
-            "compose_swaps": lu_pivots_to_permutation}
+            "compose_swaps": lu_pivots_to_permutation,
+            "qr_panel": _qr_panel_launch,
+            "chol_panel": _chol_panel_launch,
+            "trtri_lower": _trtri_lower_launch}
 
 
 def launch_counts() -> dict:

@@ -1,12 +1,15 @@
 """Seeded inputs shared by the tests and ``chip_smoke.py`` (the
 counterpart of the panel helpers in ``tests/test_pallas_rec.py``).
-numpy only, so the same arrays can go through both packages."""
+numpy arrays, so the same inputs can go through both packages;
+``spd_system`` also makes its system on the card from a
+``torch.Generator``."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 
 def dyadic_noise(rng, m: int, w: int) -> np.ndarray:
@@ -78,3 +81,77 @@ def permuted_boosted_system(rng, n: int, nrhs: int
     a = g[rng.permutation(n)]
     b = rng.standard_normal((n, nrhs), dtype=np.float32)
     return a, b
+
+
+def spd_system(rng, n: int, nrhs: int):
+    """(S, B) f32: S = G G^T / n + I with G Gaussian (n, n), and a
+    Gaussian right-hand side (n, nrhs). The eigenvalues of G G^T / n
+    lie in [0, 4] (Marchenko-Pastur), so cond(S) <= 5 and solves by
+    different routes agree to a tight forward tolerance. `rng` is a
+    numpy Generator (numpy arrays, the tests' inputs to both packages)
+    or a torch.Generator (tensors on its device, the product formed
+    there: chip_smoke.py's 1 GiB system at n = 16384)."""
+    if isinstance(rng, torch.Generator):
+        dev = rng.device
+        g = torch.randn((n, n), generator=rng, device=dev)
+        s = torch.addmm(torch.eye(n, device=dev), g, g.T, alpha=1.0 / n)
+        return s, torch.randn((n, nrhs), generator=rng, device=dev)
+    g = rng.standard_normal((n, n))
+    s = (g @ g.T / n + np.eye(n)).astype(np.float32)
+    return s, rng.standard_normal((n, nrhs)).astype(np.float32)
+
+
+#: power-of-two scales of the adversarial suites: far from 1 in both
+#: directions, yet the squares of Gaussian entries and their sums over
+#: a 256-row panel stay normal f32 numbers (no subnormals, no overflow)
+TINY, HUGE = 2.0 ** -40, 2.0 ** 40
+
+
+def qr_panel_cases(rng, m: int, w: int) -> Dict[str, np.ndarray]:
+    """The Householder panel's adversarial suite (f32 (m, w)): a zero
+    column ("zerocol": tau 0), an upper-triangular panel whose every
+    column is already zero below the diagonal ("triu": tau 2 in the
+    kernel, 0 in householder.reflect), equal columns ("equal": the
+    columns after the first reduce to rounding noise), and a Gaussian
+    panel at tiny and huge scales."""
+    g = rng.standard_normal((m, w)).astype(np.float32)
+    z = g.copy()
+    z[:, w // 2] = 0.0
+    return {"zerocol": z, "triu": np.triu(g),
+            "equal": np.repeat(g[:, :1], w, axis=1),
+            "tiny": (g * TINY).astype(np.float32),
+            "huge": (g * HUGE).astype(np.float32)}
+
+
+def chol_cases(rng, n: int) -> Dict[str, np.ndarray]:
+    """The Cholesky block's adversarial suite (f32 (n, n), lower
+    triangle read): a zero row and column ("zerocol": d = 0, divided by
+    1), a diagonal matrix, every column already zero below the
+    diagonal ("diag"), equal columns (all ones, rank 1: every pivot
+    after the first is 0), and an SPD matrix at tiny and huge scales."""
+    s, _ = spd_system(rng, n, 1)
+    z = s.copy()
+    z[n // 3, :] = 0.0
+    z[:, n // 3] = 0.0
+    return {"zerocol": z,
+            "diag": np.diag(rng.uniform(0.5, 2.0, n)).astype(np.float32),
+            "equal": np.ones((n, n), np.float32),
+            "tiny": (s * TINY).astype(np.float32),
+            "huge": (s * HUGE).astype(np.float32)}
+
+
+def trtri_cases(rng, n: int) -> Dict[str, np.ndarray]:
+    """The triangular inverse's adversarial suite (f32 lower (n, n)): a
+    zero on the diagonal ("zerodiag": taken as 1), a diagonal matrix
+    ("diag"), equal columns (the lower triangle of ones: the inverse is
+    exact), and a well-conditioned triangle at tiny and huge scales."""
+    L = np.tril(rng.standard_normal((n, n)) / np.sqrt(n))
+    L[np.diag_indices(n)] = rng.uniform(1.0, 2.0, n)
+    L = L.astype(np.float32)
+    z = L.copy()
+    z[n // 2, n // 2] = 0.0
+    return {"zerodiag": z,
+            "diag": np.diag(rng.uniform(0.5, 2.0, n)).astype(np.float32),
+            "equal": np.tril(np.ones((n, n), np.float32)),
+            "tiny": (L * TINY).astype(np.float32),
+            "huge": (L * HUGE).astype(np.float32)}

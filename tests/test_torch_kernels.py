@@ -18,8 +18,9 @@ from slate_tpu.tune import cache as jcache
 
 from slate_tpu_torch.linalg.lu import lu_panel_fori
 from slate_tpu_torch.ops import kernels as pk
-from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, panel_cases,
-                                     spiked)
+from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
+                                     panel_cases, qr_panel_cases,
+                                     spd_system, spiked, trtri_cases)
 from slate_tpu_torch.tune import cache as tcache
 
 KINDS = ("antidiag", "boundary", "randperm", "ties", "zerocol")
@@ -275,8 +276,14 @@ def test_cpu_calls_count_no_launch():
     pk.lu_panel(a)
     pk.lu_panel_rec(a.bfloat16(), ib=8, max_elems=512 * 16)
     pk.lu_pivots_to_permutation(torch.arange(64, dtype=torch.int32), 512)
+    pk.qr_panel(a[:, :32])
+    pk.qr_panel(a[:, :32].bfloat16())
+    s = a[:256, :32] @ a[:256, :32].T + 256 * torch.eye(256)
+    pk.trtri_lower(pk.chol_panel(s))
     assert pk.launch_counts() == {"lu_panel_rec": 0, "rank_update": 0,
-                                  "lu_panel": 0, "compose_swaps": 0}
+                                  "lu_panel": 0, "compose_swaps": 0,
+                                  "qr_panel": 0, "chol_panel": 0,
+                                  "trtri_lower": 0}
 
 
 # -- bf16 panels, the rank-1 panel, the swap composition ---------------------
@@ -454,3 +461,147 @@ def test_cuda_paths_make_no_host_copy():
     assert not bad.search(cuda_branch)
     assert "compose_swaps_plain" in inspect.getsource(
         pk.lu_pivots_to_permutation)
+
+
+# -- the Householder panel, the Cholesky block, the triangular inverse -------
+
+QR_KINDS = ("zerocol", "triu", "equal", "tiny", "huge")
+
+
+@pytest.fixture(scope="module")
+def qr_adversarial():
+    """The Householder suite (m=256, w=32) through the JAX kernel in
+    both types, once."""
+    cases = qr_panel_cases(np.random.default_rng(21), 256, 32)
+    return {(kind, dt): (a,) + tuple(map(np.asarray,
+                                         jpk.qr_panel(_to_jax(a, dt))))
+            for kind, a in cases.items() for dt in DTYPES}
+
+
+def _assert_qr(kind, dtype, packed, taus, jp, jt):
+    """A port panel against the JAX kernel's. Scale-relative, since the
+    tiny/huge kinds sit at 2^-60 / 2^56. f32: the norms and v^T A sums
+    are taken in another order (1e-5 of the scale). bf16: the first
+    rounding that flips differently feeds every later column; the
+    factors agree normwise to a bf16 ulp (2^-8 relative). "equal":
+    after the first column the rest is rounding noise, whose reflectors
+    are arbitrary, so only R and the first tau are compared."""
+    out, ref = _f32(packed), _f32(jp)
+    if kind == "equal":
+        out, ref = np.triu(out), np.triu(ref)
+        taus, jt = taus[:1], jt[:1]
+    scale = np.abs(ref).max()
+    if dtype == "bfloat16":
+        assert np.linalg.norm(out - ref) <= 2.0 ** -8 * np.linalg.norm(ref)
+    else:
+        assert np.abs(out - ref).max() <= 1e-5 * scale
+    # taus lie in [0, 2]
+    assert np.abs(_f32(taus) - _f32(jt)).max() <= \
+        (2.0 ** -7 if dtype == "bfloat16" else 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", QR_KINDS)
+def test_qr_panel_adversarial_matches_jax(qr_adversarial, kind, dtype):
+    a, jp, jt = qr_adversarial[(kind, dtype)]
+    packed, taus = pk.qr_panel(_to_torch(a, dtype))
+    assert packed.dtype == taus.dtype == getattr(torch, dtype)
+    _assert_qr(kind, dtype, packed, taus, jp, jt)
+    t = _f32(taus)
+    if kind == "zerocol":
+        # the zero column: tau 0 in both
+        assert t[16] == 0 and _f32(jt)[16] == 0
+    if kind == "triu":
+        # every column already zero below the diagonal: the kernel's
+        # tau is exactly 2 (reflect's would be 0)
+        assert np.all(t == 2.0) and np.all(_f32(jt) == 2.0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,w", [(512, 128), (256, 64)])
+def test_qr_panel_random_matches_jax(m, w, dtype):
+    a = np.random.default_rng(m + w).standard_normal((m, w)) \
+        .astype(np.float32)
+    jp, jt = jpk.qr_panel(_to_jax(a, dtype))
+    packed, taus = pk.qr_panel(_to_torch(a, dtype))
+    _assert_qr("random", dtype, packed, taus, jp, jt)
+
+
+@pytest.mark.parametrize("kind", ["zerocol", "diag", "equal", "tiny",
+                                  "huge", "random"])
+def test_chol_panel_matches_jax(kind):
+    """The Cholesky block (n = 256: two stripes, so the left-looking
+    update runs) against the JAX kernel; only the lower triangle is
+    compared, the upper being unspecified. The exact kinds (a diagonal
+    matrix, all ones) match bitwise; the others to 1e-5 of the scale
+    (products summed in another order)."""
+    rng = np.random.default_rng(22)
+    a = spd_system(rng, 256, 1)[0] if kind == "random" \
+        else chol_cases(rng, 256)[kind]
+    ref = np.tril(np.asarray(jpk.chol_panel(jnp.asarray(a))))
+    out = pk.chol_panel(torch.as_tensor(a)).numpy()
+    assert np.array_equal(out, np.tril(out))
+    if kind in ("diag", "equal"):
+        assert np.array_equal(out, ref)
+    else:
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind,unit", [
+    (k, u) for k in ("zerodiag", "diag", "equal", "tiny", "huge")
+    for u in (False, True) if (k, u) != ("huge", True)])
+def test_trtri_lower_matches_jax(kind, unit):
+    """The triangular inverse (n = 256) against the JAX kernel, unit
+    and non-unit (a unit triangle with 2^40 off the diagonal has no
+    f32 inverse, so that pair is left out). The exact kinds match
+    bitwise; the others to 1e-5 of the scale."""
+    a = trtri_cases(np.random.default_rng(23), 256)[kind]
+    ref = np.asarray(jpk.trtri_lower(jnp.asarray(a), unit_diagonal=unit))
+    out = pk.trtri_lower(torch.as_tensor(a), unit_diagonal=unit).numpy()
+    if kind in ("diag", "equal"):
+        assert np.array_equal(out, ref)
+    else:
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_qr_chol_trtri_gates_match_jax():
+    """The three kernels' numbers are the reference's: the same shapes
+    pass the shape gates, and the reasons put the card first."""
+    assert (pk.QR_PANEL_MAX_W, pk.QR_PANEL_MAX_M, pk.CHOL_FUSED_MAX,
+            pk.TRTRI_FUSED_MAX) == (jpk.QR_PANEL_MAX_W, jpk.QR_PANEL_MAX_M,
+                                    jpk.CHOL_FUSED_MAX, jpk.TRTRI_FUSED_MAX)
+    for m in (128, 200, 4096, 8192, 8320):
+        for w in (8, 60, 64, 128, 136):
+            assert pk._qr_shape_ok(m, w) == jpk._qr_shape_ok(m, w), (m, w)
+    for n in (128, 200, 512, 640, 1024, 1152):
+        assert pk._chol_shape_ok(n) == jpk._chol_shape_ok(n), n
+        assert pk._trtri_shape_ok(n) == jpk._trtri_shape_ok(n), n
+    cuda = torch.device("cuda")
+    assert pk.qr_panel_reject_reason(8192, 128, torch.bfloat16) == pk.NOT_CUDA
+    assert pk.qr_panel_reject_reason(8192, 128, torch.float64,
+                                     cuda) == "dtype"
+    assert pk.qr_panel_reject_reason(8320, 128, torch.bfloat16,
+                                     cuda) == "shape"
+    for dt in (torch.float32, torch.bfloat16):
+        assert pk.qr_panel_eligible(8192, 128, dt, cuda)
+    assert pk.chol_panel_eligible(1024, torch.float32, cuda)
+    assert not pk.chol_panel_eligible(1024, torch.bfloat16, cuda)
+    assert not pk.chol_panel_eligible(1024, torch.float32, "cpu")
+    assert pk.trtri_eligible(512, torch.float32, cuda)
+    assert not pk.trtri_eligible(640, torch.float32, cuda)
+
+
+def test_ineligible_blocks_take_the_library():
+    """Where the gate rejects and no plain version stands in, the
+    entries return what the reference's fallbacks return: None for the
+    QR panel (the caller's column loop), the library Cholesky and the
+    library solve against the identity for the other two."""
+    assert pk.qr_panel(torch.zeros((200, 32))) is None
+    assert pk.qr_panel(torch.zeros((256, 32), dtype=torch.float64)) is None
+    s = torch.as_tensor(spd_system(np.random.default_rng(24), 200, 1)[0])
+    pk.reset_launch_counts()
+    assert torch.equal(pk.chol_panel(s), torch.linalg.cholesky(s))
+    L = torch.linalg.cholesky(s.double())
+    assert torch.equal(pk.trtri_lower(L), torch.linalg.solve_triangular(
+        L, torch.eye(200, dtype=torch.float64), upper=False))
+    assert pk.launch_counts()["chol_panel"] == 0
