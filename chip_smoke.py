@@ -29,9 +29,22 @@ script exit non-zero without the final result line:
                 kernel.trtri_lower    the triangular inverse, unit and
                                       non-unit: adversarial suite, then
                                       n = 512, 256, 128;
-              the last two have no driver call site (as in the
-              reference): their launches are counted over a run of
-              their public entries on the random cases;
+                kernel.ragged_potrf   the ragged batched Cholesky,
+                kernel.ragged_getrf   LU (pivots bitwise) and
+                kernel.ragged_trsm    triangular solve (all eight
+                                      modes): the adversarial suites of
+                                      tests/test_ragged.py (garbage
+                                      pads), then the serving stream's
+                                      first flush (64 elements,
+                                      ceiling 608), the plain version
+                                      on four of its elements; the
+                                      getrf phase also holds the
+                                      batched compose_swaps on that
+                                      flush's (64, 608) swap targets
+                                      bitwise against its plain version;
+              chol_panel and trtri_lower have no driver call site (as
+              in the reference): their launches are counted over a run
+              of their public entries on the random cases;
   4. gesv     the f32 main path: gesv at n = 16384, 64 right-hand
               sides, tiles and Option.BlockSize of 512, with a tune
               cache routing every LU panel to the recursive kernel; its
@@ -72,12 +85,30 @@ script exit non-zero without the final result line:
               every 128-wide sub-panel through the qr_panel kernel
               (exactly 64 launches); X within GELS_BF16_LIMIT of the
               f32 gels;
- 11. profile  gesv on both routes, gesv_mixed, posv on both routes and
-              the square gels, once more under torch.profiler: host
-              wall, device busy time (the union of the kernel, copy and
-              memset intervals of the trace), idle share and the
-              heaviest kernels by device time;
- 12. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 11. batch.serve  the batch layer's serving path, on the reference's
+              stream (bench.py --serve: 256 f32 SPD requests
+              x x^T / n + 4 I, n lognormal around 180, clipped to
+              [64, 1024], seed 0): potrf through
+              CoalescingQueue(max_batch=64, max_wait_us=0) under the
+              bucket and the ragged strategy (a warm-up pass, then a
+              measured one: matrices/s, p50/p99 latency, dispatches,
+              padding waste, launches), then posv and gesv (on
+              x / sqrt(n) + 2 sqrt(n) I) with one right-hand side on the
+              first 64 requests under both, and a bf16 posv leg on the
+              ragged route. Backward error <= 1e-6 per request (f32),
+              ragged equal to bucket to 1e-5, bf16 within
+              BF16_POSV_LIMIT of f32; 8 requests flushed by the
+              background flusher thread at its deadline, equal to the
+              coalesced results to 1e-5; whether a flush of batch 1
+              equals the coalesced flush bitwise is reported, not
+              checked;
+ 12. profile  gesv on both routes, gesv_mixed, posv on both routes, the
+              square gels and one ragged posv flush of 64, once more
+              under torch.profiler: host wall, device busy time (the
+              union of the kernel, copy and memset intervals of the
+              trace), idle share and the heaviest kernels by device
+              time;
+ 13. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -88,6 +119,7 @@ rate. Needs a CUDA card: without one it exits 2 and prints no result.
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -99,13 +131,14 @@ import numpy as np
 import torch
 
 import slate_tpu_torch as st
+from slate_tpu_torch import batch
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 from slate_tpu_torch.linalg import qr as tqr
 from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
                                      panel_cases, permuted_boosted_system,
-                                     qr_panel_cases, spd_system,
-                                     trtri_cases)
+                                     qr_panel_cases, ragged_cases,
+                                     serve_stream, spd_system, trtri_cases)
 from slate_tpu_torch.tune import cache as tcache
 from slate_tpu_torch.tune import select as tselect
 
@@ -923,6 +956,443 @@ def phase_gels_bf16(seed, results, system):
             "x_rel_diff_f32": xdiff, "limit": GELS_BF16_LIMIT}
 
 
+# -- the batch layer: ragged kernels and the serving stream ------------------
+
+#: the serving stream's queue (the reference's bench.py --serve)
+SERVE_REQS, SERVE_BATCH, SERVE_LEG = 256, 64, 64
+#: ragged kernel against its plain version: pivots bitwise; values f32
+#: to 1e-5 of the scale (sums in another order), bf16 to one bf16 ulp
+#: of the scale (the same rounding points; a sum that lands on the
+#: other side of a rounding boundary moves one ulp)
+RAGGED_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: bf16 ragged posv against the f32 answer on the serving stream,
+#: relative (Frobenius) per request: bf16 storage (u = 2^-8) of a
+#: system with cond <= 2 whose factor and sweeps round every stored
+#: value; the plain version on the CPU gives 0.004-0.01 at n = 64-600
+BF16_POSV_LIMIT = 0.05
+RG = "slate_tpu/ops/pallas_kernels.py:"
+
+
+def to_card(stack, dtype):
+    return torch.as_tensor(stack, device="cuda").to(dtype)
+
+
+def ragged_compare(dtype, kp, pp, sizes):
+    """Kernel against plain: the scaled error over the live blocks and
+    whether every pad is bitwise the plain version's."""
+    err = scaled_err(kp, pp)
+    pad_eq = True
+    for i, s in enumerate(sizes):
+        mask = torch.ones(kp.shape[1:], dtype=torch.bool, device=kp.device)
+        mask[:s, :s] = False
+        pad_eq &= bool(torch.equal(kp[i][mask], pp[i][mask]))
+    return err <= RAGGED_LIMIT[dtype] and pad_eq, err, pad_eq
+
+
+@functools.lru_cache(maxsize=1)
+def path_stacks(seed):
+    """The first flush of the serving stream as the ragged route stacks
+    it: sizes, ceiling, and the zero-padded SPD, gesv (x / sqrt(n) +
+    2 sqrt(n) I) and one-column right-hand-side stacks (numpy f32)."""
+    from slate_tpu_torch.batch import bucket
+    sizes, xs, spds = serve_stream(seed, SERVE_REQS)
+    sizes, xs, spds = sizes[:SERVE_BATCH], xs[:SERVE_BATCH], \
+        spds[:SERVE_BATCH]
+    ceil = bucket.ragged_ceiling(sizes, blk=pk.ragged_blk())
+    B = len(sizes)
+    spd = np.zeros((B, ceil, ceil), np.float32)
+    gen = np.zeros_like(spd)
+    rhs = np.zeros((B, ceil, 1), np.float32)
+    rng = np.random.default_rng(seed + 7)
+    for i, (n, x, a) in enumerate(zip(sizes, xs, spds)):
+        spd[i, :n, :n] = a
+        gen[i, :n, :n] = x / np.sqrt(n) + 2.0 * np.sqrt(n) * np.eye(n)
+        rhs[i, :n, 0] = rng.standard_normal(n)
+    return sizes, ceil, spd, gen, rhs
+
+
+def identity_padded(stack, sizes):
+    """The stack with its pads set to the identity (the library calls'
+    input: the same function of the live blocks)."""
+    out = stack.clone()
+    for i, s in enumerate(sizes):
+        out[i, s:, :] = 0
+        out[i, :, s:] = 0
+        out[i, s:, s:] = torch.eye(stack.shape[1] - s, dtype=stack.dtype,
+                                   device=stack.device)
+    return out
+
+
+#: elements of the path stack the plain version is held and timed on
+#: (its per-column Python loop is slow at order ~600): the largest and
+#: three others
+def plain_subset(sizes):
+    big = int(np.argmax(sizes))
+    return sorted({big, 0, 1, 2})
+
+
+def ragged_row(name, dtype, source, line, path, shape, worst, ms, plain_ms,
+               plain_of, lib_ms, library, flops, nbytes, peak):
+    b_ms, b_by = bound_ms(flops, nbytes, peak)
+    s = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+         "plain_elements": plain_of, "library_ms": lib_ms,
+         "library": library, "bound_ms": b_ms, "bound_by": b_by,
+         "flops": flops, "bytes": nbytes}
+    return entry(name, dtype, source, RG + line, path, s, worst), s
+
+
+def phase_ragged_potrf(seed, results):
+    """ragged_potrf, f32 and bf16: the adversarial suite (garbage pads,
+    orders 1 ... ceiling), then the serving stream's first flush
+    (64 elements, ceiling 608): kernel against plain (on four elements
+    of the flush), times, and the library Cholesky of the
+    identity-padded stack."""
+    ok, out = True, {"phase": "kernel.ragged_potrf"}
+    cases = ragged_cases(np.random.default_rng(31))
+    sizes, ceil, spd, _gen, _rhs = path_stacks(seed)
+    sub = plain_subset(sizes)
+    for dname, dtype in DTYPES:
+        st, sz = cases["potrf"]
+        a = to_card(st, dtype)
+        kp = pk.ragged_potrf(a, sz)
+        pp = pk.ragged_potrf_plain(a, sz, pk.ragged_blk())
+        torch.cuda.synchronize()
+        a_ok, a_err, a_pad = ragged_compare(dtype, kp, pp, sz)
+        a = to_card(spd, dtype)
+        szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        kp = pk.ragged_potrf(a, szc)
+        pp = pk.ragged_potrf_plain(a[sub], [sizes[i] for i in sub],
+                                   pk.ragged_blk())
+        p_ok, p_err, p_pad = ragged_compare(dtype, kp[sub], pp,
+                                            [sizes[i] for i in sub])
+        res = max(float(torch.linalg.norm(
+            (kp[i, :s, :s].double() @ kp[i, :s, :s].double().T)
+            - a[i, :s, :s].double()) / torch.linalg.norm(
+                a[i, :s, :s].double())) for i, s in enumerate(sizes))
+        res_ok = res <= (1e-6 if dtype == torch.float32 else 2e-2)
+        ok &= a_ok and p_ok and res_ok
+        ms = cuda_ms(lambda: pk.ragged_potrf(a, szc), 5)
+        a4 = a[sub]
+        plain_ms = cuda_ms(lambda: pk.ragged_potrf_plain(
+            a4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
+        aid = identity_padded(a, sizes).float()
+        lib_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(aid), 5)
+        live2 = sum(s * s for s in sizes)
+        row, s = ragged_row(
+            "ragged_potrf", dname, "ragged_potrf.cu", "1147",
+            "batch.serve (ragged potrf)" if dtype == torch.float32
+            else "batch.serve (ragged bf16 posv)",
+            "%dx%dx%d" % a.shape, max(a_err, p_err), ms, plain_ms, len(sub),
+            lib_ms, "torch.linalg.cholesky_ex (identity pad, f32)",
+            sum(s ** 3 for s in sizes) / 3.0,
+            a.element_size() * (live2 + a.numel()) + 4.0 * len(sizes),
+            PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        results["ragged_potrf." + dname] = row
+        out[dname] = {"adversarial": {"err": a_err, "pad_bitwise": a_pad,
+                                      "ok": a_ok},
+                      "path": dict(s, err=p_err, pad_bitwise=p_pad,
+                                   residual=res, ok=p_ok and res_ok)}
+    out["ok"] = bool(ok)
+    return out
+
+
+def compose_swaps_stack(piv, m, results):
+    """The batched compose_swaps (one launch for the stack, one block
+    per sequence) on the ragged gesv's own swap targets: bitwise equal
+    to the plain version, timed, and its row of the kernels line."""
+    perm = pk.lu_pivots_to_permutation(piv, m)
+    ref = pk.compose_swaps_plain(piv, m)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(perm, ref))
+    B, w = piv.shape
+    ms = cuda_ms(lambda: pk.lu_pivots_to_permutation(piv, m), 50)
+    plain_ms = cuda_ms(lambda: pk.compose_swaps_plain(piv, m), 3)
+    b_ms, b_by = bound_ms(0.0, B * (4.0 * w + 8.0 * m))
+    s = {"shape": "%d sequences of %d swaps over %d" % (B, w, m),
+         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+         "bound_ms": b_ms, "bound_by": b_by}
+    results["compose_swaps.batched"] = entry(
+        "compose_swaps", "int32", "compose_swaps.cu",
+        "slate_tpu/batch/drivers.py:389 (XLA lu_pivots_to_permutation "
+        "under vmap)", "batch.serve (ragged gesv)", s,
+        0.0 if same else None)
+    return dict(s, bitwise=same, ok=same)
+
+
+def phase_ragged_getrf(seed, results):
+    """ragged_getrf, f32 and bf16: the adversarial suite (pivots across
+    elements, a zero column, order 1, exact ties, garbage pads), then
+    the serving flush's gesv stack: pivots bitwise, values against the
+    plain version, times, and the library LU of the identity-padded
+    stack; the f32 flush's (64, 608) swap targets then go through the
+    batched compose_swaps, as the ragged gesv sends them."""
+    ok, out = True, {"phase": "kernel.ragged_getrf"}
+    cases = ragged_cases(np.random.default_rng(32))
+    sizes, ceil, _spd, gen, _rhs = path_stacks(seed)
+    sub = plain_subset(sizes)
+    for dname, dtype in DTYPES:
+        st, sz = cases["getrf"]
+        a = to_card(st, dtype)
+        kl, kpv = pk.ragged_getrf(a, sz)
+        pl, ppv = pk.ragged_getrf_plain(a, sz, pk.ragged_blk())
+        torch.cuda.synchronize()
+        a_piv = bool(torch.equal(kpv, ppv))
+        a_ok, a_err, a_pad = ragged_compare(dtype, kl, pl, sz)
+        a = to_card(gen, dtype)
+        szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        kl, kpv = pk.ragged_getrf(a, szc)
+        pl, ppv = pk.ragged_getrf_plain(a[sub], [sizes[i] for i in sub],
+                                        pk.ragged_blk())
+        p_piv = bool(torch.equal(kpv[sub], ppv))
+        p_ok, p_err, p_pad = ragged_compare(dtype, kl[sub], pl,
+                                            [sizes[i] for i in sub])
+        ok &= a_ok and a_piv and p_ok and p_piv
+        ms = cuda_ms(lambda: pk.ragged_getrf(a, szc), 5)
+        a4 = a[sub]
+        plain_ms = cuda_ms(lambda: pk.ragged_getrf_plain(
+            a4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
+        aid = identity_padded(a, sizes).float()
+        lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(aid), 5)
+        live2 = sum(s * s for s in sizes)
+        row, s = ragged_row(
+            "ragged_getrf", dname, "ragged_getrf.cu", "1263",
+            "batch.serve (ragged gesv)", "%dx%dx%d" % a.shape,
+            max(a_err, p_err), ms, plain_ms, len(sub), lib_ms,
+            "torch.linalg.lu_factor_ex (identity pad, f32)",
+            2.0 / 3.0 * sum(s ** 3 for s in sizes),
+            a.element_size() * (live2 + a.numel()) + 4.0 * a.shape[0]
+            * (1 + ceil),
+            PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        if dtype == torch.float32:
+            results["ragged_getrf." + dname] = row
+            out["compose_swaps"] = compose_swaps_stack(kpv, ceil, results)
+            ok &= out["compose_swaps"]["ok"]
+        out[dname] = {"adversarial": {"pivots_bitwise": a_piv, "err": a_err,
+                                      "pad_bitwise": a_pad, "ok": a_ok},
+                      "path": dict(s, pivots_bitwise=p_piv, err=p_err,
+                                   pad_bitwise=p_pad, ok=p_ok and p_piv)}
+    out["ok"] = bool(ok)
+    return out
+
+
+TRSM_MODES = [(u, t, d) for u in (False, True) for t in (False, True)
+              for d in (False, True)]
+
+
+def phase_ragged_trsm(seed, results):
+    """ragged_trsm, f32 and bf16: all eight (upper, trans, unit) modes
+    on the adversarial suite (garbage pads, orders 17 ... ceiling, 3
+    right-hand sides), then the serving flush's posv forward sweep
+    (its Cholesky factors from ragged_potrf, one right-hand side) and
+    the four modes the compositions use: against the plain version,
+    times, and the library solve on the identity-padded factors."""
+    ok, out = True, {"phase": "kernel.ragged_trsm"}
+    cases = ragged_cases(np.random.default_rng(33))
+    sizes, ceil, spd, _gen, rhs = path_stacks(seed)
+    sub = plain_subset(sizes)
+    szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    for dname, dtype in DTYPES:
+        modes, worst = {}, 0.0
+        for up, tr, un in TRSM_MODES:
+            st, sz, b = cases["trsm_upper" if up else "trsm_lower"]
+            t, bb = to_card(st, dtype), to_card(b, dtype)
+            kx = pk.ragged_trsm(t, bb, sz, upper=up, trans=tr, unit=un)
+            px = pk.ragged_trsm_plain(t, bb, sz, pk.ragged_blk(), up, tr, un)
+            torch.cuda.synchronize()
+            err = scaled_err(kx, px)
+            zero_pad = all(bool((kx[i, s:] == 0).all())
+                           for i, s in enumerate(sz))
+            m_ok = err <= RAGGED_LIMIT[dtype] and zero_pad
+            ok &= m_ok
+            worst = max(worst, err)
+            modes["%d%d%d" % (up, tr, un)] = {"err": err, "ok": m_ok}
+        L = pk.ragged_potrf(to_card(spd, dtype), szc)
+        b = to_card(rhs, dtype)
+        path = {}
+        for up, tr, un in ((False, False, False), (False, True, False),
+                           (True, False, False), (False, False, True)):
+            T = L.mT.contiguous() if up else L
+            kx = pk.ragged_trsm(T, b, szc, upper=up, trans=tr, unit=un)
+            px = pk.ragged_trsm_plain(T[sub], b[sub], [sizes[i] for i in sub],
+                                      pk.ragged_blk(), up, tr, un)
+            err = scaled_err(kx[sub], px)
+            ok &= err <= RAGGED_LIMIT[dtype]
+            worst = max(worst, err)
+            path["%d%d%d" % (up, tr, un)] = err
+        ms = cuda_ms(lambda: pk.ragged_trsm(L, b, szc), 20)
+        L4, b4 = L[sub], b[sub]
+        plain_ms = cuda_ms(lambda: pk.ragged_trsm_plain(
+            L4, b4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
+        Lid, b32 = identity_padded(L, sizes).float(), b.float()
+        lib_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+            Lid, b32, upper=False), 20)
+        live2 = sum(s * s for s in sizes)
+        row, s = ragged_row(
+            "ragged_trsm", dname, "ragged_trsm.cu", "1418",
+            "batch.serve (ragged posv)" if dtype == torch.float32
+            else "batch.serve (ragged bf16 posv)",
+            "%dx%dx%d, K = 1, lower" % L.shape, worst, ms, plain_ms,
+            len(sub), lib_ms,
+            "torch.linalg.solve_triangular (identity pad, f32)",
+            float(live2), L.element_size() * (live2 + sum(sizes) + b.numel())
+            + 4.0 * len(sizes), PEAK_F32_FLOPS)
+        results["ragged_trsm." + dname] = row
+        out[dname] = {"adversarial": modes, "path_errs": path,
+                      "path": s, "worst": worst}
+    out["ok"] = bool(ok)
+    return out
+
+
+def serve_run(op, mats, rhss, strategy, max_batch=SERVE_BATCH):
+    """One pass of `mats` (and `rhss`) through a fresh queue (max_wait
+    0, flushed at max_batch and at the end), after a synchronise: the
+    CPU results, the record the reference's bench prints, and the
+    launch counts of the pass."""
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with batch.CoalescingQueue(max_batch=max_batch, max_wait_us=0,
+                               strategy=strategy) as q:
+        ts = [q.submit(op, a) for a in mats] if rhss is None \
+            else [q.submit(op, a, b) for a, b in zip(mats, rhss)]
+        q.flush()
+        outs = [t.result() for t in ts]
+    wall = time.perf_counter() - t0
+    launches = pk.launch_counts()
+    lats = sorted(t.latency_s for t in ts)
+    s = q.stats()
+    n = len(ts)
+    return outs, {"wall_s": wall, "matrices_per_s": n / wall,
+                  "p50_ms": lats[n // 2] * 1e3,
+                  "p99_ms": lats[min(int(n * 0.99), n - 1)] * 1e3,
+                  "dispatches": s["dispatches"],
+                  "mean_occupancy": s["mean_occupancy"],
+                  "mean_padding_waste_flops":
+                      s["mean_padding_waste_flops"],
+                  "mean_occupancy_weighted": s["mean_occupancy_weighted"],
+                  "ragged_dispatches": s["ragged_dispatches"],
+                  "launches": {k: v for k, v in launches.items() if v}}, \
+        launches
+
+
+def chol_berr(L, a):
+    """||L L^T - A||_F / ||A||_F in f64 on the card."""
+    L, a = L.cuda().double(), torch.as_tensor(a, device="cuda").double()
+    return float(torch.linalg.norm(L @ L.T - a) / torch.linalg.norm(a))
+
+
+def solve_berr(x, a, b):
+    """||A x - b||_F / (||A||_F ||x||_F) in f64 on the card."""
+    x = x.cuda().double()
+    a = torch.as_tensor(a, device="cuda").double()
+    b = torch.as_tensor(b, device="cuda").double()
+    return float(torch.linalg.norm(a @ x - b)
+                 / (torch.linalg.norm(a) * torch.linalg.norm(x)))
+
+
+def rel(x, ref):
+    return float(torch.linalg.norm((x.double() - ref.double()))
+                 / torch.linalg.norm(ref.double()))
+
+
+def phase_batch_serve(seed, results, system):
+    """The batch layer's serving path: the reference's stream (256 f32
+    SPD requests, n lognormal around 180 clipped to [64, 1024]) as
+    potrf through CoalescingQueue(max_batch=64, max_wait_us=0) under
+    the bucket and then the ragged strategy, each after a warm-up pass;
+    then posv and gesv with one right-hand side on the first 64
+    requests under both, and a bf16 posv leg on the ragged route."""
+    sizes, xs, spds = serve_stream(seed, SERVE_REQS)
+    out = {"phase": "batch.serve", "requests": SERVE_REQS,
+           "n_range": [min(sizes), max(sizes)],
+           "n_median": float(np.median(sizes))}
+    ok = True
+    recs, outs = {}, {}
+    for strategy in ("bucket", "ragged"):
+        serve_run("potrf", spds, None, strategy)              # warm-up
+        o, rec, launches = serve_run("potrf", spds, None, strategy)
+        berr = max(chol_berr(L, a) for L, a in zip(o, spds))
+        rec["max_backward_error"] = berr
+        ok &= berr <= 1e-6 and (launches["ragged_potrf"] > 0) \
+            == (strategy == "ragged")
+        if strategy == "ragged":
+            set_launches(results, "batch.serve (ragged potrf)", launches)
+        recs["potrf." + strategy], outs["potrf." + strategy] = rec, o
+    diff = max(rel(r, b) for r, b in zip(outs["potrf.ragged"],
+                                         outs["potrf.bucket"]))
+    ok &= diff <= 1e-5
+    out["potrf"] = {"bucket": recs["potrf.bucket"],
+                    "ragged": recs["potrf.ragged"],
+                    "ragged_vs_bucket": diff}
+    rng = np.random.default_rng(seed + 1)
+    leg = slice(0, SERVE_LEG)
+    b1 = [rng.standard_normal((n, 1)).astype(np.float32)
+          for n in sizes[leg]]
+    gens = [x / np.float32(np.sqrt(n))
+            + np.float32(2.0 * np.sqrt(n)) * np.eye(n, dtype=np.float32)
+            for n, x in zip(sizes[leg], xs[leg])]
+    for op, mats, need in (("posv", spds[leg], ("ragged_potrf",
+                                                 "ragged_trsm")),
+                           ("gesv", gens, ("ragged_getrf", "ragged_trsm",
+                                           "compose_swaps"))):
+        rep = {}
+        for strategy in ("bucket", "ragged"):
+            serve_run(op, mats, b1, strategy)                 # warm-up
+            o, rec, launches = serve_run(op, mats, b1, strategy)
+            berr = max(solve_berr(x, a, b) for x, a, b in zip(o, mats, b1))
+            rec["max_backward_error"] = berr
+            ok &= berr <= 1e-6
+            if strategy == "ragged":
+                ok &= all(launches[k] > 0 for k in need)
+                set_launches(results, "batch.serve (ragged %s)" % op,
+                             launches)
+            rep[strategy], outs[op + "." + strategy] = rec, o
+        rep["ragged_vs_bucket"] = max(
+            rel(r, b) for r, b in zip(outs[op + ".ragged"],
+                                      outs[op + ".bucket"]))
+        ok &= rep["ragged_vs_bucket"] <= 1e-5
+        out[op] = rep
+    mb = [torch.as_tensor(a).bfloat16() for a in spds[leg]]
+    bb = [torch.as_tensor(b).bfloat16() for b in b1]
+    serve_run("posv", mb, bb, "ragged")                       # warm-up
+    o, rec, launches = serve_run("posv", mb, bb, "ragged")
+    set_launches(results, "batch.serve (ragged bf16 posv)", launches)
+    rec["max_rel_err_vs_f32"] = max(
+        rel(x.float(), r) for x, r in zip(o, outs["posv.ragged"]))
+    rec["limit"] = BF16_POSV_LIMIT
+    ok &= rec["max_rel_err_vs_f32"] <= BF16_POSV_LIMIT \
+        and all(x.dtype == torch.bfloat16 for x in o) \
+        and launches["ragged_potrf"] > 0 and launches["ragged_trsm"] > 0
+    out["posv_bf16_ragged"] = rec
+    # the reference's determinism contract, reported: a flush of batch
+    # 1 against the coalesced flush, bitwise, on the first 8 requests
+    det = {}
+    for strategy in ("bucket", "ragged"):
+        ones, _, _ = serve_run("potrf", spds[:8], None, strategy,
+                               max_batch=1)
+        det[strategy] = all(bool(torch.equal(a, b)) for a, b in
+                            zip(ones, outs["potrf." + strategy][:8]))
+    out["batch1_bitwise_vs_coalesced"] = det
+    # the background flusher issues the dispatches from its own thread:
+    # 8 requests left to its 2 ms deadline on the ragged route
+    with batch.CoalescingQueue(max_batch=SERVE_BATCH, max_wait_us=2000,
+                               background=True, strategy="ragged") as q:
+        ts = [q.submit("potrf", a) for a in spds[:8]]
+        deadline = time.perf_counter() + 60
+        while not all(t.done() for t in ts) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        flushed = all(t.done() for t in ts)
+    bg_err = max(rel(t.result(), r) for t, r in
+                 zip(ts, outs["potrf.ragged"][:8]))
+    out["background_flusher"] = {"flushed_by_deadline": flushed,
+                                 "rel_err_vs_coalesced": bg_err}
+    ok &= flushed and bg_err <= 1e-5
+    system["serve_posv"] = (spds[leg], b1)
+    out["ok"] = bool(ok)
+    return out
+
+
 #: trace categories of work on the card; other rows of a profiler trace
 #: (operators, runtime calls, the profiler's own buffer flushes) are not
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -966,7 +1436,9 @@ def profile_call(fn, top=8):
 def phase_profile(system):
     """Where the time of the main paths goes: gesv on both routes (f32
     recursive panels cached), gesv_mixed (recursive panels cached for
-    both types), posv on both routes and the square gels."""
+    both types), posv on both routes, the square gels, and one ragged
+    posv flush of the serving stream's first 64 requests (host stacking
+    and copies included)."""
     A, B, opts = system["A"], system["B"], system["opts"]
     fresh_tune_cache([torch.float32])
     out = {"phase": "profile", "ok": True,
@@ -982,6 +1454,9 @@ def phase_profile(system):
         SA, SB, {st.Option.MethodFactor: st.MethodFactor.Tiled}))
     out["gels.qr"] = profile_call(lambda: st.gels(
         A, B, {st.Option.MethodGels: st.MethodGels.QR}))
+    mats, rhss = system["serve_posv"]
+    out["batch.ragged_posv"] = profile_call(
+        lambda: serve_run("posv", mats, rhss, "ragged"))
     return out
 
 
@@ -1007,6 +1482,12 @@ def main():
         ("kernel.qr_panel", lambda: phase_qr_panel(rng, results)),
         ("kernel.chol_panel", lambda: phase_chol_panel(results)),
         ("kernel.trtri_lower", lambda: phase_trtri_lower(results)),
+        ("kernel.ragged_potrf",
+         lambda: phase_ragged_potrf(args.seed, results)),
+        ("kernel.ragged_getrf",
+         lambda: phase_ragged_getrf(args.seed, results)),
+        ("kernel.ragged_trsm",
+         lambda: phase_ragged_trsm(args.seed, results)),
         ("gesv", lambda: phase_gesv(args.seed, results, system)),
         ("gesv_mixed.cold", lambda: phase_mixed_cold(args.seed, results)),
         ("gesv_mixed", lambda: phase_mixed(results, system)),
@@ -1014,6 +1495,8 @@ def main():
         ("posv_mixed", lambda: phase_posv_mixed(system)),
         ("gels", lambda: phase_gels(args.seed, system)),
         ("gels_bf16", lambda: phase_gels_bf16(args.seed, results, system)),
+        ("batch.serve",
+         lambda: phase_batch_serve(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:

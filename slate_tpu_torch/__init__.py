@@ -8,8 +8,9 @@ and its mixed-precision solves (gesv_mixed, gesv_mixed_gmres: a bf16
 factor refined to f32 accuracy); the Cholesky family (potrf / potrs /
 posv, trtri / trtrm / potri, posv_mixed, posv_mixed_gmres); QR and
 least squares (geqrf / unmqr, gelqf / unmlq, cholqr, gels over QR,
-CholQR and TSQR); the BLAS-3 drivers they use; and the hand-written
-kernels (``ops/kernels.py``).
+CholQR and TSQR); the BLAS-3 drivers they use; the batch layer
+(``batch/``: batched drivers, the coalescing queue, bucket and ragged
+strategies); and the hand-written kernels (``ops/kernels.py``).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -28,9 +29,10 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .core import (Diag, DimensionError, HermitianMatrix, Matrix,  # noqa: E402,F401
-                   MatrixType, MethodCholQR, MethodFactor, MethodGels,
-                   MethodLU, MethodLUPanel, Op, Option, Side, SlateError,
-                   SymmetricMatrix, TiledMatrix, TriangularMatrix, Uplo)
+                   MatrixType, MethodBatchStrategy, MethodCholQR,
+                   MethodFactor, MethodGels, MethodLU, MethodLUPanel, Op,
+                   Option, Side, SlateError, SymmetricMatrix, TiledMatrix,
+                   TriangularMatrix, Uplo)
 from .interop import from_jax_state  # noqa: E402,F401
 from .linalg import (LQFactors, LUFactors, QRFactors,  # noqa: E402,F401
                      apply_pivots, cholqr, gelqf, gemm, geqrf, gels,
@@ -40,6 +42,6 @@ from .linalg import (LQFactors, LUFactors, QRFactors,  # noqa: E402,F401
                      posv_mixed_gmres, potrf, potri, potrs, symm, syr2k,
                      syrk, trmm, trsm, trtri, trtrm, unmlq, unmqr)
 from .utils import Timers  # noqa: E402,F401
-from . import obs, ops, tune  # noqa: E402,F401
+from . import batch, obs, ops, tune  # noqa: E402,F401
 
 __version__ = "0.1.0"

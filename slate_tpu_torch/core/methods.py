@@ -1,7 +1,7 @@
 """Algorithm-variant selection (counterpart of
 ``slate_tpu/core/methods.py``), reduced to the ported slices: MethodLU,
-MethodFactor, MethodLUPanel, MethodCholQR, MethodGels and the shared
-height-cap rule.
+MethodFactor, MethodLUPanel, MethodCholQR, MethodGels,
+MethodBatchStrategy and the shared height-cap rule.
 
 "Native" here means ``torch.linalg.lu_factor`` (LAPACK on the CPU,
 cuSOLVER on the card) where the reference means XLA's LU custom call.
@@ -159,10 +159,42 @@ class MethodLUPanel(enum.Enum):
         return MethodLUPanel.cold_default(m, w, dtype, device)
 
 
+class MethodBatchStrategy(enum.Enum):
+    """Stacking strategy of the batch layer's coalescing queue:
+
+      * ``Bucket``: every request pads up a geometric ladder of shapes
+        (batch/bucket.py), one batched dispatch per (op, bucket, nrhs,
+        dtype);
+      * ``Ragged``: the square factorizations and solves drop the
+        bucket from the coalescing key, stack to the flush's largest
+        live size rounded to lcm(align, blk), and run the ragged
+        kernels (ops/kernels.ragged_potrf/getrf/trsm), which bound
+        each element's work by its own order.
+
+    ``Auto`` resolves through the tune cache (``batch/strategy``,
+    FROZEN "bucket"), so a cold cache keeps the bucket route."""
+    Auto = "auto"
+    Bucket = "bucket"
+    Ragged = "ragged"
+
+    @staticmethod
+    def resolve(dtype=None) -> "MethodBatchStrategy":
+        """The tuned/frozen ``batch/strategy`` route; an unknown value
+        from a newer cache demotes to Bucket, never an error."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("batch", str(_resolve(
+                "batch", "strategy", dtype=dtype)))
+        except KeyError:
+            m = MethodBatchStrategy.Bucket
+        return MethodBatchStrategy.Bucket \
+            if m is MethodBatchStrategy.Auto else m
+
+
 def str2method(family: str, s: str):
     fam = {"lu": MethodLU, "factor": MethodFactor,
            "lu_panel": MethodLUPanel, "cholqr": MethodCholQR,
-           "gels": MethodGels}[family]
+           "gels": MethodGels, "batch": MethodBatchStrategy}[family]
     for mem in fam:
         if mem.value.lower() == s.lower() or mem.name.lower() == s.lower():
             return mem

@@ -35,6 +35,14 @@ def round_up(a: int, b: int) -> int:
     return ceil_div(a, b) * b
 
 
+def next_pow2(x: int) -> int:
+    """Smallest power of two >= x (x >= 1)."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
 def _as_tensor(a, device: DeviceLike) -> torch.Tensor:
     """torch tensor on the resolved device (numpy and tensors alike)."""
     dev = resolve_device(device)

@@ -57,23 +57,24 @@ def _solve_lower_left(a: torch.Tensor, b: torch.Tensor,
 
 def invert_triangular(a: torch.Tensor, lower: bool,
                       unit_diagonal: bool = False) -> torch.Tensor:
-    """Inverse of a triangular block: one direct solve against the
-    identity up to TRTRI_LEAF_MAX, block substitution on halves above
-    it. Upper inputs reduce to lower via transposition."""
-    n = a.shape[0]
+    """Inverse of a triangular block (or of each block of a
+    (..., n, n) stack): one direct solve against the identity up to
+    TRTRI_LEAF_MAX, block substitution on halves above it. Upper inputs
+    reduce to lower via transposition."""
+    n = a.shape[-1]
     if not lower:
-        return invert_triangular(a.T, True, unit_diagonal).T
+        return invert_triangular(a.mT, True, unit_diagonal).mT
     if n <= TRTRI_LEAF_MAX:
         eye = torch.eye(n, dtype=a.dtype, device=a.device)
-        return _solve_lower_left(a, eye, unit_diagonal)
+        return _solve_lower_left(a, eye.expand_as(a), unit_diagonal)
     # inv([[A, 0], [C, B]]) = [[iA, 0], [-iB C iA, iB]]
     h = round_up(ceil_div(n, 2), 128)
-    ia = invert_triangular(a[:h, :h], True, unit_diagonal)
-    ib = invert_triangular(a[h:, h:], True, unit_diagonal)
+    ia = invert_triangular(a[..., :h, :h], True, unit_diagonal)
+    ib = invert_triangular(a[..., h:, h:], True, unit_diagonal)
     out = torch.zeros_like(a)
-    out[:h, :h] = ia
-    out[h:, h:] = ib
-    out[h:, :h] = -((ib @ a[h:, :h]) @ ia)
+    out[..., :h, :h] = ia
+    out[..., h:, h:] = ib
+    out[..., h:, :h] = -((ib @ a[..., h:, :h]) @ ia)
     return out
 
 
@@ -125,17 +126,18 @@ def assemble_packed(panels: List[torch.Tensor],
     """Final assembly for the carry-style factorization: each step's
     (m_k, w_k) panel below k*nb zero rows, zero columns past kmax for
     M < N, and each step's top strip (U12) right of its diagonal
-    block. Writes into one preallocated tensor instead of the
-    reference's functional concatenation (same values)."""
-    dev = panels[0].device
-    out = torch.zeros((M, N), dtype=dtype, device=dev)
+    block; leading batch dimensions ride along. Writes into one
+    preallocated tensor instead of the reference's functional
+    concatenation (same values)."""
+    lead = panels[0].shape[:-2]
+    out = torch.zeros((*lead, M, N), dtype=dtype, device=panels[0].device)
     c0 = 0
     for k, p in enumerate(panels):
-        out[k * nb:, c0:c0 + p.shape[1]] = p
-        c0 += p.shape[1]
+        out[..., k * nb:, c0:c0 + p.shape[-1]] = p
+        c0 += p.shape[-1]
     for k, strip in enumerate(strips):
         k0, k1 = k * nb, min((k + 1) * nb, kmax)
-        out[k0:k0 + strip.shape[0], k1:k1 + strip.shape[1]] = strip
+        out[..., k0:k0 + strip.shape[-2], k1:k1 + strip.shape[-1]] = strip
     return out
 
 
@@ -208,33 +210,33 @@ def chol_loop_pipelined(a: torch.Tensor, nb: int, diag_factor: DiagFactor
     agree to rounding; the strictly-upper strip right of each diagonal
     block keeps stale values (the triangular result's to_dense masks
     them)."""
-    n = a.shape[0]
+    n = a.shape[-1]
     nt = ceil_div(n, nb)
     a = a.clone()
     info = torch.zeros((), dtype=torch.int32, device=a.device)
     k1 = min(nb, n)
-    lkk, bad = diag_factor(a[:k1, :k1])
+    lkk, bad = diag_factor(a[..., :k1, :k1])
     info = torch.where(bad > 0, bad, info)
-    a[:k1, :k1] = lkk
+    a[..., :k1, :k1] = lkk
     pan = None
     if k1 < n:
-        pan = _chol_panel_solve(lkk, a[k1:, :k1])
-        a[k1:, :k1] = pan
+        pan = _chol_panel_solve(lkk, a[..., k1:, :k1])
+        a[..., k1:, :k1] = pan
     for k in range(nt - 1):
         k1 = min((k + 1) * nb, n)
         k2 = min(k1 + nb, n)
         w = k2 - k1
         # narrow update: the next panel's column only (critical path)
-        colblk = a[k1:, k1:k2] - pan @ pan[:w].mH
-        lkk, bad = diag_factor(colblk[:w])
+        colblk = a[..., k1:, k1:k2] - pan @ pan[..., :w, :].mH
+        lkk, bad = diag_factor(colblk[..., :w, :])
         info = torch.where((info == 0) & (bad > 0), k1 + bad, info)
-        a[k1:k2, k1:k2] = lkk
+        a[..., k1:k2, k1:k2] = lkk
         next_pan = None
         if k2 < n:
-            next_pan = _chol_panel_solve(lkk, colblk[w:])
-            a[k2:, k1:k2] = next_pan
+            next_pan = _chol_panel_solve(lkk, colblk[..., w:, :])
+            a[..., k2:, k1:k2] = next_pan
             # wide trailing update with step k's panel
-            a[k2:, k2:] -= pan[w:] @ pan[w:].mH
+            a[..., k2:, k2:] -= pan[..., w:, :] @ pan[..., w:, :].mH
         pan = next_pan
     return a, info
 
@@ -242,7 +244,8 @@ def chol_loop_pipelined(a: torch.Tensor, nb: int, diag_factor: DiagFactor
 def cholesky_blocked(a: torch.Tensor, nb: int,
                      lookahead: int = 1) -> torch.Tensor:
     """Lower Cholesky of a padded (N, N) matrix whose padded diagonal
-    is identity: the pipelined loop (lookahead >= 1, Option.Lookahead)
+    is identity (or of each of a (..., N, N) stack on the pipelined
+    loop): the pipelined loop (lookahead >= 1, Option.Lookahead)
     or the plain right-looking one (0), at any number of block steps.
     Diagonal blocks by the library (chol_diag_factor), panels by one
     direct solve, trailing updates dense. The reference's fixed-shape

@@ -13,15 +13,7 @@ from typing import List, Tuple
 
 import torch
 
-from ..core.tiles import ceil_div
-
-
-def next_pow2(x: int) -> int:
-    """Smallest power of two >= x (x >= 1)."""
-    p = 1
-    while p < x:
-        p *= 2
-    return p
+from ..core.tiles import ceil_div, next_pow2
 
 
 def tsqr_factors(a: torch.Tensor, chunk: int = 512

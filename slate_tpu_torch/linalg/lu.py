@@ -147,23 +147,29 @@ def _native_lu(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def lu_panel_fori(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The column-loop panel: per column, argmax pivot search (lowest
-    row wins ties), two-row swap, rank-1 update of the columns to the
-    right — the pivot-sequence oracle of the recursive kernel."""
-    m, w = a.shape
-    a = a.clone()
-    piv = torch.zeros(w, dtype=torch.int32)
+    """The column-loop panel of an (m, w) panel or a (B, m, w) stack of
+    them: per column, argmax pivot search (lowest row wins ties),
+    two-row swap by gathers, safe divide, rank-1 update of the columns
+    to the right — the pivot-sequence oracle of the recursive kernel
+    and the batched getrf's panel. Nothing is read back to the host.
+    Returns (packed, int32 swap targets (w,) or (B, w))."""
+    batched = a.dim() == 3
+    a = (a if batched else a[None]).clone()
+    B, m, w = a.shape
+    piv = torch.zeros((B, w), dtype=torch.int32, device=a.device)
+    bi = torch.arange(B, device=a.device)
     for j in range(min(m, w)):
-        p = j + int(torch.argmax(a[j:, j].abs()))
-        piv[j] = p
-        if p != j:
-            a[[j, p]] = a[[p, j]]
-        pivval = a[j, j]
+        p = j + torch.argmax(a[:, j:, j].abs(), dim=1)
+        piv[:, j] = p.to(torch.int32)
+        rowj = a[:, j].clone()
+        a[:, j] = a[bi, p]
+        a[bi, p] = rowj
+        pivval = a[:, j, j]
         safe = torch.where(pivval == 0, torch.ones_like(pivval), pivval)
-        mults = a[j + 1:, j] / safe
-        a[j + 1:, j] = mults
-        a[j + 1:, j + 1:] -= torch.outer(mults, a[j, j + 1:])
-    return a, piv.to(a.device)
+        mults = a[:, j + 1:, j] / safe[:, None]
+        a[:, j + 1:, j] = mults
+        a[:, j + 1:, j + 1:] -= mults[:, :, None] * a[:, j, None, j + 1:]
+    return (a, piv) if batched else (a[0], piv[0])
 
 
 # -- factorizations -------------------------------------------------------

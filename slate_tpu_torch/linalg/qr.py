@@ -75,9 +75,10 @@ def _native_geqrf(a: torch.Tensor
     if not MethodFactor.native_lu_dtype_ok(a.dtype):
         return None
     packed, taus = torch.geqrf(a)
-    w = a.shape[1]
-    if taus.shape[0] < w:
-        taus = torch.cat([taus, taus.new_zeros(w - taus.shape[0])])
+    w = a.shape[-1]
+    if taus.shape[-1] < w:
+        taus = torch.cat([taus, taus.new_zeros(*taus.shape[:-1],
+                                               w - taus.shape[-1])], dim=-1)
     return packed, taus
 
 
@@ -107,10 +108,15 @@ def _qr_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     library geqrf, then the qr_panel kernel where its routing gate
     takes the panel (a CUDA tensor of f32/bf16 within the caps), then
     the column loop. Off the card the gate rejects, so bf16 panels take
-    the column loop, as the reference's do off the TPU."""
+    the column loop, as the reference's do off the TPU. A (B, m, w)
+    stack of a type the library lacks goes element by element."""
     native = _native_geqrf(a)
     if native is not None:
         return native
+    if a.dim() > 2:
+        parts = [_qr_panel(x) for x in a]
+        return (torch.stack([p for p, _ in parts]),
+                torch.stack([t for _, t in parts]))
     m, w = a.shape
     if pk.qr_panel_eligible(m, w, a.dtype, a.device):
         fused = pk.qr_panel(a)
@@ -120,8 +126,9 @@ def _qr_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _panel_V(a_panel: torch.Tensor, j0: int) -> torch.Tensor:
-    """Unit-lower V from packed panel rows [j0:, :]."""
-    m, w = a_panel.shape
+    """Unit-lower V from packed panel rows [j0:, :] (of each panel of a
+    stack)."""
+    m, w = a_panel.shape[-2:]
     ii = torch.arange(m, device=a_panel.device)[:, None] - j0
     jj = torch.arange(w, device=a_panel.device)[None, :]
     V = torch.where(ii > jj, a_panel, torch.zeros((), dtype=a_panel.dtype,
@@ -136,11 +143,11 @@ def _larft(V: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:
     (H = I) are masked out of the Gram matrix and of T."""
     vhv = V.mH @ V
     active = taus != 0
-    act2 = active[:, None] & active[None, :]
+    act2 = active[..., :, None] & active[..., None, :]
     zero = torch.zeros((), dtype=V.dtype, device=V.device)
     safe = torch.where(active, taus, torch.ones_like(taus))
-    tinv = torch.diag(1.0 / safe) + torch.triu(torch.where(act2, vhv, zero),
-                                               1)
+    tinv = torch.diag_embed(1.0 / safe) \
+        + torch.triu(torch.where(act2, vhv, zero), 1)
     T = invert_triangular(tinv, lower=False)
     return torch.where(act2, T, zero)
 
@@ -160,19 +167,20 @@ def _qr_panel_blocked(a: torch.Tensor, ib: int = 128
     native = _native_geqrf(a)
     if native is not None:
         return native
-    m, w = a.shape
+    w = a.shape[-1]
     if w <= ib:
         return _qr_panel(a)
     a = a.clone()
-    taus = torch.zeros(w, dtype=a.dtype, device=a.device)
+    taus = torch.zeros((*a.shape[:-2], w), dtype=a.dtype, device=a.device)
     for s in range(0, w, ib):
         e = min(s + ib, w)
-        sub, stau = _qr_panel(a[s:, s:e])
-        a[s:, s:e] = sub
-        taus[s:e] = stau
+        sub, stau = _qr_panel(a[..., s:, s:e])
+        a[..., s:, s:e] = sub
+        taus[..., s:e] = stau
         if e < w:
             V = _panel_V(sub, 0)
-            a[s:, e:] = _apply_left(V, _larft(V, stau).mH, a[s:, e:])
+            a[..., s:, e:] = _apply_left(V, _larft(V, stau).mH,
+                                         a[..., s:, e:])
     return a, taus
 
 
@@ -182,27 +190,30 @@ def _geqrf_carry(a: torch.Tensor, nb: int, kmax: int, ib: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-device blocked Householder QR carrying the shrinking
     trailing matrix: after panel k its top rows are final R rows and
-    drop out of the carried block."""
-    M, N = a.shape
+    drop out of the carried block. Leading batch dimensions ride
+    along (the batch layer's geqrf core)."""
+    M, N = a.shape[-2:]
     nt = ceil_div(kmax, nb)
     trail = a
     panels, taus_l, rtops = [], [], []
     for k in range(nt):
         k0, k1 = k * nb, min((k + 1) * nb, kmax)
         w = k1 - k0
-        pan, ptau = _qr_panel_blocked(trail[:, :w], ib=ib)
+        pan, ptau = _qr_panel_blocked(trail[..., :w], ib=ib)
         panels.append(pan)
         taus_l.append(ptau)
         if k1 < N:
             V = _panel_V(pan, 0)
-            rest = _apply_left(V, _larft(V, ptau).mH, trail[:, w:])
-            rtops.append(rest[:w])
-            trail = rest[w:]
+            rest = _apply_left(V, _larft(V, ptau).mH, trail[..., w:])
+            rtops.append(rest[..., :w, :])
+            trail = rest[..., w:, :]
     out = assemble_packed(panels, rtops, nb, kmax, M, N, a.dtype)
-    taus = torch.cat(taus_l)
+    taus = torch.cat(taus_l, dim=-1)
     npad = min(M, N)
-    if taus.shape[0] < npad:            # padded-length contract
-        taus = torch.cat([taus, taus.new_zeros(npad - taus.shape[0])])
+    if taus.shape[-1] < npad:           # padded-length contract
+        taus = torch.cat([taus, taus.new_zeros(*taus.shape[:-1],
+                                               npad - taus.shape[-1])],
+                         dim=-1)
     return out, taus
 
 

@@ -51,7 +51,7 @@ LIBS = {
     }),
     "compose_swaps": ("compose_swaps.cu", {
         "slate_set_device": [_I],
-        "compose_swaps": [_P, _I, _I, _P, _P],
+        "compose_swaps": [_P, _I, _I, _I, _P, _P],
     }),
     "qr_panel": ("qr_panel.cu", {
         "slate_set_device": [_I],
@@ -65,6 +65,19 @@ LIBS = {
     "trtri_lower": ("trtri_lower.cu", {
         "slate_set_device": [_I],
         "trtri_lower": [_P, _P, _I, _I, _P],
+    }),
+    "ragged_potrf": ("ragged_potrf.cu", {
+        "slate_set_device": [_I],
+        "ragged_potrf": [_P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+    "ragged_getrf": ("ragged_getrf.cu", {
+        "slate_set_device": [_I],
+        "ragged_getrf": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    }),
+    "ragged_trsm": ("ragged_trsm.cu", {
+        "slate_set_device": [_I],
+        "ragged_trsm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     }),
 }
 

@@ -4,7 +4,9 @@
 // update inside the recursive panel (lu_panel_rec.cu) and the
 // row-gridded trailing update of the tall-panel split
 // (rank_update.cu); with op(B) = B^T, the left-looking stripe update of
-// the Cholesky panel (chol_panel.cu). All operands are row-major
+// the Cholesky panel (chol_panel.cu). One block walking all tiles
+// (cta_gemm_sub): the per-element updates of ragged_potrf.cu and
+// ragged_getrf.cu. All operands are row-major
 // strided views of one storage type T (float or __nv_bfloat16); D may
 // alias C (each element is read and then written by the same thread),
 // and A and B must not overlap D.
@@ -38,16 +40,17 @@ constexpr int GS_THREADS = 256;
 
 // BT: B is given as its transpose, (N, K) row-major with leading
 // dimension ldb, and op(B) = B^T.
+// The 64x64 tile of D at (row0, col0), by the GS_THREADS threads of
+// the calling block.
 template <typename T, bool BT>
-__global__ void __launch_bounds__(GS_THREADS)
-gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
-                const T* __restrict__ B, long ldb, T* D, long ldd, int M,
-                int N, int K) {
+__device__ __forceinline__ void
+gemm_sub_tile(const T* C, long ldc, const T* __restrict__ A, long lda,
+              const T* __restrict__ B, long ldb, T* D, long ldd, int M,
+              int N, int K, int row0, int col0) {
     __shared__ float As[GS_BK][GS_BM + 4];   // A tile, k-major
     __shared__ float Bs[GS_BK][GS_BN + 4];
     const int tid = threadIdx.x;
     const int tx = tid % 16, ty = tid / 16;
-    const int row0 = blockIdx.y * GS_BM, col0 = blockIdx.x * GS_BN;
     float acc[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -97,6 +100,29 @@ gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
                     to_f(C[(long)r * ldc + c]), rnd<T>(acc[i][j])));
         }
     }
+}
+
+template <typename T, bool BT>
+__global__ void __launch_bounds__(GS_THREADS)
+gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
+                const T* __restrict__ B, long ldb, T* D, long ldd, int M,
+                int N, int K) {
+    gemm_sub_tile<T, BT>(C, ldc, A, lda, B, ldb, D, ldd, M, N, K,
+                         blockIdx.y * GS_BM, blockIdx.x * GS_BN);
+}
+
+// D = C - A op(B) by ONE block of GS_THREADS threads walking every
+// tile of D in turn (the per-element updates of the ragged kernels,
+// one block per element). The caller synchronises the block before it
+// reads D.
+template <typename T, bool BT>
+__device__ void cta_gemm_sub(const T* C, long ldc, const T* A, long lda,
+                             const T* B, long ldb, T* D, long ldd, int M,
+                             int N, int K) {
+    for (int row0 = 0; row0 < M; row0 += GS_BM)
+        for (int col0 = 0; col0 < N; col0 += GS_BN)
+            gemm_sub_tile<T, BT>(C, ldc, A, lda, B, ldb, D, ldd, M, N, K,
+                                 row0, col0);
 }
 
 // Launch D = C - A op(B) on `stream`; returns cudaGetLastError().

@@ -4,8 +4,12 @@ the block-recursive LU panel ``lu_panel_rec``, the trailing update
 ``_rank_update`` of its tall-panel split, the rank-1 LU panel
 ``lu_panel``, the swap composition ``lu_pivots_to_permutation`` (the
 port of XLA's builtin of that name, which the reference calls between
-panels), the Householder panel ``qr_panel``, the Cholesky block
-``chol_panel`` and the lower-triangular inverse ``trtri_lower``.
+panels, and over a batch between the ragged LU and its solves), the
+Householder panel ``qr_panel``, the Cholesky block ``chol_panel``, the
+lower-triangular inverse ``trtri_lower``, and the batch layer's ragged
+kernels ``ragged_potrf``, ``ragged_getrf`` and ``ragged_trsm`` (one
+block per element of a (B, N, N) stack, each bounded by its own order
+from a device ``sizes`` vector).
 
 Every kernel here has three parts side by side:
 
@@ -13,14 +17,17 @@ Every kernel here has three parts side by side:
   * a launch wrapper (``_lu_panel_rec_launch``, ``_rank_update``,
     ``_lu_panel_launch``, ``lu_pivots_to_permutation``,
     ``_qr_panel_launch``, ``_chol_panel_launch``,
-    ``_trtri_lower_launch``) that launches
+    ``_trtri_lower_launch``, ``_ragged_potrf_launch``,
+    ``_ragged_getrf_launch``, ``_ragged_trsm_launch``) that launches
     the kernel for a CUDA tensor and adds one to its ``launches`` count
     there, and nowhere else; it raises on what the kernel does not
     take. There is no fall back: for a tensor on the CPU, and only
     then, it computes the kernel's plain version instead;
   * the plain PyTorch version (``panel_rec_plain``,
     ``rank_update_plain``, ``lu_panel_plain``, ``compose_swaps_plain``,
-    ``qr_panel_plain``, ``chol_panel_plain``, ``trtri_lower_plain``),
+    ``qr_panel_plain``, ``chol_panel_plain``, ``trtri_lower_plain``,
+    ``ragged_potrf_plain``, ``ragged_getrf_plain``,
+    ``ragged_trsm_plain``),
     the same function with the same recursion, pivot tie-break and
     rounding, which the CPU tests hold against the JAX package and
     ``chip_smoke.py`` holds against the kernel on the card
@@ -33,6 +40,10 @@ multipliers ``bf16(f32(col) / f32(safe))``, rank-1 updates
 before the subtract. torch's bf16 elementwise ops already round after
 each op, so the plain versions spell out only the f32 division and the
 f32 products.
+
+The ragged kernels take f32 and bf16 stacks on the card; on the CPU
+their entries run the plain versions for any real float type, as the
+reference's interpreter does (f64 computes in f64).
 
 ARBITRATION CONTRACT, as in the reference: each public panel entry has
 an eligibility gate (``*_reject_reason`` / ``*_eligible``) and returns
@@ -58,6 +69,9 @@ KERNEL_REGISTRY = {
     "lu_panel_rec": ("lu_panel_rec_eligible", "lu_panel"),
     "trtri_lower": ("trtri_eligible", "trtri"),
     "chol_panel": ("chol_panel_eligible", "chol_panel"),
+    "ragged_potrf": ("ragged_potrf_eligible", "ragged"),
+    "ragged_getrf": ("ragged_getrf_eligible", "ragged"),
+    "ragged_trsm": ("ragged_trsm_eligible", "ragged"),
 }
 
 #: widest recursive panel (one dispatch OR the tall split)
@@ -100,34 +114,42 @@ def _on_cuda(device) -> bool:
 # -- permutations ----------------------------------------------------------
 
 def compose_swaps_plain(piv: torch.Tensor, m: int) -> torch.Tensor:
-    """Plain version: the swaps composed on the host (numpy loop);
-    int64 on piv's device."""
-    p = piv.detach().cpu().numpy()
-    perm = np.arange(m)
-    for j, t in enumerate(p.tolist()):
-        perm[j], perm[t] = perm[t], perm[j]
-    return torch.as_tensor(perm, device=piv.device)
+    """Plain version: the swaps composed on the host (numpy loop), per
+    row of a (B, w) stack; int64 on piv's device, (m,) or (B, m)."""
+    p = piv.detach().cpu().numpy().reshape(-1, piv.shape[-1])
+    perm = np.tile(np.arange(m), (p.shape[0], 1))
+    for b, row in enumerate(p.tolist()):
+        q = perm[b]
+        for j, t in enumerate(row):
+            q[j], q[t] = q[t], q[j]
+    return torch.as_tensor(perm.reshape(*piv.shape[:-1], m),
+                           device=piv.device)
 
 
 def lu_pivots_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
     """Compose the swap sequence (j <-> piv[j], in order) into one
     permutation of range(m), int64 on piv's device: the port of XLA's
-    ``lu_pivots_to_permutation``. A CUDA tensor goes through the
-    ``compose_swaps`` kernel (one launch, no host synchronisation,
-    counted); a CPU tensor through the plain version."""
+    ``lu_pivots_to_permutation``. ``piv`` is (w,) or a (B, w) stack,
+    each row composed on its own ((B, m) out). A CUDA tensor goes
+    through the ``compose_swaps`` kernel (one launch for the whole
+    stack, no host synchronisation, counted); a CPU tensor through the
+    plain version."""
     if piv.device.type != "cuda":
         return compose_swaps_plain(piv, m)
-    if piv.dim() != 1:
-        raise ValueError("compose_swaps kernel takes a 1-D pivot vector, "
-                         "got %s" % (tuple(piv.shape),))
+    if piv.dim() not in (1, 2):
+        raise ValueError("compose_swaps kernel takes a (w,) or (B, w) "
+                         "pivot stack, got %s" % (tuple(piv.shape),))
     lib = _build.load("compose_swaps")
     _build.check(lib.slate_set_device(piv.get_device()), "slate_set_device")
     piv = piv.to(torch.int32).contiguous()
-    perm = torch.empty(m, dtype=torch.int64, device=piv.device)
-    _build.check(lib.compose_swaps(piv.data_ptr(), piv.shape[0], m,
-                                   perm.data_ptr(), _stream(piv)),
-                 "compose_swaps")
-    lu_pivots_to_permutation.launches += 1
+    batch = piv.shape[0] if piv.dim() == 2 else 1
+    perm = torch.empty(*piv.shape[:-1], m, dtype=torch.int64,
+                       device=piv.device)
+    if batch > 0:
+        _build.check(lib.compose_swaps(piv.data_ptr(), batch,
+                                       piv.shape[-1], m, perm.data_ptr(),
+                                       _stream(piv)), "compose_swaps")
+        lu_pivots_to_permutation.launches += 1
     return perm
 
 
@@ -232,26 +254,36 @@ def lu_panel_eligible(m: int, w: int, dtype, device=None) -> bool:
 
 # -- plain versions of the panel recurrences --------------------------------
 
+def _ct(dtype) -> torch.dtype:
+    """The kernels' arithmetic type: f32 for f32 and bf16 (the
+    reference's promote(dtype, f32)); f64 stays f64 in the plain
+    versions, as in the reference's interpreter."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _segment_plain(out: torch.Tensor, piv: list, c0: int, e: int) -> None:
     """Columns [c0, e) of `out`, in place: per column the argmax pivot
     (``torch.argmax`` returns the first maximum, so the lowest row wins
     ties), the full-row swap, the f32 safe divide rounded to the panel
     type, and the rank-1 update confined to the segment."""
+    ct = _ct(out.dtype)
     for j in range(c0, min(e, out.shape[0])):
-        p = j + int(torch.argmax(out[j:, j].float().abs()))
+        p = j + int(torch.argmax(out[j:, j].to(ct).abs()))
         piv[j] = p
         if p != j:
             out[[j, p]] = out[[p, j]]
-        pivval = out[j, j].float()
+        pivval = out[j, j].to(ct)
         safe = torch.where(pivval == 0, torch.ones_like(pivval), pivval)
-        mults = (out[j + 1:, j].float() / safe).to(out.dtype)
+        mults = (out[j + 1:, j].to(ct) / safe).to(out.dtype)
         out[j + 1:, j] = mults
         out[j + 1:, j + 1:e] -= torch.outer(mults, out[j, j + 1:e])
 
 
 def _product(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """L @ U accumulated in f32, rounded to the operands' type."""
-    return (l.float() @ u.float()).to(l.dtype)
+    """L @ U accumulated in f32 (f64 for f64), rounded to the operands'
+    type."""
+    ct = _ct(l.dtype)
+    return (l.to(ct) @ u.to(ct)).to(l.dtype)
 
 
 # -- the recursion both versions share -------------------------------------
@@ -552,10 +584,10 @@ QR_PANEL_MAX_M = 8192
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded f32 square root, as the kernels' sqrtf:
-    through f64 (exact after one rounding), since torch's f32 sqrt on
-    the CPU may be an ulp off."""
-    return torch.sqrt(x.double()).float()
+    """The correctly rounded square root in x's type, as the kernels'
+    sqrtf: through f64 (exact after one rounding), since torch's f32
+    sqrt on the CPU may be an ulp off."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _qr_shape_ok(m: int, w: int) -> bool:
@@ -842,6 +874,375 @@ def trtri_lower(a: torch.Tensor, unit_diagonal: bool = False
                             upper=False, unitriangular=unit_diagonal)
 
 
+# -- the ragged batched kernels ---------------------------------------------
+
+#: stripe / base-case width of the ragged kernels (tune key ("ragged",
+#: "blk")); the queue's ragged ceiling is aligned to lcm(align, blk)
+RAGGED_BLK = 32
+#: widest stripe the CUDA ragged kernels take (one lane per column)
+RAGGED_MAX_BLK = 32
+#: largest ceiling the CUDA ragged kernels take: ragged_potrf keeps an
+#: (N, blk) stripe in shared memory (1024 x 33 f32 = 132 KiB)
+RAGGED_MAX_N = 1024
+
+
+def ragged_blk(blk: Optional[int] = None, opts=None) -> int:
+    """The tuned/frozen ragged block width, clamped to a positive
+    multiple of 8 (the reference's rule). ``opts`` threads the caller's
+    tuning controls (Option.Tune etc.) into the cache read."""
+    if blk is None:
+        from ..tune.select import tuned_int
+        blk = tuned_int("ragged", "blk", RAGGED_BLK, opts=opts)
+    return max(8, (int(blk) // 8) * 8)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def _ragged_dtype_ok(dtype, device) -> bool:
+    """f32/bf16 on the card; any real float type on the CPU, where the
+    entries run their plain versions (the reference's interpreter rule:
+    arithmetic in promote(dtype, f32), so f64 batches factor at full
+    precision)."""
+    dtype = _torch_dtype(dtype)
+    if _on_cuda(device):
+        return dtype in PANEL_DTYPES
+    return dtype.is_floating_point
+
+
+def ragged_supported(dtype, device=None, n: Optional[int] = None) -> bool:
+    """Submit-time routing gate of the queue's ragged strategy: can the
+    ragged kernels take this dtype on `device` at all, and (given `n`)
+    an order that fits the card's ceiling cap. Shape eligibility of the
+    flush's ceiling is checked per dispatch by the ``ragged_*_eligible``
+    gates; the queue builds the ceiling to pass them
+    (bucket.ragged_ceiling)."""
+    if not _ragged_dtype_ok(dtype, device):
+        return False
+    return n is None or not _on_cuda(device) or n <= RAGGED_MAX_N
+
+
+def _ragged_reject_reason(n: int, dtype, blk: int, device
+                          ) -> Optional[str]:
+    """'dtype' (not f32/bf16 on the card, not a real float type on the
+    CPU), then 'shape': the ceiling is not a positive multiple of blk,
+    or on the card above RAGGED_MAX_N or blk above RAGGED_MAX_BLK."""
+    if not _ragged_dtype_ok(dtype, device):
+        return "dtype"
+    if n < blk or n % blk:
+        return "shape"
+    if _on_cuda(device) and (n > RAGGED_MAX_N or blk > RAGGED_MAX_BLK):
+        return "shape"
+    return None
+
+
+def ragged_potrf_eligible(n: int, dtype, blk: Optional[int] = None,
+                          device=None) -> bool:
+    """Eligibility gate of the ragged batched Cholesky: a dtype the
+    device takes and a ceiling that is a positive multiple of the
+    ragged block width (on the card also <= RAGGED_MAX_N)."""
+    return _ragged_reject_reason(n, dtype, ragged_blk(blk), device) is None
+
+
+def ragged_getrf_eligible(n: int, dtype, blk: Optional[int] = None,
+                          device=None) -> bool:
+    """Eligibility gate of the ragged batched LU (the potrf
+    conditions)."""
+    return _ragged_reject_reason(n, dtype, ragged_blk(blk), device) is None
+
+
+def ragged_trsm_eligible(n: int, k: int, dtype, blk: Optional[int] = None,
+                         device=None) -> bool:
+    """Eligibility gate of the ragged batched triangular solve: the
+    ceiling conditions plus at least one right-hand-side column."""
+    return _ragged_reject_reason(n, dtype, ragged_blk(blk), device) is None \
+        and k >= 1
+
+
+def _sizes_list(sizes, n: int) -> list:
+    """Per-element orders on the host, clamped to [0, n] as the kernels
+    clamp them."""
+    if isinstance(sizes, torch.Tensor):
+        sizes = sizes.detach().cpu().tolist()
+    return [min(max(int(s), 0), n) for s in np.asarray(sizes).reshape(-1)]
+
+
+def ragged_potrf_plain(stack: torch.Tensor, sizes, blk: int
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the ragged Cholesky, on any device, in
+    the kernel's order: per element of order s, blk-wide stripes of the
+    live block, each taking the left-looking update
+    S - T(L[k0:s, :k0] L[k0:k0+cw, :k0]^T) (products summed in the
+    arithmetic type), then the column recurrence d = sqrt(s_jj) (d == 0
+    divides by 1), v = T(s_j / d), s_rc = T(s_rc - T(v_r v_c)). The live
+    block comes back lower-triangular, the pad as the identity; the pad
+    of `stack` is never read."""
+    B, N = stack.shape[0], stack.shape[-1]
+    ct = _ct(stack.dtype)
+    out = torch.eye(N, dtype=stack.dtype, device=stack.device) \
+        .repeat(B, 1, 1)
+    for b, s in enumerate(_sizes_list(sizes, N)):
+        L = torch.zeros((s, s), dtype=stack.dtype, device=stack.device)
+        for k0 in range(0, s, blk):
+            cw = min(blk, s - k0)
+            S = stack[b, k0:s, k0:k0 + cw].clone()
+            if k0 > 0:
+                S -= _product(L[k0:, :k0], L[k0:k0 + cw, :k0].T)
+            for jj in range(cw):
+                d = _sqrt(S[jj, jj].to(ct)).to(ct)
+                dsafe = torch.where(d == 0, torch.ones_like(d), d)
+                v = (S[jj + 1:, jj].to(ct) / dsafe).to(S.dtype)
+                S[jj + 1:, jj] = v
+                S[jj, jj] = d.to(S.dtype)
+                S[jj + 1:, jj + 1:] -= torch.outer(v, v[:cw - jj - 1])
+            L[k0:, k0:k0 + cw] = S
+            L[k0:k0 + cw, k0:k0 + cw] = torch.tril(S[:cw])
+        out[b, :s, :s] = L
+    return out
+
+
+def ragged_getrf_plain(stack: torch.Tensor, sizes, blk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ragged LU, on any device: per
+    element of order s, blocks of blk columns over the live block, each
+    the base case (argmax pivot, lowest row on ties, full-row swap, the
+    safe divide rounded to the storage type, the rank-1 update confined
+    to the block), the U12 row substitution T(x - T(l u)) and the
+    trailing update T(x - T(L21 U12)). The pad comes back as the
+    identity and its swap targets as identity swaps; the pad of `stack`
+    is never read. Returns (packed, int32 swap targets (B, N))."""
+    B, N = stack.shape[0], stack.shape[-1]
+    out = torch.eye(N, dtype=stack.dtype, device=stack.device) \
+        .repeat(B, 1, 1)
+    piv = torch.arange(N, dtype=torch.int32).repeat(B, 1)
+    for b, s in enumerate(_sizes_list(sizes, N)):
+        O = stack[b, :s, :s].clone()
+        p = list(range(s))
+        for k0 in range(0, s, blk):
+            k1 = min(k0 + blk, s)
+            _segment_plain(O, p, k0, k1)
+            for r in range(k0, k1):
+                O[r + 1:k1, k1:] -= torch.outer(O[r + 1:k1, r], O[r, k1:])
+            O[k1:, k1:] -= _product(O[k1:, k0:k1], O[k0:k1, k1:])
+        out[b, :s, :s] = O
+        piv[b, :s] = torch.tensor(p, dtype=torch.int32)
+    return out, piv.to(stack.device)
+
+
+def ragged_trsm_plain(packed: torch.Tensor, rhs: torch.Tensor, sizes,
+                      blk: int, upper: bool = False, trans: bool = False,
+                      unit: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the ragged triangular solve, on any
+    device: per element of order s, blocks of blk rows in the order of
+    the effective system (backward when upper != trans), each a row
+    substitution x_r = T((x_r - w . x_solved) / d) over the block's
+    solved rows (w a row of the packed factor, or its column r when
+    trans; d = 1 with `unit`, a zero d divides by 1), then the update
+    x_tgt = T(x_tgt - T(T_tgt,blk x_blk)) of the rows still to solve.
+    Rows past s come back zero; the pads are never read."""
+    B, N, K = rhs.shape
+    ct = _ct(packed.dtype)
+    back = upper != trans
+    out = torch.zeros_like(rhs)
+    for b, s in enumerate(_sizes_list(sizes, N)):
+        t = packed[b, :s, :s].to(ct)
+        x = rhs[b, :s].clone()
+        nblk = -(-s // blk)
+        for kbi in range(nblk):
+            kb = nblk - 1 - kbi if back else kbi
+            k0, k1 = kb * blk, min(kb * blk + blk, s)
+            for r in (range(k1 - 1, k0 - 1, -1) if back
+                      else range(k0, k1)):
+                lo, hi = (r + 1, k1) if back else (k0, r)
+                w = t[lo:hi, r] if trans else t[r, lo:hi]
+                prod = w @ x[lo:hi].to(ct)
+                d = torch.ones((), dtype=ct, device=t.device) if unit \
+                    else t[r, r]
+                d = torch.where(d == 0, torch.ones_like(d), d)
+                x[r] = ((x[r].to(ct) - prod) / d).to(x.dtype)
+            lo, hi = (0, k0) if back else (k1, s)
+            tb = t[k0:k1, lo:hi].T if trans else t[lo:hi, k0:k1]
+            x[lo:hi] -= (tb @ x[k0:k1].to(ct)).to(x.dtype)
+        out[b, :s] = x
+    return out
+
+
+def _ragged_sizes(sizes, B: int, device) -> torch.Tensor:
+    sizes = torch.as_tensor(sizes, dtype=torch.int32, device=device)
+    if tuple(sizes.shape) != (B,):
+        raise ValueError("ragged kernels take one size per element: got "
+                         "%s sizes for a batch of %d"
+                         % (tuple(sizes.shape), B))
+    return sizes.contiguous()
+
+
+def _ragged_setup(name: str, x: torch.Tensor, blk: int, donate: bool):
+    """The library on x's device and the output: x itself when donated
+    (and contiguous), else a new tensor. Raises on what the CUDA
+    kernels do not take."""
+    N = x.shape[1]
+    if x.dtype not in PANEL_DTYPES or x.dim() != 3 or N > RAGGED_MAX_N \
+            or not 8 <= blk <= RAGGED_MAX_BLK:
+        raise ValueError("%s kernel takes an f32/bf16 (B, N, .) stack with "
+                         "N <= %d and 8 <= blk <= %d, got %s %s blk=%d"
+                         % (name, RAGGED_MAX_N, RAGGED_MAX_BLK,
+                            tuple(x.shape), x.dtype, blk))
+    lib = _build.load(name)
+    _build.check(lib.slate_set_device(x.get_device()), "slate_set_device")
+    out = x if donate and x.is_contiguous() else torch.empty_like(
+        x, memory_format=torch.contiguous_format)
+    return lib, out
+
+
+def _ragged_potrf_launch(stack: torch.Tensor, sizes: torch.Tensor,
+                         blk: int, donate: bool) -> torch.Tensor:
+    """ONE launch of the ragged Cholesky kernel (the counterpart of one
+    ``_ragged_potrf_pallas`` dispatch) for a CUDA stack, counted; the
+    plain version for a CPU stack."""
+    if stack.device.type != "cuda":
+        return ragged_potrf_plain(stack, sizes, blk)
+    B, N = stack.shape[0], stack.shape[-1]
+    if stack.shape[1] != N:
+        raise ValueError("ragged_potrf kernel takes square elements, got "
+                         "%s" % (tuple(stack.shape),))
+    lib, out = _ragged_setup("ragged_potrf", stack, blk, donate)
+    a = stack.contiguous()
+    _build.check(lib.ragged_potrf(a.data_ptr(), out.data_ptr(),
+                                  sizes.data_ptr(), B, N, blk,
+                                  int(stack.dtype == torch.bfloat16),
+                                  _stream(stack)), "ragged_potrf")
+    _ragged_potrf_launch.launches += 1
+    return out
+
+
+_ragged_potrf_launch.launches = 0
+
+
+def _ragged_getrf_launch(stack: torch.Tensor, sizes: torch.Tensor,
+                         blk: int, donate: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ONE launch of the ragged LU kernel (the counterpart of one
+    ``_ragged_getrf_pallas`` dispatch) for a CUDA stack, counted; the
+    plain version for a CPU stack."""
+    if stack.device.type != "cuda":
+        return ragged_getrf_plain(stack, sizes, blk)
+    B, N = stack.shape[0], stack.shape[-1]
+    if stack.shape[1] != N:
+        raise ValueError("ragged_getrf kernel takes square elements, got "
+                         "%s" % (tuple(stack.shape),))
+    lib, out = _ragged_setup("ragged_getrf", stack, blk, donate)
+    a = stack.contiguous()
+    piv = torch.empty((B, N), dtype=torch.int32, device=stack.device)
+    _build.check(lib.ragged_getrf(a.data_ptr(), out.data_ptr(),
+                                  piv.data_ptr(), sizes.data_ptr(), B, N,
+                                  blk, int(stack.dtype == torch.bfloat16),
+                                  _stream(stack)), "ragged_getrf")
+    _ragged_getrf_launch.launches += 1
+    return out, piv
+
+
+_ragged_getrf_launch.launches = 0
+
+
+def _ragged_trsm_launch(packed: torch.Tensor, rhs: torch.Tensor,
+                        sizes: torch.Tensor, blk: int, upper: bool,
+                        trans: bool, unit: bool, donate: bool
+                        ) -> torch.Tensor:
+    """ONE launch of the ragged triangular-solve kernel (the counterpart
+    of one ``_ragged_trsm_pallas`` dispatch) for CUDA tensors, counted;
+    the plain version for CPU tensors."""
+    if packed.device.type != "cuda":
+        return ragged_trsm_plain(packed, rhs, sizes, blk, upper, trans,
+                                 unit)
+    B, N, K = rhs.shape
+    if tuple(packed.shape) != (B, N, N) or packed.dtype != rhs.dtype \
+            or packed.device != rhs.device:
+        raise ValueError("ragged_trsm kernel takes (B, N, N) factors and a "
+                         "(B, N, K) rhs of one type on one device, got %s "
+                         "%s, %s %s" % (tuple(packed.shape), packed.dtype,
+                                        tuple(rhs.shape), rhs.dtype))
+    lib, out = _ragged_setup("ragged_trsm", rhs, blk, donate)
+    t, b = packed.contiguous(), rhs.contiguous()
+    _build.check(lib.ragged_trsm(t.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 sizes.data_ptr(), B, N, K, blk, int(upper),
+                                 int(trans), int(unit),
+                                 int(rhs.dtype == torch.bfloat16),
+                                 _stream(rhs)), "ragged_trsm")
+    _ragged_trsm_launch.launches += 1
+    return out
+
+
+_ragged_trsm_launch.launches = 0
+
+
+def ragged_potrf(stack: torch.Tensor, sizes, blk: Optional[int] = None,
+                 donate: bool = False) -> Optional[torch.Tensor]:
+    """Ragged batched lower Cholesky of a (B, N, N) stack with
+    per-element orders ``sizes`` (int32, read by the kernel on the
+    device). Element i's [:sizes[i], :sizes[i]] block is its factor;
+    the pad comes back as the identity. ``donate=True`` lets the kernel
+    factor in the caller's stack. Returns None (the reason as an obs
+    instant) when ineligible: the caller keeps the bucket strategy."""
+    B, N = stack.shape[0], stack.shape[-1]
+    b = ragged_blk(blk)
+    reason = _ragged_reject_reason(N, stack.dtype, b, stack.device)
+    if reason is not None:
+        _reject("ragged_potrf", reason, n=N, dtype=str(stack.dtype))
+        return None
+    return _ragged_potrf_launch(stack, _ragged_sizes(sizes, B, stack.device),
+                                b, donate)
+
+
+def ragged_getrf(stack: torch.Tensor, sizes, blk: Optional[int] = None,
+                 donate: bool = False
+                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """Ragged batched partial-pivot LU of a (B, N, N) stack with
+    per-element orders ``sizes``. Returns (packed L\\U stack, int32
+    LAPACK swap targets (B, N), identity past each element's order), or
+    None when ineligible (reason published; the caller keeps the bucket
+    strategy). The kernel writes the swap targets as int32 directly
+    (the reference's f32 pivot row exists for its TPU compiler).
+    ``donate`` as ragged_potrf."""
+    B, N = stack.shape[0], stack.shape[-1]
+    b = ragged_blk(blk)
+    reason = _ragged_reject_reason(N, stack.dtype, b, stack.device)
+    if reason is not None:
+        _reject("ragged_getrf", reason, n=N, dtype=str(stack.dtype))
+        return None
+    return _ragged_getrf_launch(stack, _ragged_sizes(sizes, B, stack.device),
+                                b, donate)
+
+
+def ragged_trsm(packed: torch.Tensor, rhs: Optional[torch.Tensor], sizes,
+                upper: bool = False, trans: bool = False,
+                unit: bool = False, blk: Optional[int] = None,
+                donate: bool = False) -> Optional[torch.Tensor]:
+    """Ragged batched triangular solve of (B, N, N) factors against a
+    (B, N, K) right-hand-side stack with per-element orders ``sizes``:
+    the `upper`-designated triangle of each packed element (`trans`:
+    transposed, `unit`: unit diagonal) solves its live (s, K) block;
+    rows past s come back zero. ``donate=True`` lets the kernel write
+    the solution into the rhs (the factors are never written: the
+    posv/gesv compositions reuse them). Returns None when ineligible
+    (reason published; the caller keeps the bucket strategy)."""
+    if rhs is None:
+        return None
+    B, N = packed.shape[0], packed.shape[-1]
+    K = rhs.shape[-1]
+    b = ragged_blk(blk)
+    reason = _ragged_reject_reason(N, packed.dtype, b, packed.device)
+    if reason is not None or K < 1:
+        _reject("ragged_trsm", reason or "shape", n=N, k=K,
+                dtype=str(packed.dtype))
+        return None
+    return _ragged_trsm_launch(packed, rhs,
+                               _ragged_sizes(sizes, B, packed.device), b,
+                               bool(upper), bool(trans), bool(unit), donate)
+
+
 # -- counters ----------------------------------------------------------------
 
 _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
@@ -850,7 +1251,10 @@ _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
             "compose_swaps": lu_pivots_to_permutation,
             "qr_panel": _qr_panel_launch,
             "chol_panel": _chol_panel_launch,
-            "trtri_lower": _trtri_lower_launch}
+            "trtri_lower": _trtri_lower_launch,
+            "ragged_potrf": _ragged_potrf_launch,
+            "ragged_getrf": _ragged_getrf_launch,
+            "ragged_trsm": _ragged_trsm_launch}
 
 
 def launch_counts() -> dict:

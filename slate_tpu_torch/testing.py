@@ -155,3 +155,72 @@ def trtri_cases(rng, n: int) -> Dict[str, np.ndarray]:
             "equal": np.tril(np.ones((n, n), np.float32)),
             "tiny": (L * TINY).astype(np.float32),
             "huge": (L * HUGE).astype(np.float32)}
+
+
+# -- the batch layer ---------------------------------------------------------
+
+def stack_garbage(mats, ceil: int) -> np.ndarray:
+    """Stack (s, s) matrices to (B, ceil, ceil) with GARBAGE in the pad
+    (7.25 right of / -3.5 below each live block: tests/test_ragged.py's
+    values): the ragged kernels must never read it."""
+    out = np.zeros((len(mats), ceil, ceil), np.asarray(mats[0]).dtype)
+    for i, a in enumerate(mats):
+        s = a.shape[0]
+        out[i, s:, :] = 7.25
+        out[i, :, s:] = -3.5
+        out[i, :s, :s] = a
+    return out
+
+
+def ragged_cases(rng) -> Dict[str, tuple]:
+    """The ragged kernels' adversarial suites of tests/test_ragged.py,
+    f32, garbage in every pad: "potrf" (orders 1, 33, 70 and the
+    ceiling 96, SPD x x^T / s + 2 I), "getrf" (ceiling 64: a permuted
+    Gaussian, a zero column, order 1, the ceiling with two equal rows
+    permuted), and "trsm_lower" / "trsm_upper" (orders 17, 64, 40,
+    diagonally dominant triangles, 3 right-hand sides with 11.0 in the
+    pad rows). Each entry is (stack, sizes[, rhs])."""
+    sizes = [1, 33, 70, 96]
+    spds = []
+    for s in sizes:
+        x = rng.standard_normal((s, s))
+        spds.append((x @ x.T / s + 2.0 * np.eye(s)).astype(np.float32))
+    cases = {"potrf": (stack_garbage(spds, 96), sizes)}
+    a = rng.standard_normal((40, 40))
+    b = rng.standard_normal((33, 33))
+    b[:, 7] = 0.0
+    c = rng.standard_normal((64, 64))
+    c[5] = c[11]
+    mats = [a[rng.permutation(40)], b, np.array([[3.5]]),
+            c[rng.permutation(64)]]
+    cases["getrf"] = (stack_garbage([m.astype(np.float32) for m in mats],
+                                    64), [m.shape[0] for m in mats])
+    for upper in (False, True):
+        tsz = [17, 64, 40]
+        tris = []
+        rhs = np.full((3, 64, 3), 11.0, np.float32)
+        for i, s in enumerate(tsz):
+            t = rng.standard_normal((s, s)) / np.sqrt(s) + 2.0 * np.eye(s)
+            tris.append((np.triu(t) if upper else np.tril(t))
+                        .astype(np.float32))
+            rhs[i, :s] = rng.standard_normal((s, 3))
+        cases["trsm_upper" if upper else "trsm_lower"] = (
+            stack_garbage(tris, 64), tsz, rhs)
+    return cases
+
+
+def serve_stream(seed: int = 0, reqs: int = 256):
+    """The batch layer's serving stream (the reference's bench.py
+    --serve): orders n lognormal around 180 (sigma 0.6) clipped to
+    [64, 1024], for each a Gaussian x (n, n) and the SPD request
+    x x^T / n + 4 I, f32 numpy, from ``default_rng(seed)``. Returns
+    (sizes, xs, spds)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.rint(np.exp(rng.normal(np.log(180.0), 0.6,
+                                              reqs))).astype(int), 64, 1024)
+    xs, spds = [], []
+    for n in sizes:
+        x = rng.standard_normal((n, n)).astype(np.float32)
+        xs.append(x)
+        spds.append((x @ x.T / n + 4.0 * np.eye(n)).astype(np.float32))
+    return [int(n) for n in sizes], xs, spds

@@ -93,6 +93,18 @@ def test_lu_panel_fori_matches_jax(adversarial, kind):
         np.testing.assert_allclose(p.numpy(), fp, atol=1e-6, rtol=1e-6)
 
 
+def test_lu_panel_fori_stack_matches_each_panel(adversarial):
+    # a (B, m, w) stack runs the same column loop per element: packed
+    # factors and pivots bitwise those of each panel alone, the rank-1
+    # update of one element untouched by the others' pivots
+    stack = torch.as_tensor(np.stack([adversarial[k][0] for k in KINDS]))
+    p, piv = lu_panel_fori(stack)
+    assert p.shape == stack.shape and piv.shape == (len(KINDS), 32)
+    for i in range(len(KINDS)):
+        pi, pivi = lu_panel_fori(stack[i])
+        assert torch.equal(p[i], pi) and torch.equal(piv[i], pivi)
+
+
 def test_lu_panel_rec_default_ib_matches_jax():
     # the frozen ib (tune ("lu_panel", "ib") = 32), w = ib * 2^2
     rng = np.random.default_rng(3)
@@ -280,10 +292,16 @@ def test_cpu_calls_count_no_launch():
     pk.qr_panel(a[:, :32].bfloat16())
     s = a[:256, :32] @ a[:256, :32].T + 256 * torch.eye(256)
     pk.trtri_lower(pk.chol_panel(s))
+    stack, sizes = s[None, :64, :64].repeat(2, 1, 1), [40, 64]
+    pk.ragged_potrf(stack, sizes)
+    pk.ragged_getrf(stack, sizes)
+    pk.ragged_trsm(stack, stack[:, :, :2], sizes)
+    pk.lu_pivots_to_permutation(torch.zeros((2, 8), dtype=torch.int32), 64)
     assert pk.launch_counts() == {"lu_panel_rec": 0, "rank_update": 0,
                                   "lu_panel": 0, "compose_swaps": 0,
                                   "qr_panel": 0, "chol_panel": 0,
-                                  "trtri_lower": 0}
+                                  "trtri_lower": 0, "ragged_potrf": 0,
+                                  "ragged_getrf": 0, "ragged_trsm": 0}
 
 
 # -- bf16 panels, the rank-1 panel, the swap composition ---------------------
