@@ -42,6 +42,17 @@ script exit non-zero without the final result line:
                                       batched compose_swaps on that
                                       flush's (64, 608) swap targets
                                       bitwise against its plain version;
+                kernel.givens_chain   the Givens chain apply, bitwise: an
+                                      adversarial suite (identity
+                                      rotations, c = 0 / s = +-1, 8
+                                      rows), then Z 2048 x 2048 and
+                                      512 x 512 (row-major and
+                                      transposed), beside Z @ G;
+                kernel.qr_sweep       the tridiagonal and bidiagonal QR
+                                      passes (steqr_sweep, bdsqr_sweep),
+                                      bitwise in d, e, the rotations and
+                                      the count over 3 passes at
+                                      n = 2048 and 512;
               chol_panel and trtri_lower have no driver call site (as
               in the reference): their launches are counted over a run
               of their public entries on the random cases;
@@ -102,13 +113,27 @@ script exit non-zero without the final result line:
               coalesced results to 1e-5; whether a flush of batch 1
               equals the coalesced flush bitwise is reported, not
               checked;
- 12. profile  gesv on both routes, gesv_mixed, posv on both routes, the
-              square gels and one ragged posv flush of 64, once more
-              under torch.profiler: host wall, device busy time (the
-              union of the kernel, copy and memset intervals of the
-              trace), idle share and the heaviest kernels by device
-              time;
- 13. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 12. heev     n = 2048, A = (G + G^T)/2 from --seed made on the card,
+              tiles 256: Auto (the library eigensolver) as the reference
+              values; MethodEig.QRIteration with ('steqr2', 'chain')
+              routed to the chain kernel (he2hb -> hb2st -> steqr2, one
+              steqr_sweep and one givens_chain_apply launch a pass);
+              then he2hb and hb2st once, timed, and on that tridiagonal
+              steqr2 cold (dense compose) and stedc. Residual,
+              orthogonality and values against Auto within EIG_LIMIT
+              (Auto) or STAGED_EIG_LIMIT (the staged routes);
+ 13. svd      512 x 512 Gaussian, tiles 64: Auto (the library SVD) and
+              MethodSVD.QRIteration with ('bdsqr', 'chain') routed to
+              the chain kernel (ge2tb -> tb2bd -> bdsqr_qr, two chain
+              launches a pass); reconstruction and values within
+              EIG_LIMIT;
+ 14. profile  gesv on both routes, gesv_mixed, posv on both routes, the
+              square gels, one ragged posv flush of 64, the heev and
+              svd QR iterations, once more under torch.profiler: host
+              wall, device busy time (the union of the kernel, copy and
+              memset intervals of the trace), idle share and the
+              heaviest kernels by device time;
+ 15. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -1393,6 +1418,276 @@ def phase_batch_serve(seed, results, system):
     return out
 
 
+# -- the eigen / SVD slice: the Givens chain, the QR sweeps, heev, svd ------
+
+#: heev: the largest n at which the reference's single-device steqr2
+#: runs without its warning; tiles (and he2hb's band width) of 256
+N_EIG, MB_EIG = 2048, 256
+#: svd: BDSQR_QR_MAX_N, the largest k the reference's bdsqr iterates;
+#: tiles of 64 make ge2tb's band narrow enough for tb2bd's chase
+N_SVD, MB_SVD = 512, 64
+#: limits of the library routes (heev and svd Auto) and of the SVD's QR
+#: iteration in f32: residual and orthogonality, and agreement with the
+#: library (Auto) route, relative to ||A||_2 (eigenvalues) or s_max
+#: (singular values)
+EIG_LIMIT = 1e-5
+#: limit of the staged eigen routes (QR iteration, cold steqr2, stedc)
+#: at n = N_EIG in f32, as a LAPACK test ratio: error / (n eps) <= 4
+#: (LAPACK's own testers pass a ratio below 30). 1e-5 is out of reach
+#: of these algorithms in f32 at this n, in both packages: the
+#: windowed band chase (hb2st, ~18 000 two-sided QR steps of width 256)
+#: moves the eigenvalues by 2.1e-5 of ||A||_2 at n = 2048 on the CPU
+#: (the port; its band from he2hb is within 6e-8), and the f32 divide &
+#: conquer's eigenvectors are orthogonal to ~2 n eps (the JAX package's
+#: stedc_solve: 1.34e-4 at n = 512 on the CPU)
+STAGED_EIG_LIMIT = 4.0 * N_EIG * float(torch.finfo(torch.float32).eps)
+
+
+def chain_cases(rng, rows, n):
+    """The chain kernel's adversarial suite: identity rotations,
+    c = 0 / s = +-1 (pure swaps with signs), random angles, and a
+    matrix of 8 rows."""
+    th = rng.standard_normal(n - 1)
+    sgn = np.where(rng.standard_normal(n - 1) >= 0, 1.0, -1.0)
+    return {"identity": (np.ones(n - 1), np.zeros(n - 1), rows),
+            "swap": (np.zeros(n - 1), sgn, rows),
+            "random": (np.cos(th), np.sin(th), rows),
+            "rows8": (np.cos(th), np.sin(th), 8)}
+
+
+def phase_givens_chain(rng, results):
+    """givens_chain_apply against its plain version, bitwise: the
+    adversarial suite at 256 columns, then the paths' shapes in f32:
+    Z 2048 x 2048 (steqr2) and 512 x 512 row-major and transposed
+    (bdsqr applies its right chain to Gvh^T). Times beside the library
+    product Z @ G with G precomposed (timed only) and the bound: Z read
+    and written once at the memory rate."""
+    from slate_tpu_torch.linalg.svd import _givens_chain_matrix
+    out = {"phase": "kernel.givens_chain", "ok": True, "cases": {}}
+    for kind, (c, s, rows) in chain_cases(rng, 256, 256).items():
+        Z = torch.as_tensor(rng.standard_normal((rows, 256)),
+                            dtype=torch.float32, device="cuda")
+        cs = torch.as_tensor(c, dtype=torch.float32, device="cuda")
+        sn = torch.as_tensor(s, dtype=torch.float32, device="cuda")
+        k = pk._givens_chain_launch(Z, cs, sn)
+        p = pk.givens_chain_apply_plain(Z, cs, sn)
+        torch.cuda.synchronize()
+        same = torch.equal(k, p)
+        out["cases"][kind] = same
+        out["ok"] &= same
+    for path, rows, n, trans in (("heev", N_EIG, N_EIG, False),
+                                 ("svd", N_SVD, N_SVD, False),
+                                 ("svd", N_SVD, N_SVD, True)):
+        th = rng.standard_normal(n - 1)
+        cs = torch.as_tensor(np.cos(th), dtype=torch.float32, device="cuda")
+        sn = torch.as_tensor(np.sin(th), dtype=torch.float32, device="cuda")
+        Z = torch.as_tensor(rng.standard_normal((rows, n)),
+                            dtype=torch.float32, device="cuda")
+        if trans:
+            Z = Z.T                   # a view: the kernel takes strides
+        k = pk._givens_chain_launch(Z, cs, sn)
+        p = pk.givens_chain_apply_plain(Z, cs, sn)
+        G = _givens_chain_matrix(cs, sn, n)
+        torch.cuda.synchronize()
+        same = torch.equal(k, p)
+        dense_err = float((k.double() - (Z.double() @ G.double())).abs()
+                          .max())
+        b_ms, b_by = bound_ms(6.0 * rows * (n - 1), 8.0 * rows * n)
+        s = {"shape": "%dx%d%s" % (rows, n, " transposed" if trans else ""),
+             "ms": cuda_ms(lambda: pk._givens_chain_launch(Z, cs, sn), 50),
+             "plain_ms": cuda_ms(
+                 lambda: pk.givens_chain_apply_plain(Z, cs, sn), 1),
+             "library_ms": cuda_ms(lambda: Z @ G, 20),
+             "bound_ms": b_ms, "bound_by": b_by}
+        out["ok"] &= same and dense_err <= 1e-4
+        key = "givens_chain_apply." + path + (".T" if trans else "")
+        out[key] = {**s, "bitwise": same, "max_abs_err_dense": dense_err}
+        if not trans:
+            results[key] = entry(
+                "givens_chain_apply", "float32", "givens_chain.cu",
+                PK + "739 (_givens_apply_pallas)", path, s,
+                0.0 if same else None)
+    return out
+
+
+def tridiag(rng, n):
+    """A random symmetric tridiagonal (d, e), f32 on the card."""
+    return (torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device="cuda"),
+            torch.as_tensor(rng.standard_normal(n - 1),
+                            dtype=torch.float32, device="cuda"))
+
+
+def sweep_bound(steps, n, nrot):
+    """One pass's least time: ~40 f32 operations a chase step, and d, e
+    read and d, e, the rotations and the count written once."""
+    return bound_ms(40.0 * steps, 4.0 * (2 * n - 1) * 2 + 4.0 * nrot
+                    * (n - 1) + 4)
+
+
+def phase_qr_sweep(rng, results):
+    """steqr_sweep and bdsqr_sweep against their plain versions,
+    bitwise in every output, over 3 passes from a random n = 2048
+    tridiagonal and a random 512 bidiagonal (each pass fed the kernel's
+    previous output); times of the first pass."""
+    out = {"phase": "kernel.qr_sweep", "ok": True}
+    for name, run, plain, n, path, line in (
+            ("steqr_sweep", pk.steqr_sweep, pk.steqr_sweep_plain, N_EIG,
+             "heev", "slate_tpu/linalg/eig.py:553 (_steqr_shifted_sweep, "
+             "XLA scan)"),
+            ("bdsqr_sweep", pk.bdsqr_sweep, pk.bdsqr_sweep_plain, N_SVD,
+             "svd", "slate_tpu/linalg/svd.py:472 (_bdsqr_shifted_sweep, "
+             "XLA scan)")):
+        d0, e0 = tridiag(rng, n)
+        d, e = d0, e0
+        passes = []
+        for _ in range(3):
+            k = run(d, e)
+            p = plain(d, e)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(k, p))
+            passes.append(same)
+            out["ok"] &= same
+            d, e = k[0], k[1]
+        nrot = len(k) - 3
+        b_ms, b_by = sweep_bound(n - 1, n, nrot)
+        s = {"shape": "n = %d, one pass" % n,
+             "ms": cuda_ms(lambda: run(d0, e0), 20),
+             "plain_ms": cuda_ms(lambda: plain(d0, e0), 2),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        out[name] = {**s, "passes_bitwise": passes}
+        results[name] = entry(name, "float32", "qr_sweep.cu", line, path,
+                              s, 0.0 if all(passes) else None)
+    return out
+
+
+def route_chain(op, dtype, n):
+    """A fresh tune cache routing (op, 'chain') to the chain kernel at
+    size n."""
+    fresh_tune_cache()
+    cache = tcache.get_cache()
+    cache.put(op, dtype, n, {"chain": "pallas_rec"})
+    cache.save()
+
+
+def eig_checks(a64, w, V, w_ref, anorm2, limit=EIG_LIMIT):
+    """Residual ||A V - V diag(w)||_F / ||A||_F, orthogonality
+    max|V^T V - I| and max|w - w_ref| / ||A||_2, in f64 on the card,
+    each within `limit`."""
+    v = V.to_dense().double()
+    w64 = w.double()
+    res = float(torch.linalg.norm(a64 @ v - v * w64[None, :])
+                / torch.linalg.norm(a64))
+    orth = float((v.T @ v - torch.eye(v.shape[1], dtype=torch.float64,
+                                      device="cuda")).abs().max())
+    werr = float((w64 - w_ref.double()).abs().max()) / anorm2
+    ok = max(res, orth, werr) <= limit \
+        and bool(torch.isfinite(v).all()) and tuple(w.shape) == (a64.shape[0],)
+    return ok, {"residual": res, "orthogonality": orth,
+                "values_vs_auto": werr, "limit": limit}
+
+
+def phase_heev(seed, results, system):
+    """heev at n = 2048 on A = (G + G^T)/2 made on the card from --seed,
+    tiles 256. (c) Auto (the library eigensolver) gives the reference
+    values. (a) MethodEig.QRIteration with ('steqr2', 'chain') routed to
+    the chain kernel: he2hb -> hb2st -> steqr2, one steqr_sweep and one
+    givens_chain_apply launch a pass. (b) he2hb and hb2st once, timed,
+    then on that tridiagonal and its back-transform steqr2 cold (the
+    dense compose, sweeps still on the card) and stedc. The library
+    route within EIG_LIMIT, the staged ones within STAGED_EIG_LIMIT
+    (eig_checks)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn((N_EIG, N_EIG), generator=gen, device="cuda")
+    a = (g + g.T) / 2
+    del g
+    A = st.HermitianMatrix(st.Uplo.Lower, a, mb=MB_EIG)
+    a64 = a.double()
+    out = {"phase": "heev", "ok": True, "n": N_EIG, "mb": MB_EIG,
+           "seed": seed}
+    fresh_tune_cache()
+    wall_c, (w_ref, V_c) = wall_s(lambda: st.heev(A))
+    anorm2 = float(w_ref.abs().max())
+    ok, chk = eig_checks(a64, w_ref, V_c, w_ref, anorm2)
+    out["auto"] = {"wall_s": wall_c, **chk}
+    out["ok"] &= ok
+    route_chain("steqr2", torch.float32, N_EIG)
+    opts = {st.Option.MethodEig: st.MethodEig.QRIteration}
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    wall_a, (w_a, V_a) = wall_s(lambda: st.heev(A, opts))
+    launches = pk.launch_counts()
+    set_launches(results, "heev", launches)
+    ok, chk = eig_checks(a64, w_a, V_a, w_ref, anorm2, STAGED_EIG_LIMIT)
+    passes = launches["steqr_sweep"]
+    ok &= passes > 0 and launches["givens_chain_apply"] == passes
+    out["qr_iteration"] = {"wall_s": wall_a, "passes": passes,
+                           "launches": {k: v for k, v in launches.items()
+                                        if v}, **chk}
+    out["ok"] &= ok
+    fresh_tune_cache()
+    stages = {}
+    stages["he2hb"], (Band, Q1) = wall_s(lambda: st.he2hb(A))
+    stages["hb2st"], tri = wall_s(lambda: st.hb2st(Band))
+    Q = st.unmtr_he2hb(Q1, tri.Q)
+    pk.reset_launch_counts()
+    stages["steqr2_cold"], (w_b, V_b) = wall_s(
+        lambda: st.steqr2(tri.d, tri.e, Q))
+    cold = pk.launch_counts()
+    ok_s, chk_s = eig_checks(a64, w_b, V_b, w_ref, anorm2,
+                             STAGED_EIG_LIMIT)
+    ok_s &= cold["givens_chain_apply"] == 0 and cold["steqr_sweep"] > 0
+    stages["stedc"], (w_d, V_d) = wall_s(lambda: st.stedc(tri.d, tri.e, Q))
+    ok_d, chk_d = eig_checks(a64, w_d, V_d, w_ref, anorm2,
+                             STAGED_EIG_LIMIT)
+    out["staged"] = {"stage_wall_s": stages, "band_kd": MB_EIG,
+                     "steqr2_cold": {"passes": cold["steqr_sweep"],
+                                     **chk_s},
+                     "stedc": chk_d}
+    out["ok"] &= ok_s and ok_d
+    system.update(eig_A=A, eig_opts=opts)
+    return out
+
+
+def phase_svd(seed, results, system):
+    """svd at 512 x 512 on a Gaussian A from --seed, tiles 64: Auto (the
+    library SVD) gives the reference values; MethodSVD.QRIteration with
+    ('bdsqr', 'chain') routed to the chain kernel runs ge2tb -> tb2bd
+    -> bdsqr_qr, one bdsqr_sweep and two givens_chain_apply launches a
+    pass. ||U diag(s) Vh - A||_F / ||A||_F and max|s - s_auto| / s_max
+    within EIG_LIMIT."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    a = torch.randn((N_SVD, N_SVD), generator=gen, device="cuda")
+    A = st.Matrix(a, mb=MB_SVD)
+    a64 = a.double()
+    fresh_tune_cache()
+    wall_c, res_c = wall_s(lambda: st.svd(A))
+    smax = float(res_c.s.max())
+    route_chain("bdsqr", torch.float32, N_SVD)
+    opts = {st.Option.MethodSVD: st.MethodSVD.QRIteration}
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    wall, res = wall_s(lambda: st.svd(A, opts))
+    launches = pk.launch_counts()
+    set_launches(results, "svd", launches)
+    out = {"phase": "svd", "ok": True, "n": N_SVD, "mb": MB_SVD,
+           "seed": seed, "auto_wall_s": wall_c, "qr_iteration_wall_s": wall}
+    for name, r in (("auto", res_c), ("qr_iteration", res)):
+        u, vh = r.U.to_dense().double(), r.Vh.to_dense().double()
+        recon = float(torch.linalg.norm(u * r.s.double()[None, :] @ vh - a64)
+                      / torch.linalg.norm(a64))
+        serr = float((r.s.double() - res_c.s.double()).abs().max()) / smax
+        out[name] = {"reconstruction": recon, "values_vs_auto": serr}
+        out["ok"] &= max(recon, serr) <= EIG_LIMIT \
+            and bool(torch.isfinite(r.s).all())
+    passes = launches["bdsqr_sweep"]
+    out["passes"] = passes
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["ok"] &= passes > 0 and launches["givens_chain_apply"] == 2 * passes
+    system.update(svd_A=A, svd_opts=opts)
+    return out
+
+
 #: trace categories of work on the card; other rows of a profiler trace
 #: (operators, runtime calls, the profiler's own buffer flushes) are not
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -1457,6 +1752,12 @@ def phase_profile(system):
     mats, rhss = system["serve_posv"]
     out["batch.ragged_posv"] = profile_call(
         lambda: serve_run("posv", mats, rhss, "ragged"))
+    route_chain("steqr2", torch.float32, N_EIG)
+    out["heev.qr_iteration"] = profile_call(
+        lambda: st.heev(system["eig_A"], system["eig_opts"]))
+    route_chain("bdsqr", torch.float32, N_SVD)
+    out["svd.qr_iteration"] = profile_call(
+        lambda: st.svd(system["svd_A"], system["svd_opts"]))
     return out
 
 
@@ -1488,6 +1789,8 @@ def main():
          lambda: phase_ragged_getrf(args.seed, results)),
         ("kernel.ragged_trsm",
          lambda: phase_ragged_trsm(args.seed, results)),
+        ("kernel.givens_chain", lambda: phase_givens_chain(rng, results)),
+        ("kernel.qr_sweep", lambda: phase_qr_sweep(rng, results)),
         ("gesv", lambda: phase_gesv(args.seed, results, system)),
         ("gesv_mixed.cold", lambda: phase_mixed_cold(args.seed, results)),
         ("gesv_mixed", lambda: phase_mixed(results, system)),
@@ -1497,6 +1800,8 @@ def main():
         ("gels_bf16", lambda: phase_gels_bf16(args.seed, results, system)),
         ("batch.serve",
          lambda: phase_batch_serve(args.seed, results, system)),
+        ("heev", lambda: phase_heev(args.seed, results, system)),
+        ("svd", lambda: phase_svd(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:

@@ -10,7 +10,9 @@ posv, trtri / trtrm / potri, posv_mixed, posv_mixed_gmres); QR and
 least squares (geqrf / unmqr, gelqf / unmlq, cholqr, gels over QR,
 CholQR and TSQR); the BLAS-3 drivers they use; the batch layer
 (``batch/``: batched drivers, the coalescing queue, bucket and ragged
-strategies); and the hand-written kernels (``ops/kernels.py``).
+strategies); the Hermitian eigensolvers (heev, hegv, the staged he2hb /
+hb2st / steqr2 / stedc / sterf) and the SVD (svd, the staged ge2tb /
+tb2bd / bdsqr); and the hand-written kernels (``ops/kernels.py``).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -28,19 +30,27 @@ torch.backends.cudnn.allow_tf32 = False
 # in bf16 along the way.
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-from .core import (Diag, DimensionError, HermitianMatrix, Matrix,  # noqa: E402,F401
-                   MatrixType, MethodBatchStrategy, MethodCholQR,
-                   MethodFactor, MethodGels, MethodLU, MethodLUPanel, Op,
-                   Option, Side, SlateError, SymmetricMatrix, TiledMatrix,
-                   TriangularMatrix, Uplo)
+from .core import (Diag, DimensionError, HermitianBandMatrix,  # noqa: E402,F401
+                   HermitianMatrix, Matrix, MatrixType,
+                   MethodBatchStrategy, MethodCholQR, MethodEig,
+                   MethodFactor, MethodGels, MethodLU, MethodLUPanel,
+                   MethodSVD, Op, Option, Side, SlateError,
+                   SymmetricMatrix, TiledMatrix, TriangularMatrix, Uplo)
 from .interop import from_jax_state  # noqa: E402,F401
-from .linalg import (LQFactors, LUFactors, QRFactors,  # noqa: E402,F401
-                     apply_pivots, cholqr, gelqf, gemm, geqrf, gels,
+from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
+                     LQFactors, LUFactors, QRFactors, SVDResult,
+                     TridiagResult, apply_pivots, bdsqr, cholqr,
+                     eig_vals, ge2tb, gelqf, gemm, geqrf, gels,
                      gels_cholqr, gels_qr, gels_tsqr, gesv, gesv_mixed,
-                     gesv_mixed_gmres, getrf, getrs, hemm, her2k, herk,
-                     pbsv, pbtrf, pbtrs, posv, posv_mixed,
-                     posv_mixed_gmres, potrf, potri, potrs, symm, syr2k,
-                     syrk, trmm, trsm, trtri, trtrm, unmlq, unmqr)
+                     gesv_mixed_gmres, gesvd, getrf, getrs, hb2st, he2hb,
+                     heev, hegst, hegv, hemm, her2k, herk, pbsv, pbtrf,
+                     pbtrs, posv, posv_mixed, posv_mixed_gmres, potrf,
+                     potri, potrs, stedc, stedc_deflate, stedc_merge,
+                     stedc_rotate, stedc_secular, stedc_solve, stedc_sort,
+                     stedc_z_vector, steqr2, sterf, svd, svd_vals, syev,
+                     sygv, symm, syr2k, syrk, tb2bd, trmm, trsm, trtri,
+                     trtrm, unmbr_ge2tb, unmbr_tb2bd, unmlq, unmqr,
+                     unmtr_hb2st, unmtr_he2hb)
 from .utils import Timers  # noqa: E402,F401
 from . import batch, obs, ops, tune  # noqa: E402,F401
 

@@ -3,9 +3,10 @@
 from .enums import Diag, MatrixType, Op, Option, Side, Target, Uplo  # noqa: F401
 from .exceptions import (DimensionError, OptionError, SlateError,  # noqa: F401
                          slate_assert)
-from .matrix import (HermitianMatrix, Matrix, SymmetricMatrix,  # noqa: F401
-                     TriangularMatrix)
+from .matrix import (HermitianBandMatrix, HermitianMatrix,  # noqa: F401
+                     Matrix, SymmetricMatrix, TriangularMatrix)
 from .methods import (MethodBatchStrategy, MethodCholQR,  # noqa: F401
-                      MethodFactor, MethodGels, MethodLU, MethodLUPanel)
+                      MethodEig, MethodFactor, MethodGels, MethodLU,
+                      MethodLUPanel, MethodSVD)
 from .options import get_option, get_option_tuned  # noqa: F401
 from .tiles import TiledMatrix, ceil_div, next_pow2, round_up  # noqa: F401

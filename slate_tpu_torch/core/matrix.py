@@ -25,14 +25,15 @@ def Matrix(a=None, *, m: int = 0, n: int = 0, mb: int = 256,
     return TiledMatrix.zeros(m, n, mb, nb, dtype, device=device)
 
 
-def _structured(a, n, mb, nb, dtype, mtype, uplo, diag, device
-                ) -> TiledMatrix:
+def _structured(a, n, mb, nb, dtype, mtype, uplo, diag, device,
+                kl: int = -1, ku: int = -1) -> TiledMatrix:
     if a is not None:
         t = TiledMatrix.from_dense(a, mb, nb, mtype=mtype, uplo=uplo,
-                                   diag=diag, device=device)
+                                   diag=diag, kl=kl, ku=ku, device=device)
     else:
         t = TiledMatrix.zeros(n, n, mb, nb, dtype, device=device,
-                              mtype=mtype, uplo=uplo, diag=diag)
+                              mtype=mtype, uplo=uplo, diag=diag, kl=kl,
+                              ku=ku)
     if t.m != t.n:
         raise DimensionError(f"{mtype.name} matrix must be square, "
                              f"got {t.m}x{t.n}")
@@ -61,3 +62,13 @@ def HermitianMatrix(uplo: Uplo, a=None, *, n=0, mb=256, nb=None,
     """Reference HermitianMatrix.hh:26."""
     return _structured(a, n, mb, nb, dtype, MatrixType.Hermitian, uplo,
                        Diag.NonUnit, device)
+
+
+def HermitianBandMatrix(uplo: Uplo, kd: int, a=None, *, n=0, mb=256,
+                        nb=None, dtype=torch.float32,
+                        device: DeviceLike = None) -> TiledMatrix:
+    """Reference HermitianBandMatrix.hh:29: band width kd in the stored
+    triangle (kl = kd for Lower, ku = kd for Upper)."""
+    kl, ku = (kd, 0) if uplo is Uplo.Lower else (0, kd)
+    return _structured(a, n, mb, nb, dtype, MatrixType.HermitianBand,
+                       uplo, Diag.NonUnit, device, kl=kl, ku=ku)

@@ -1,7 +1,8 @@
 """Algorithm-variant selection (counterpart of
 ``slate_tpu/core/methods.py``), reduced to the ported slices: MethodLU,
 MethodFactor, MethodLUPanel, MethodCholQR, MethodGels,
-MethodBatchStrategy and the shared height-cap rule.
+MethodBatchStrategy, MethodEig, MethodSVD and the shared height-cap
+rule.
 
 "Native" here means ``torch.linalg.lu_factor`` (LAPACK on the CPU,
 cuSOLVER on the card) where the reference means XLA's LU custom call.
@@ -191,10 +192,30 @@ class MethodBatchStrategy(enum.Enum):
             if m is MethodBatchStrategy.Auto else m
 
 
+class MethodEig(enum.Enum):
+    """Eigensolver backend: QR iteration vs divide & conquer."""
+    Auto = "auto"
+    QRIteration = "qr_iteration"
+    DC = "dc"
+
+    @staticmethod
+    def select(n: int, want_vectors: bool) -> "MethodEig":
+        return MethodEig.DC if want_vectors else MethodEig.QRIteration
+
+
+class MethodSVD(enum.Enum):
+    """SVD backend: the library SVD (Auto, DC) vs the staged QR
+    iteration."""
+    Auto = "auto"
+    QRIteration = "qr_iteration"
+    DC = "dc"
+
+
 def str2method(family: str, s: str):
     fam = {"lu": MethodLU, "factor": MethodFactor,
            "lu_panel": MethodLUPanel, "cholqr": MethodCholQR,
-           "gels": MethodGels, "batch": MethodBatchStrategy}[family]
+           "gels": MethodGels, "batch": MethodBatchStrategy,
+           "eig": MethodEig, "svd": MethodSVD}[family]
     for mem in fam:
         if mem.value.lower() == s.lower() or mem.name.lower() == s.lower():
             return mem

@@ -19,8 +19,10 @@ import torch
 from .core.enums import Diag, MatrixType, Op, Uplo
 from .core.exceptions import SlateError
 from .core.tiles import TiledMatrix
+from .linalg.eig import TridiagResult
 from .linalg.lu import LUFactors
 from .linalg.qr import LQFactors, QRFactors
+from .linalg.svd import BidiagResult, Ge2tbResult
 from .utils.backend import DeviceLike, resolve_device
 
 _ENUMS = {"mtype": MatrixType, "uplo": Uplo, "op": Op, "diag": Diag}
@@ -60,9 +62,15 @@ def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
                        mb=int(meta["mb"]), nb=int(meta["nb"]), **kw)
 
 
+def _opt_matrix(arrays, meta, key, dev):
+    x = arrays.get(key)
+    return None if x is None else _matrix(x, meta[key], dev)
+
+
 def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
                    device: DeviceLike = None
-                   ) -> Union[TiledMatrix, LUFactors, QRFactors, LQFactors]:
+                   ) -> Union[TiledMatrix, LUFactors, QRFactors, LQFactors,
+                              TridiagResult, BidiagResult, Ge2tbResult]:
     """Turn a JAX ``TiledMatrix``, ``LUFactors``, ``QRFactors`` or
     ``LQFactors``, given as numpy, into the port's counterpart on
     `device` (CUDA unless named):
@@ -76,11 +84,30 @@ def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
         the metadata of ``F.QR`` (with that of ``F.Q`` under
         ``meta["Q"]``) -> QRFactors;
       * ``arrays={"LQ": F.LQ.data, "taus": F.taus}`` + the metadata of
-        ``F.LQ`` -> LQFactors.
+        ``F.LQ`` -> LQFactors;
+      * the eigen / SVD stages' results, each matrix's metadata under
+        its own key of ``meta``: ``arrays={"B": R.B.data, "U": R.U.data,
+        "Vh": R.Vh.data}`` -> Ge2tbResult (ge2tb's band, with its
+        ``kl``, ``ku``); ``arrays={"d": R.d, "e": R.e[, "Q": R.Q.data]}``
+        -> TridiagResult (hb2st); ``arrays={"d": R.d, "e": R.e[,
+        "U": R.U.data][, "Vh": R.Vh.data]}`` with ``meta["kind"] =
+        "bidiag"`` -> BidiagResult (tb2bd). A band matrix (he2hb's
+        ``HermitianBand``) is a TiledMatrix with its ``mtype``, ``kl``
+        and ``ku`` in the metadata.
 
     The padded storage is taken as it is, padding included; bf16
     factors (gesv_mixed's) included."""
     dev = resolve_device(device)
+    if "B" in arrays:
+        return Ge2tbResult(_matrix(arrays["B"], meta["B"], dev),
+                           _matrix(arrays["U"], meta["U"], dev),
+                           _matrix(arrays["Vh"], meta["Vh"], dev))
+    if "d" in arrays:
+        d, e = _tensor(arrays["d"], dev), _tensor(arrays["e"], dev)
+        if meta.get("kind", "tridiag") == "bidiag":
+            return BidiagResult(d, e, _opt_matrix(arrays, meta, "U", dev),
+                                _opt_matrix(arrays, meta, "Vh", dev))
+        return TridiagResult(d, e, _opt_matrix(arrays, meta, "Q", dev))
     if "QR" in arrays:
         q = arrays.get("Q")
         return QRFactors(_matrix(arrays["QR"], meta, dev),

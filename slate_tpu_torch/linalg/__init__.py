@@ -1,6 +1,6 @@
 """Linear-algebra drivers (counterpart of ``slate_tpu/linalg/``): the
 dense LU, Cholesky and QR / least-squares slices and their
-mixed-precision solves."""
+mixed-precision solves, the Hermitian eigensolvers and the SVD."""
 
 from .blas3 import (gemm, hemm, her2k, herk, symm, syr2k,  # noqa: F401
                     syrk, trmm, trsm)
@@ -11,3 +11,14 @@ from .lu import (LUFactors, apply_pivots, gesv, gesv_mixed,  # noqa: F401
 from .qr import (LQFactors, QRFactors, cholqr, gelqf,  # noqa: F401
                  geqrf, gels, gels_cholqr, gels_qr, gels_tsqr, unmlq,
                  unmqr)
+# the stedc module first: importing a submodule binds its name in this
+# package, and the name must end up bound to eig's stedc function
+from .stedc import (stedc_deflate, stedc_merge, stedc_rotate,  # noqa: F401
+                    stedc_secular, stedc_solve, stedc_sort,
+                    stedc_z_vector)
+from .eig import (EigResult, TridiagResult, eig_vals,  # noqa: F401
+                  he2hb, hb2st, hegst, hegv, heev, sterf, stedc,
+                  steqr2, sygv, syev, unmtr_hb2st, unmtr_he2hb)
+from .svd import (BidiagResult, Ge2tbResult, SVDResult, bdsqr,  # noqa: F401
+                  ge2tb, gesvd, svd, svd_vals, tb2bd, unmbr_ge2tb,
+                  unmbr_tb2bd)

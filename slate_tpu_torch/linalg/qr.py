@@ -75,10 +75,41 @@ def _native_geqrf(a: torch.Tensor
     if not MethodFactor.native_lu_dtype_ok(a.dtype):
         return None
     packed, taus = torch.geqrf(a)
-    w = a.shape[-1]
+    m, w = a.shape[-2:]
+    if a.is_complex() and 1 <= m <= w:
+        packed, taus = _larfg_last(packed, taus, m - 1)
     if taus.shape[-1] < w:
         taus = torch.cat([taus, taus.new_zeros(*taus.shape[:-1],
                                                w - taus.shape[-1])], dim=-1)
+    return packed, taus
+
+
+def _larfg_last(packed: torch.Tensor, taus: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LAPACK zlarfg for n = 1 on reflector k, where the library skipped
+    it: the last reflector of a complex panel with no more rows than
+    columns acts on the 1x1 block R_kk. torch's geqrf leaves it alone
+    (tau 0, complex R_kk) where LAPACK's zgeqr2 (and the reference)
+    makes R_kk real: beta = -sign(alpha_r) |alpha|,
+    tau = (beta - alpha_r) / beta - i alpha_i / beta, and the rest of
+    row k is multiplied by 1 - conj(tau) (H^H from the left). Applied
+    by masks (no host read) only where tau_k is 0 and R_kk is not
+    real; leading batch dimensions ride along."""
+    alpha = packed[..., k, k]
+    ar, ai = alpha.real, alpha.imag
+    fix = (taus[..., k] == 0) & (ai != 0)
+    big = torch.maximum(ar.abs(), ai.abs())
+    big = torch.where(big == 0, torch.ones_like(big), big)
+    nrm = big * torch.sqrt((ar / big) ** 2 + (ai / big) ** 2)  # dlapy3
+    beta = torch.where(ar >= 0, -nrm, nrm)
+    safe = torch.where(beta == 0, torch.ones_like(beta), beta)
+    tau = torch.complex((beta - ar) / safe, -ai / safe)
+    packed, taus = packed.clone(), taus.clone()
+    packed[..., k, k] = torch.where(fix, beta.to(packed.dtype), alpha)
+    row = packed[..., k, k + 1:]
+    packed[..., k, k + 1:] = torch.where(
+        fix[..., None], row * (1 - tau.conj())[..., None], row)
+    taus[..., k] = torch.where(fix, tau, taus[..., k])
     return packed, taus
 
 

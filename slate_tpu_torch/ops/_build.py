@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 
 #: library -> (source, {C entry: argtypes}); every entry returns int
 LIBS = {
@@ -78,6 +79,15 @@ LIBS = {
         "slate_set_device": [_I],
         "ragged_trsm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P],
+    }),
+    "givens_chain": ("givens_chain.cu", {
+        "slate_set_device": [_I],
+        "givens_chain": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _P],
+    }),
+    "qr_sweep": ("qr_sweep.cu", {
+        "slate_set_device": [_I],
+        "steqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+        "bdsqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     }),
 }
 

@@ -6,10 +6,14 @@ the block-recursive LU panel ``lu_panel_rec``, the trailing update
 port of XLA's builtin of that name, which the reference calls between
 panels, and over a batch between the ragged LU and its solves), the
 Householder panel ``qr_panel``, the Cholesky block ``chol_panel``, the
-lower-triangular inverse ``trtri_lower``, and the batch layer's ragged
+lower-triangular inverse ``trtri_lower``, the batch layer's ragged
 kernels ``ragged_potrf``, ``ragged_getrf`` and ``ragged_trsm`` (one
 block per element of a (B, N, N) stack, each bounded by its own order
-from a device ``sizes`` vector).
+from a device ``sizes`` vector), the Givens chain apply
+``givens_chain_apply`` (the QR iterations' transform accumulation,
+Z @ G streamed along each row), and the QR passes ``steqr_sweep`` /
+``bdsqr_sweep`` (the port of the XLA scans the reference runs once a
+pass in eig.steqr2_qr and svd.bdsqr_qr).
 
 Every kernel here has three parts side by side:
 
@@ -18,7 +22,9 @@ Every kernel here has three parts side by side:
     ``_lu_panel_launch``, ``lu_pivots_to_permutation``,
     ``_qr_panel_launch``, ``_chol_panel_launch``,
     ``_trtri_lower_launch``, ``_ragged_potrf_launch``,
-    ``_ragged_getrf_launch``, ``_ragged_trsm_launch``) that launches
+    ``_ragged_getrf_launch``, ``_ragged_trsm_launch``,
+    ``_givens_chain_launch``, ``steqr_sweep``, ``bdsqr_sweep``) that
+    launches
     the kernel for a CUDA tensor and adds one to its ``launches`` count
     there, and nowhere else; it raises on what the kernel does not
     take. There is no fall back: for a tensor on the CPU, and only
@@ -27,7 +33,10 @@ Every kernel here has three parts side by side:
     ``rank_update_plain``, ``lu_panel_plain``, ``compose_swaps_plain``,
     ``qr_panel_plain``, ``chol_panel_plain``, ``trtri_lower_plain``,
     ``ragged_potrf_plain``, ``ragged_getrf_plain``,
-    ``ragged_trsm_plain``),
+    ``ragged_trsm_plain``, ``givens_chain_apply_plain``,
+    ``steqr_sweep_plain``, ``bdsqr_sweep_plain``; the sweeps' plain
+    versions walk the recurrence on the host in numpy scalars of the
+    tensor's type, as ``compose_swaps_plain`` walks its swaps),
     the same function with the same recursion, pivot tie-break and
     rounding, which the CPU tests hold against the JAX package and
     ``chip_smoke.py`` holds against the kernel on the card
@@ -43,7 +52,9 @@ f32 products.
 
 The ragged kernels take f32 and bf16 stacks on the card; on the CPU
 their entries run the plain versions for any real float type, as the
-reference's interpreter does (f64 computes in f64).
+reference's interpreter does (f64 computes in f64). The chain apply
+and the sweeps take f32 on the card; their plain versions any real
+float type (the sweeps f32 and f64).
 
 ARBITRATION CONTRACT, as in the reference: each public panel entry has
 an eligibility gate (``*_reject_reason`` / ``*_eligible``) and returns
@@ -72,6 +83,7 @@ KERNEL_REGISTRY = {
     "ragged_potrf": ("ragged_potrf_eligible", "ragged"),
     "ragged_getrf": ("ragged_getrf_eligible", "ragged"),
     "ragged_trsm": ("ragged_trsm_eligible", "ragged"),
+    "givens_chain_apply": ("givens_chain_eligible", "steqr2"),
 }
 
 #: widest recursive panel (one dispatch OR the tall split)
@@ -1243,6 +1255,415 @@ def ragged_trsm(packed: torch.Tensor, rhs: Optional[torch.Tensor], sizes,
                                bool(upper), bool(trans), bool(unit), donate)
 
 
+# -- the Givens chain apply (steqr2 / bdsqr transform accumulation) --------
+
+#: rotation-group width b of the reference's window factors (tune key
+#: ("steqr2", "chain_blk")); the gate keeps the reference's shape rule
+GIVENS_CHAIN_BLK = 128
+#: the reference's VMEM budget of one gridded step (its `_chain_rb`
+#: rule), kept so both packages route the same shapes
+_CHAIN_VMEM_BUDGET = 12 << 20
+
+
+def _chain_anchor(j: int, n: int, blk: int) -> int:
+    """Window anchor of rotation group j: b-spaced, clamped so the last
+    (2b)-wide window stays inside [0, n)."""
+    return min(j * blk, n - 2 * blk)
+
+
+def givens_chain_factors(cs: torch.Tensor, sn: torch.Tensor, n: int,
+                         blk: int, dtype=None) -> torch.Tensor:
+    """The sweep's rotation chain as (n/blk, 2*blk, 2*blk) banded block
+    factors: group j holds rotations [j*blk, min((j+1)*blk, n-1)),
+    identity-padded inside the 2*blk window at its anchor. Embedded at
+    their anchors and multiplied in group order they reproduce
+    ``svd._givens_chain_matrix`` (the reference's factor layout; the
+    CUDA kernel streams the chain and does not use them). Built on
+    cs's device by one batched compose, with no loop over groups."""
+    from ..linalg.svd import _givens_chain_matrix
+    dtype = dtype or cs.dtype
+    dev = cs.device
+    j = torch.arange(n // blk, device=dev)[:, None]
+    k = torch.clamp(j * blk, max=n - 2 * blk) \
+        + torch.arange(2 * blk - 1, device=dev)[None, :]
+    inside = (k >= j * blk) & (k < torch.clamp((j + 1) * blk, max=n - 1))
+    kk = torch.clamp(k, max=n - 2)
+    cw = torch.where(inside, cs.to(dtype)[kk],
+                     torch.ones((), dtype=dtype, device=dev))
+    sw = torch.where(inside, sn.to(dtype)[kk],
+                     torch.zeros((), dtype=dtype, device=dev))
+    return _givens_chain_matrix(cw, sw, 2 * blk, dtype)
+
+
+def _chain_blk(blk: Optional[int]) -> int:
+    if blk is not None:
+        return blk
+    from ..tune.select import tuned_int
+    return tuned_int("steqr2", "chain_blk", GIVENS_CHAIN_BLK)
+
+
+def _chain_rb(rows: int, n: int, blk: int) -> Optional[int]:
+    """The reference's row-block height of its gridded apply (largest
+    divisor of `rows` whose step fits its VMEM budget beside the
+    factor stack), or None. The CUDA kernel does not use it; the gate
+    does, so both packages take the same shapes."""
+    facs_bytes = 16 * n * blk
+    if facs_bytes >= _CHAIN_VMEM_BUDGET:
+        return None
+    for rb in (512, 256, 128, 64, 32, 16, 8):
+        if rows % rb == 0 \
+                and 2 * rb * n * 4 + facs_bytes <= _CHAIN_VMEM_BUDGET:
+            return rb
+    return None
+
+
+def _chain_shape_ok(rows: int, n: int, blk: int) -> bool:
+    return n % blk == 0 and n >= 2 * blk \
+        and rows % 8 == 0 and _chain_rb(rows, n, blk) is not None
+
+
+def givens_chain_eligible(rows: int, n: int, dtype,
+                          blk: Optional[int] = None, device=None) -> bool:
+    """ROUTING gate of the chain apply (eig.steqr2_qr / svd.bdsqr_qr
+    consult it when the tune cache routes 'pallas_rec'): the
+    reference's shape rule (n a multiple of the block width with at
+    least two windows, rows % 8 == 0, its row-block budget), then the
+    type: f32 on the card (the kernel's), any real float type on the
+    CPU, where the plain version serves (the counterpart of the
+    reference's interpreter)."""
+    if not _chain_shape_ok(rows, n, _chain_blk(blk)):
+        return False
+    if _on_cuda(device):
+        return dtype == torch.float32
+    return isinstance(dtype, torch.dtype) and dtype.is_floating_point
+
+
+def givens_chain_apply_plain(Z: torch.Tensor, cs: torch.Tensor,
+                             sn: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version, on any device: Z @ G for G the composed
+    chain of the n-1 adjacent rotations (cs, sn), streamed along each
+    row with one carry (t = z_0; out_k = c_k t + s_k z_{k+1},
+    t = -s_k t + c_k z_{k+1}; out_{n-1} = t), each product and sum
+    rounded in Z's type, in the kernel's order."""
+    n = Z.shape[-1]
+    cs, sn = cs.to(Z.dtype), sn.to(Z.dtype)
+    out = torch.empty_like(Z)
+    t = Z[..., 0]
+    for k in range(n - 1):
+        z = Z[..., k + 1]
+        out[..., k] = cs[k] * t + sn[k] * z
+        t = (-sn[k]) * t + cs[k] * z
+    out[..., n - 1] = t
+    return out
+
+
+def _givens_chain_launch(Z: torch.Tensor, cs: torch.Tensor,
+                         sn: torch.Tensor) -> torch.Tensor:
+    """Z @ G through the CUDA kernel for a CUDA tensor (counted), the
+    plain version for a CPU tensor. Z may be a transposed view (bdsqr
+    applies its right chain to Gvh^T): the kernel takes strides and
+    writes an output of the same layout, so no copy is made."""
+    if Z.device.type != "cuda":
+        return givens_chain_apply_plain(Z, cs, sn)
+    rows, n = Z.shape
+    if Z.dtype != torch.float32 or n < 1 or cs.shape[0] < n - 1 \
+            or sn.shape[0] < n - 1:
+        raise ValueError("givens_chain kernel takes an f32 (rows, n) Z "
+                         "and n-1 rotations, got %s %s and %s"
+                         % (tuple(Z.shape), Z.dtype, tuple(cs.shape)))
+    if Z.stride(1) != 1 and Z.stride(0) != 1:
+        Z = Z.contiguous()
+    out = torch.empty_like(Z)        # Z's strides (a dense layout)
+    cs = cs.to(device=Z.device, dtype=torch.float32).contiguous()
+    sn = sn.to(device=Z.device, dtype=torch.float32).contiguous()
+    lib = _build.load("givens_chain")
+    _build.check(lib.slate_set_device(Z.get_device()), "slate_set_device")
+    _build.check(lib.givens_chain(Z.data_ptr(), Z.stride(0), Z.stride(1),
+                                  out.data_ptr(), out.stride(0),
+                                  out.stride(1), cs.data_ptr(),
+                                  sn.data_ptr(), rows, n, _stream(Z)),
+                 "givens_chain")
+    _givens_chain_launch.launches += 1
+    return out
+
+
+_givens_chain_launch.launches = 0
+
+
+def givens_chain_apply(Z: torch.Tensor, cs: torch.Tensor, sn: torch.Tensor,
+                       blk: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Z @ G for G the composed Givens chain of (cs, sn) (equal to
+    Z @ svd._givens_chain_matrix(cs, sn, n)); None, with the reason as
+    an obs instant, when the gate rejects (the caller keeps the dense
+    compose). A CPU tensor takes the plain version."""
+    rows, n = Z.shape
+    if not givens_chain_eligible(rows, n, Z.dtype, blk, Z.device):
+        _reject("givens_chain_apply", "shape", rows=rows, n=n,
+                dtype=str(Z.dtype))
+        return None
+    return _givens_chain_launch(Z, cs, sn)
+
+
+# -- the shifted QR sweeps (one steqr2_qr / bdsqr_qr pass each) ------------
+
+#: longest tridiagonal or bidiagonal a sweep kernel takes: d and e live
+#: in its shared memory (8 n bytes)
+QR_SWEEP_MAX_N = 16384
+
+
+def _np_type(dtype) -> type:
+    return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+
+
+def _eps(dtype) -> float:
+    return float(torch.finfo(dtype).eps)
+
+
+def _hypot(f, g):
+    """|(f, g)| as the kernels take it: an f32 pair through f64 (exact
+    squares, one rounding for the sum, one for the root, one back to
+    f32), so the kernel and the plain version agree bitwise without
+    relying on two libraries' hypotf; f64 through np.hypot."""
+    if isinstance(f, np.float32):
+        fd, gd = np.float64(f), np.float64(g)
+        return np.float32(np.sqrt(fd * fd + gd * gd))
+    return np.hypot(f, g)
+
+
+def _lartg(f, g):
+    """Plane rotation (c, s, r) with c f + s g = r (LAPACK dlartg, the
+    reference's svd._lartg), on scalars of one numpy float type."""
+    r = _hypot(f, g)
+    if r == 0:
+        return type(f)(1), type(f)(0), r
+    return f / r, g / r, r
+
+
+def dlas2_min_plain(f, g, h):
+    """Smallest singular value of [[f, g], [0, h]] (LAPACK dlas2, the
+    reference's svd._dlas2_min) on scalars of one numpy float type,
+    in the kernel's order of operations."""
+    t = type(f)
+    one, two, zero = t(1), t(2), t(0)
+    fa, ga, ha = abs(f), abs(g), abs(h)
+    fhmn, fhmx = min(fa, ha), max(fa, ha)
+    if fhmn == 0:
+        return zero
+    if ga <= fhmx:
+        as_ = one + fhmn / fhmx
+        at = (fhmx - fhmn) / fhmx
+        au = ga / fhmx
+        au = au * au
+        return fhmn * (two / (np.sqrt(as_ * as_ + au)
+                              + np.sqrt(at * at + au)))
+    au = fhmx / ga
+    if au == 0:
+        return fhmn * fhmx / ga
+    x = (one + fhmn / fhmx) * au
+    y = ((fhmx - fhmn) / fhmx) * au
+    c = one / (np.sqrt(one + x * x) + np.sqrt(one + y * y))
+    return two * fhmn * c * au
+
+
+def _clamp_np(d, e, tol):
+    """The reference's deflation clamp: e_i -> 0 where
+    |e_i| <= tol (|d_i| + |d_{i+1}|); returns (e, keep)."""
+    keep = np.abs(e) > tol * (np.abs(d[:-1]) + np.abs(d[1:]))
+    return np.where(keep, e, e.dtype.type(0)), keep
+
+
+def _block(keep):
+    """(ll, mlast) of the trailing unreduced block: mlast the last
+    off-diagonal above tolerance, ll one past the last one below it
+    before mlast (0 if none); None when none is above."""
+    nz = np.flatnonzero(keep)
+    if nz.size == 0:
+        return None
+    mlast = int(nz[-1])
+    below = np.flatnonzero(~keep[:mlast])
+    return (int(below[-1]) + 1 if below.size else 0), mlast
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy().copy()
+
+
+def unconverged(d: torch.Tensor, e: torch.Tensor, tol: float
+                ) -> torch.Tensor:
+    """Count of off-diagonals above the deflation tolerance
+    (|e_i| > tol (|d_i| + |d_{i+1}|)), a 0-d int32 tensor on d's
+    device."""
+    keep = e.abs() > tol * (d[:-1].abs() + d[1:].abs())
+    return keep.sum().to(torch.int32)
+
+
+def steqr_sweep_plain(d: torch.Tensor, e: torch.Tensor):
+    """Plain version of ONE pass of the symmetric tridiagonal QR
+    iteration (the body of the reference's eig.steqr2_qr while_loop),
+    on the host in d's type (f32 or f64): clamp the negligible
+    off-diagonals, locate the trailing block [ll, m], take the
+    Wilkinson shift of its trailing 2x2, and run the bulge chase
+    (eig._steqr_shifted_sweep) over the active steps only (the gated
+    steps outside the block change nothing in the reference). Returns
+    (d, e, cs, sn, count) on d's device: rotations identity outside
+    the block, count the off-diagonals still above tolerance after the
+    pass (0-d int32)."""
+    dev, dt = d.device, d.dtype
+    t = _np_type(dt)
+    one, two = t(1), t(2)
+    eps = t(_eps(dt))
+    dn, en = _host(d), _host(e)
+    n = dn.shape[0]
+    cs, sn = np.ones(n - 1, t), np.zeros(n - 1, t)
+    with np.errstate(all="ignore"):
+        en, keep = _clamp_np(dn, en, eps)
+        blk = _block(keep)
+        if blk is not None:
+            ll, mlast = blk
+            m = mlast + 1
+            em1 = en[m - 1]
+            delta = (dn[m - 1] - dn[m]) / two
+            sgn = one if delta >= 0 else -one
+            denom = abs(delta) + _hypot(delta, em1)
+            shift = dn[m] - sgn * em1 * em1 / (one if denom == 0 else denom)
+            x, z = dn[ll] - shift, en[ll]
+            for k in range(ll, m):
+                c, s, r = _lartg(x, z)
+                if k > ll:
+                    en[k - 1] = r
+                dk, dk1, ek = dn[k], dn[k + 1], en[k]
+                cc, ss, tcs = c * c, s * s, two * c * s
+                dn[k] = cc * dk + tcs * ek + ss * dk1
+                dn[k + 1] = ss * dk - tcs * ek + cc * dk1
+                x = c * s * (dk1 - dk) + (cc - ss) * ek
+                en[k] = x
+                if k < m - 1:
+                    z = s * en[k + 1]
+                    en[k + 1] = c * en[k + 1]
+                cs[k], sn[k] = c, s
+        count = int(_clamp_np(dn, en, eps)[1].sum())
+    return (torch.from_numpy(dn).to(dev), torch.from_numpy(en).to(dev),
+            torch.from_numpy(cs).to(dev), torch.from_numpy(sn).to(dev),
+            torch.tensor(count, dtype=torch.int32, device=dev))
+
+
+def bdsqr_sweep_plain(d: torch.Tensor, e: torch.Tensor):
+    """Plain version of ONE pass of the bidiagonal QR iteration (the
+    body of the reference's svd.bdsqr_qr while_loop), on the host in
+    d's type: the clamp at 20 eps, the block [ll, m], the dlas2 shift
+    (zeroed when negligible against d_ll) and LAPACK dbdsqr's downward
+    chase (svd._bdsqr_shifted_sweep) over the active steps only.
+    Returns (d, e, cosr, sinr, cosl, sinl, count) on d's device, the
+    rotations identity outside the block, count as in
+    steqr_sweep_plain."""
+    dev, dt = d.device, d.dtype
+    t = _np_type(dt)
+    one, zero = t(1), t(0)
+    eps = t(_eps(dt))
+    tol = t(20) * eps
+    dn, en = _host(d), _host(e)
+    n = dn.shape[0]
+    cr, cl = np.ones(n - 1, t), np.ones(n - 1, t)
+    sr, sl = np.zeros(n - 1, t), np.zeros(n - 1, t)
+    with np.errstate(all="ignore"):
+        en, keep = _clamp_np(dn, en, tol)
+        blk = _block(keep)
+        if blk is not None:
+            ll, m = blk
+            mm = min(m, n - 2)
+            shift = dlas2_min_plain(dn[mm], en[mm], dn[mm + 1])
+            dll = dn[ll]
+            q = shift / (one if dll == 0 else dll)
+            if q * q < eps:
+                shift = zero
+            sgn = one if dll > 0 else (-one if dll < 0 else zero)
+            f = (abs(dll) - shift) * (sgn + shift
+                                      / (one if dll == 0 else dll))
+            g = en[ll]
+            for i in range(ll, m + 1):
+                cosr, sinr, r = _lartg(f, g)
+                if i > ll:
+                    en[i - 1] = r
+                f2 = cosr * dn[i] + sinr * en[i]
+                e_i = cosr * en[i] - sinr * dn[i]
+                g2 = sinr * dn[i + 1]
+                d_i1 = cosr * dn[i + 1]
+                cosl, sinl, r2 = _lartg(f2, g2)
+                f = cosl * e_i + sinl * d_i1
+                d_i1b = cosl * d_i1 - sinl * e_i
+                if i < m:
+                    g = sinl * en[i + 1]
+                    en[i + 1] = cosl * en[i + 1]
+                dn[i], dn[i + 1], en[i] = r2, d_i1b, e_i
+                cr[i], sr[i], cl[i], sl[i] = cosr, sinr, cosl, sinl
+            en[m] = f
+        count = int(_clamp_np(dn, en, tol)[1].sum())
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (dn, en, cr, sr, cl, sl)) + (
+        torch.tensor(count, dtype=torch.int32, device=dev),)
+
+
+def _sweep_setup(name: str, d: torch.Tensor, e: torch.Tensor, nrot: int):
+    """What both sweep kernels take: the library on d's device,
+    contiguous f32 inputs, fresh d / e outputs, `nrot` rotation vectors
+    and the count. Raises on what the kernels do not take."""
+    n = d.shape[0]
+    if d.dtype != torch.float32 or e.dtype != torch.float32 \
+            or tuple(e.shape) != (n - 1,) or not 2 <= n <= QR_SWEEP_MAX_N:
+        raise ValueError("%s kernel takes f32 d (n,) and e (n-1,) with "
+                         "2 <= n <= %d, got %s %s and %s %s"
+                         % (name, QR_SWEEP_MAX_N, tuple(d.shape), d.dtype,
+                            tuple(e.shape), e.dtype))
+    lib = _build.load("qr_sweep")
+    _build.check(lib.slate_set_device(d.get_device()), "slate_set_device")
+    d, e = d.contiguous(), e.contiguous()
+    rots = [torch.empty(n - 1, dtype=torch.float32, device=d.device)
+            for _ in range(nrot)]
+    cnt = torch.empty((), dtype=torch.int32, device=d.device)
+    return lib, d, e, torch.empty_like(d), torch.empty_like(e), rots, cnt
+
+
+def steqr_sweep(d: torch.Tensor, e: torch.Tensor):
+    """One pass of the tridiagonal QR iteration (steqr_sweep_plain's
+    contract): the ``steqr_sweep`` CUDA kernel for a CUDA tensor, one
+    launch a pass, counted, nothing read back to the host; the plain
+    version for a CPU tensor."""
+    if d.device.type != "cuda":
+        return steqr_sweep_plain(d, e)
+    lib, d, e, dout, eout, (cs, sn), cnt = _sweep_setup("steqr_sweep",
+                                                        d, e, 2)
+    _build.check(lib.steqr_sweep(d.data_ptr(), e.data_ptr(), d.shape[0],
+                                 _eps(torch.float32), dout.data_ptr(),
+                                 eout.data_ptr(), cs.data_ptr(),
+                                 sn.data_ptr(), cnt.data_ptr(), _stream(d)),
+                 "steqr_sweep")
+    steqr_sweep.launches += 1
+    return dout, eout, cs, sn, cnt
+
+
+steqr_sweep.launches = 0
+
+
+def bdsqr_sweep(d: torch.Tensor, e: torch.Tensor):
+    """One pass of the bidiagonal QR iteration (bdsqr_sweep_plain's
+    contract): the ``bdsqr_sweep`` CUDA kernel for a CUDA tensor,
+    counted; the plain version for a CPU tensor."""
+    if d.device.type != "cuda":
+        return bdsqr_sweep_plain(d, e)
+    lib, d, e, dout, eout, rots, cnt = _sweep_setup("bdsqr_sweep", d, e, 4)
+    _build.check(lib.bdsqr_sweep(d.data_ptr(), e.data_ptr(), d.shape[0],
+                                 _eps(torch.float32), dout.data_ptr(),
+                                 eout.data_ptr(),
+                                 *[r.data_ptr() for r in rots],
+                                 cnt.data_ptr(), _stream(d)),
+                 "bdsqr_sweep")
+    bdsqr_sweep.launches += 1
+    return (dout, eout, *rots, cnt)
+
+
+bdsqr_sweep.launches = 0
+
+
 # -- counters ----------------------------------------------------------------
 
 _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
@@ -1254,7 +1675,10 @@ _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
             "trtri_lower": _trtri_lower_launch,
             "ragged_potrf": _ragged_potrf_launch,
             "ragged_getrf": _ragged_getrf_launch,
-            "ragged_trsm": _ragged_trsm_launch}
+            "ragged_trsm": _ragged_trsm_launch,
+            "givens_chain_apply": _givens_chain_launch,
+            "steqr_sweep": steqr_sweep,
+            "bdsqr_sweep": bdsqr_sweep}
 
 
 def launch_counts() -> dict:

@@ -297,11 +297,17 @@ def test_cpu_calls_count_no_launch():
     pk.ragged_getrf(stack, sizes)
     pk.ragged_trsm(stack, stack[:, :, :2], sizes)
     pk.lu_pivots_to_permutation(torch.zeros((2, 8), dtype=torch.int32), 64)
+    assert pk.givens_chain_apply(s, torch.ones(255),
+                                 torch.zeros(255)) is not None
+    pk.steqr_sweep(s[0, :16], s[1, :15])
+    pk.bdsqr_sweep(s[0, :16], s[1, :15])
     assert pk.launch_counts() == {"lu_panel_rec": 0, "rank_update": 0,
                                   "lu_panel": 0, "compose_swaps": 0,
                                   "qr_panel": 0, "chol_panel": 0,
                                   "trtri_lower": 0, "ragged_potrf": 0,
-                                  "ragged_getrf": 0, "ragged_trsm": 0}
+                                  "ragged_getrf": 0, "ragged_trsm": 0,
+                                  "givens_chain_apply": 0,
+                                  "steqr_sweep": 0, "bdsqr_sweep": 0}
 
 
 # -- bf16 panels, the rank-1 panel, the swap composition ---------------------
@@ -623,3 +629,167 @@ def test_ineligible_blocks_take_the_library():
     assert torch.equal(pk.trtri_lower(L), torch.linalg.solve_triangular(
         L, torch.eye(200, dtype=torch.float64), upper=False))
     assert pk.launch_counts()["chol_panel"] == 0
+
+
+# -- the Givens chain apply and the QR sweeps (eig / svd slice) --------------
+
+import importlib  # noqa: E402
+
+# both packages re-export the svd FUNCTION under the module's name
+jsvd = importlib.import_module("slate_tpu.linalg.svd")
+tsvd = importlib.import_module("slate_tpu_torch.linalg.svd")
+from slate_tpu.linalg import eig as jeig  # noqa: E402
+
+
+def _angles(rng, n):
+    th = rng.standard_normal(n - 1)
+    return np.cos(th), np.sin(th)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_givens_chain_matrix_matches_jax_scan(rng, dtype):
+    """The vectorized compose (one cumulative product) against the
+    reference's scan on the CPU: bitwise in f64 (the factors multiply
+    in the scan's order; torch's CPU cumprod runs sequentially). In f32
+    XLA's compiled scan rounds some products an ulp apart (up to 5 ulps
+    seen); an entry is a product of at most n - 1 factors, so f32 is
+    held to n eps relative."""
+    n = 96
+    c, s = (x.astype(dtype) for x in _angles(rng, n))
+    G = tsvd._givens_chain_matrix(torch.as_tensor(c), torch.as_tensor(s), n)
+    JG = jsvd._givens_chain_matrix(jnp.asarray(c), jnp.asarray(s), n,
+                                   jnp.dtype(dtype))
+    if dtype == np.float64:
+        assert np.array_equal(G.numpy(), np.asarray(JG))
+    else:
+        np.testing.assert_allclose(G.numpy(), np.asarray(JG),
+                                   rtol=n * np.finfo(np.float32).eps,
+                                   atol=0)
+
+
+def test_givens_chain_apply_plain_matches_jax(rng):
+    """The plain streamed apply against the reference's Pallas kernel
+    (interpreted) and against Z @ G, f64, to 1e-12 (the products are
+    summed in another order)."""
+    n = 256
+    c, s = _angles(rng, n)
+    Z = rng.standard_normal((n, n))
+    got = pk.givens_chain_apply(torch.as_tensor(Z), torch.as_tensor(c),
+                                torch.as_tensor(s))
+    ref = jpk.givens_chain_apply(jnp.asarray(Z), jnp.asarray(c),
+                                 jnp.asarray(s))
+    assert got is not None and ref is not None
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-12)
+    G = tsvd._givens_chain_matrix(torch.as_tensor(c), torch.as_tensor(s), n)
+    np.testing.assert_allclose(got.numpy(), Z @ G.numpy(), atol=1e-12)
+    # a transposed view (bdsqr's right chain on Gvh^T) takes the same
+    # path and gives the transposed operand's product
+    Zt = torch.as_tensor(Z).T
+    np.testing.assert_allclose(
+        pk.givens_chain_apply(Zt, torch.as_tensor(c),
+                              torch.as_tensor(s)).numpy(),
+        Z.T @ G.numpy(), atol=1e-12)
+
+
+def test_givens_chain_factors_compose_to_dense(rng):
+    """The banded block factors, embedded at their anchors and
+    multiplied in group order, ARE the dense chain matrix (the
+    reference test's identity), and equal the reference's factors."""
+    n, blk = 256, 64
+    c, s = _angles(rng, n)
+    facs = pk.givens_chain_factors(torch.as_tensor(c), torch.as_tensor(s),
+                                   n, blk).numpy()
+    jfacs = np.asarray(jpk.givens_chain_factors(jnp.asarray(c),
+                                                jnp.asarray(s), n, blk,
+                                                jnp.float64))
+    np.testing.assert_array_equal(facs, jfacs)
+    G = np.eye(n)
+    for j in range(n // blk):
+        a0 = pk._chain_anchor(j, n, blk)
+        assert a0 == jpk._chain_anchor(j, n, blk)
+        B = np.eye(n)
+        B[a0:a0 + 2 * blk, a0:a0 + 2 * blk] = facs[j]
+        G = G @ B
+    dense = tsvd._givens_chain_matrix(torch.as_tensor(c),
+                                      torch.as_tensor(s), n).numpy()
+    np.testing.assert_allclose(G, dense, atol=1e-12)
+
+
+@pytest.mark.parametrize("rows,n,blk", [(256, 256, None), (64, 64, 16),
+                                        (256, 128, None), (60, 256, None),
+                                        (4096, 4096, None), (64, 48, 16)])
+def test_givens_chain_gate_matches_jax(rows, n, blk):
+    """The shape rule is the reference's (n % blk, two windows,
+    rows % 8, its row-block budget): both gates agree on the CPU for
+    f64; on the card only f32 passes."""
+    assert pk.givens_chain_eligible(rows, n, torch.float64, blk) \
+        == jpk.givens_chain_eligible(rows, n, jnp.float64, blk)
+    ok = pk.givens_chain_eligible(rows, n, torch.float32, blk, "cuda")
+    assert ok == jpk.givens_chain_eligible(rows, n, jnp.float32, blk)
+    assert not pk.givens_chain_eligible(rows, n, torch.float64, blk, "cuda")
+
+
+def test_chain_apply_cold_routes_dense():
+    """Cold cache: both drivers keep the dense compose."""
+    assert tsvd._select_chain_apply("steqr2", 256, 256,
+                                    torch.float64) is None
+    assert tsvd._select_chain_apply("bdsqr", 256, 256, torch.float64) is None
+
+
+def _tri_case(rng, kind, n):
+    """(d, e) of one pass's input: the whole matrix active, or a block
+    [ll, m] inside split-off parts (zero off-diagonals around it)."""
+    d, e = rng.standard_normal(n), rng.standard_normal(n - 1)
+    if kind == "block":
+        e[5] = 0.0
+        e[20:] = 0.0
+    return d, e
+
+
+def _wilkinson(d, e, m):
+    delta = (d[m - 1] - d[m]) / 2
+    sgn = 1.0 if delta >= 0 else -1.0
+    denom = abs(delta) + np.hypot(delta, e[m - 1])
+    return d[m] - sgn * e[m - 1] ** 2 / (denom or 1.0)
+
+
+@pytest.mark.parametrize("kind", ["full", "block"])
+def test_steqr_sweep_plain_matches_reference_scan(rng, kind):
+    """One tridiagonal pass: the plain version (clamp, block, Wilkinson
+    shift, chase over the active steps only) against the reference's
+    gated scan over all n-1 steps from the same (d, e, ll, m, shift),
+    f64, to 1e-13 of the scale; identity rotations outside the
+    block."""
+    n = 40
+    d, e = _tri_case(rng, kind, n)
+    ll, m = (0, n - 1) if kind == "full" else (6, 20)
+    got = pk.steqr_sweep(torch.as_tensor(d), torch.as_tensor(e))
+    jd, je, jc, js = jeig._steqr_shifted_sweep(
+        jnp.asarray(d), jnp.asarray(e), ll, m, _wilkinson(d, e, m))
+    for x, ref in zip(got[:4], (jd, je, jc, js)):
+        np.testing.assert_allclose(x.numpy(), np.asarray(ref), atol=1e-13)
+    assert got[2].dtype == torch.float64
+    keep = np.abs(got[1].numpy()) > np.finfo(float).eps * (
+        np.abs(got[0].numpy()[:-1]) + np.abs(got[0].numpy()[1:]))
+    assert int(got[4]) == int(keep.sum())
+
+
+@pytest.mark.parametrize("kind", ["full", "block"])
+def test_bdsqr_sweep_plain_matches_reference_scan(rng, kind):
+    """One bidiagonal pass against the reference's gated scan
+    (_bdsqr_shifted_sweep) from the same (d, e, ll, m, shift): the
+    dlas2 shift, zeroed when negligible, as the reference's driver
+    computes it; f64 to 1e-13 of the scale."""
+    n = 40
+    d, e = _tri_case(rng, kind, n)
+    ll, m = (0, n - 2) if kind == "full" else (6, 19)
+    shift = float(jsvd._dlas2_min(jnp.asarray(d[m]), jnp.asarray(e[m]),
+                                  jnp.asarray(d[m + 1])))
+    assert shift == pk.dlas2_min_plain(d[m], e[m], d[m + 1])
+    if (shift / d[ll]) ** 2 < np.finfo(float).eps:
+        shift = 0.0
+    got = pk.bdsqr_sweep(torch.as_tensor(d), torch.as_tensor(e))
+    jd, je, rots = jsvd._bdsqr_shifted_sweep(jnp.asarray(d), jnp.asarray(e),
+                                             ll, m, shift)
+    for x, ref in zip(got[:6], (jd, je) + tuple(rots)):
+        np.testing.assert_allclose(x.numpy(), np.asarray(ref), atol=1e-13)
