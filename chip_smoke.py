@@ -18,7 +18,10 @@ script exit non-zero without the final result line:
                 kernel.compose_swaps  the swap composition, bitwise;
                 kernel.lu_panel       the rank-1 panel;
                 kernel.lu_panel_rec   the recursive panel;
-                kernel.rank_update    the trailing update of its split;
+                kernel.rank_update    the trailing update of its split
+                                      (and a height off its 128-row
+                                      tile), timed replayed from a CUDA
+                                      graph and back to back;
                 kernel.qr_panel       the Householder panel (f32, bf16):
                                       an adversarial suite, then
                                       8192x128 and 4096x128;
@@ -131,8 +134,9 @@ script exit non-zero without the final result line:
               square gels, one ragged posv flush of 64, the heev and
               svd QR iterations, once more under torch.profiler: host
               wall, device busy time (the union of the kernel, copy and
-              memset intervals of the trace), idle share and the
-              heaviest kernels by device time;
+              memset intervals of the trace), idle share, the heaviest
+              kernels by device time and the trailing update's share
+              (rank_update's kernels);
  15. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
@@ -212,6 +216,33 @@ def cuda_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Mean device ms per call of `reps` calls captured into one CUDA
+    graph and replayed once (warmed up first): the card's time without
+    the host's launch overhead, which a kernel of a few microseconds
+    called from Python would otherwise measure instead."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    g.replay()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -456,12 +487,17 @@ def phase_panel_rec(rng, results):
 
 def phase_rank_update(rng, results):
     """_rank_update at the shapes the split of a 16384x512 panel gives
-    it: f32 (two) and bf16 (three)."""
+    it: f32 (two) and bf16 (three), and a height that is not a multiple
+    of the kernels' 128-row tile (the masked edge). Times: `ms`,
+    `plain_ms`, `library_ms` with the host's launch overhead removed
+    (graph_ms); `eager_ms`, `eager_library_ms` as a Python caller sees
+    them back to back."""
     ok, out = True, {"phase": "kernel.rank_update"}
     for dname, dtype in DTYPES:
         dims = [(N - 256, 256, 256), (N - 128, 128, 128)]
         if dtype == torch.bfloat16:
             dims.append((N - 64, 64, 64))
+        dims.append((N - 256 - 37, 256, 256))
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         # sums of w1 products in another order than the plain version's:
         # 1e-4 relative is far above f32 rounding (~1e-6); in bf16 the
@@ -479,20 +515,24 @@ def phase_rank_update(rng, results):
             rel = rel_diff(o, ref)
             err = float((o.double() - ref.double()).abs().max())
             worst = max(worst, err)
-            ok &= rel <= lim
-            ms = cuda_ms(lambda: pk._rank_update(a22, l21, u12), 20)
-            plain_ms = cuda_ms(lambda: pk.rank_update_plain(a22, l21, u12),
-                               20)
-            lib_ms = cuda_ms(lambda: torch.addmm(a22, l21, u12, alpha=-1),
-                             20)
+            ok &= rel <= lim and bool(torch.isfinite(o).all())
             b_ms, b_by = bound_ms(2.0 * m2 * w1 * w2,
                                   a22.element_size()
                                   * (2 * m2 * w2 + m2 * w1 + w1 * w2), peak)
             key = "%dx%dx%d" % (m2, w1, w2)
-            shapes[key] = {"shape": key, "rel_err": rel, "max_abs_err": err,
-                           "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": lib_ms, "library": "torch.addmm",
-                           "bound_ms": b_ms, "bound_by": b_by}
+            shapes[key] = {
+                "shape": key, "rel_err": rel, "max_abs_err": err,
+                "ms": graph_ms(lambda: pk._rank_update(a22, l21, u12)),
+                "eager_ms": cuda_ms(lambda: pk._rank_update(a22, l21, u12),
+                                    20),
+                "plain_ms": graph_ms(
+                    lambda: pk.rank_update_plain(a22, l21, u12)),
+                "library_ms": graph_ms(
+                    lambda: torch.addmm(a22, l21, u12, alpha=-1)),
+                "eager_library_ms": cuda_ms(
+                    lambda: torch.addmm(a22, l21, u12, alpha=-1), 20),
+                "library": "torch.addmm", "bound_ms": b_ms,
+                "bound_by": b_by}
         out[dname] = shapes
         results["rank_update." + dname] = entry(
             "rank_update", dname, "rank_update.cu", PK + "594",
@@ -1693,10 +1733,17 @@ def phase_svd(seed, results, system):
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+#: kernels whose share of a profiled call's busy time is reported: the
+#: trailing update of the LU panel split (its bf16 path transposes U12
+#: first)
+WATCH = {"rank_update": ("rank_update_", "transpose_bf16")}
+
+
 def profile_call(fn, top=8):
     """One (already warm) call under torch.profiler. Busy time is the
     union of the device intervals in the exported trace, so overlapping
-    kernels count once."""
+    kernels count once; `watch` gives the device ms, launches and share
+    of busy time of the WATCH kernels."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1721,9 +1768,16 @@ def profile_call(fn, top=8):
             end = b
     busy = busy_us / 1e6
     heavy = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    watch = {}
+    for label, subs in WATCH.items():
+        hits = [v for k, v in by_name.items() if any(x in k for x in subs)]
+        ms = sum(v[0] for v in hits)
+        watch[label] = {"device_ms": ms, "calls": sum(v[1] for v in hits),
+                        "busy_share": ms / 1e3 / busy if busy else None}
     return {"wall_s": wall, "device_events": len(spans),
             "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall if spans else None,
+            "watch": watch,
             "top": [{"kernel": k[:100], "device_ms": ms, "calls": c}
                     for k, (ms, c) in heavy]}
 

@@ -13,11 +13,12 @@ LU (``torch.linalg.lu_factor``) where the dtype allows, the rank-1
 hand kernel for bf16 panels on the card, else the fori loop; the
 recursive hand kernel when the tune cache routes ``pallas_rec``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its
-ROADMAP item rather than taking another route): the scan form for
-more than LU_SCAN_THRESHOLD block steps, tournament pivoting (CALU),
-no-pivot LU, the grid (mesh) paths, band factors, getri and the RBT
-driver.
+Above LU_SCAN_THRESHOLD block steps on a square, the reference runs
+a fixed-shape scan at a dividing width (an XLA program-size device);
+the port runs the same loops at that width. Not ported yet (each
+raises ``NotImplementedError`` naming its ROADMAP item rather than
+taking another route): tournament pivoting (CALU), no-pivot LU, the
+grid (mesh) paths, band factors, getri and the RBT driver.
 """
 
 from __future__ import annotations
@@ -273,15 +274,17 @@ def _getrf_pipelined(a: torch.Tensor, nb: int
     return a, ipiv
 
 
-def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1
+def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1,
+                 tile_nb: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked right-looking LU on padded (M, N) dense; returns packed
     LU and global pivot swaps (length min(M, N)). The branches of the
     reference this slice reaches, in its order: the width cap to the
-    rank-1 kernel for dtypes that take it, the single-device carry form
-    (library-LU dtypes), the pipelined form (others, lookahead >= 1),
-    and the unrolled loop. (getrf turns the tournament, no-pivot and
-    grid branches away first.)"""
+    rank-1 kernel for dtypes that take it, the scan form's width
+    resolution (more than LU_SCAN_THRESHOLD steps on a square), the
+    single-device carry form (library-LU dtypes), the pipelined form
+    (others, lookahead >= 1), and the unrolled loop. (getrf turns the
+    tournament, no-pivot and grid branches away first.)"""
     M, N = a.shape
     kmax = min(M, N)
     # the rank-1 kernel's width cap, resolved ONCE through the tune
@@ -304,8 +307,26 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1
         nb = min(nb, lu_max_w)
     nt = ceil_div(kmax, nb)
     if M == N and nt > LU_SCAN_THRESHOLD:
-        raise _not_ported("the scan form of getrf (more than %d block "
-                          "steps)" % LU_SCAN_THRESHOLD)
+        # where the reference runs its fixed-shape scan form at a
+        # dividing width, the loops below run at that width (the same
+        # values in exact arithmetic; the scan only bounds XLA's program
+        # size, which eager PyTorch does not need): nb itself when it
+        # divides N, else the widest dividing blocking, the storage
+        # tile where it divides N (and, for the rank-1 kernel's types,
+        # fits its width cap at a multiple of 8). A width that would
+        # leave the scan regime falls through with the caller's nb, as
+        # the reference does.
+        if N % nb == 0:
+            w = nb
+        else:
+            w = _scan_nb(N, nb, 8)
+            if tile_nb and N % tile_nb == 0 and \
+                    (not pallas_capped or (tile_nb <= lu_max_w
+                                           and tile_nb % 8 == 0)):
+                w = max(w, tile_nb)
+            if w < 8 or ceil_div(kmax, w) <= LU_SCAN_THRESHOLD:
+                w = nb
+        nb, nt = w, ceil_div(kmax, w)
     if nt > 1 and MethodFactor.native_lu_dtype_ok(a.dtype):
         # single-device fast path: carry-the-trailing-matrix form (the
         # reference caps nb at 256 above its TPU native-LU height
@@ -334,8 +355,21 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1
 
 
 #: block-step count above which the reference switches to its
-#: fixed-shape scan form (not ported)
+#: fixed-shape scan form, run here as the loops at its width
 LU_SCAN_THRESHOLD = 64
+
+
+def _scan_nb(N: int, nb: int, mult: int = 1) -> int:
+    """Largest divisor of N that is <= nb, preferring multiples of
+    `mult` when one exists (the reference's scan blocking when no
+    storage tile size serves). NOT a gcd: _scan_nb(96, 20) = 16."""
+    fallback = 0
+    for w in range(min(nb, N), 0, -1):
+        if N % w == 0:
+            if w % mult == 0:
+                return w
+            fallback = fallback or w
+    return fallback or 1
 
 
 def _prep(A: TiledMatrix) -> Tuple[TiledMatrix, torch.Tensor]:
@@ -392,7 +426,8 @@ def getrf(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
         lu, ipiv = _native_lu(a)
     else:
         lu, ipiv = _getrf_dense(a, _lu_nb(opts, a.shape, dtype=a.dtype),
-                                get_option(opts, Option.Lookahead))
+                                get_option(opts, Option.Lookahead),
+                                tile_nb=r.nb)
     return LUFactors(dataclasses.replace(r, data=lu,
                                          mtype=MatrixType.General),
                      ipiv, lu_info(lu, r.m, r.n))

@@ -44,7 +44,7 @@ LIBS = {
     }),
     "rank_update": ("rank_update.cu", {
         "slate_set_device": [_I],
-        "rank_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "rank_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     }),
     "lu_panel": ("lu_panel.cu", {
         "slate_set_device": [_I],

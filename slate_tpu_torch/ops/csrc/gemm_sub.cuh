@@ -1,12 +1,11 @@
 // Shared-memory-tiled GEMM-with-subtract: D = T(C - T(A * op(B))).
 //
 // The product step of the ported LU kernels: the masked rank-w/2
-// update inside the recursive panel (lu_panel_rec.cu) and the
-// row-gridded trailing update of the tall-panel split
-// (rank_update.cu); with op(B) = B^T, the left-looking stripe update of
-// the Cholesky panel (chol_panel.cu). One block walking all tiles
-// (cta_gemm_sub): the per-element updates of ragged_potrf.cu and
-// ragged_getrf.cu. All operands are row-major
+// update inside the recursive panel (lu_panel_rec.cu). One block
+// walking all tiles (cta_gemm_sub): the per-element updates of
+// ragged_potrf.cu and ragged_getrf.cu. (The trailing update of the
+// tall-panel split and the Cholesky block use sgemm_tile.cuh and the
+// tensor cores instead.) All operands are row-major
 // strided views of one storage type T (float or __nv_bfloat16); D may
 // alias C (each element is read and then written by the same thread),
 // and A and B must not overlap D.

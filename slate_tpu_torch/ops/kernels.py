@@ -435,16 +435,10 @@ def rank_update_plain(a22: torch.Tensor, l21: torch.Tensor,
     return a22 - _product(l21, u12)
 
 
-def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
-                 u12: torch.Tensor) -> torch.Tensor:
-    """A22 - L21 @ U12 through the CUDA kernel for CUDA tensors
-    (counted), the plain version for CPU tensors. The reference
-    launches its row-gridded kernel only when one of its row-block
-    heights (2048 ... 128) divides m2, else an XLA matmul; the CUDA
-    kernel masks its own edge, so the port launches it at every height
-    (the same values in exact arithmetic)."""
-    if a22.device.type != "cuda":
-        return rank_update_plain(a22, l21, u12)
+def _check_rank_update(a22: torch.Tensor, l21: torch.Tensor,
+                       u12: torch.Tensor) -> None:
+    """Raise unless the kernel takes the operands: (m2, w2), (m2, w1),
+    (w1, w2) of one type, f32 or bf16, on one device."""
     m2, w2 = a22.shape
     w1 = l21.shape[1]
     if not (a22.dtype == l21.dtype == u12.dtype
@@ -456,13 +450,35 @@ def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
                          "%s %s %s %s" % (tuple(a22.shape),
                                           tuple(l21.shape),
                                           tuple(u12.shape), a22.dtype))
+
+
+def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
+                 u12: torch.Tensor) -> torch.Tensor:
+    """A22 - L21 @ U12 through the CUDA kernel for CUDA tensors
+    (counted), the plain version for CPU tensors. The reference
+    launches its row-gridded kernel only when one of its row-block
+    heights (2048 ... 128) divides m2, else an XLA matmul; the CUDA
+    kernel masks its own edge, so the port launches it at every height
+    (the same values in exact arithmetic)."""
+    if a22.device.type != "cuda":
+        return rank_update_plain(a22, l21, u12)
+    _check_rank_update(a22, l21, u12)
+    m2, w2 = a22.shape
+    w1 = l21.shape[1]
     lib = _build.load("rank_update")
     _build.check(lib.slate_set_device(a22.get_device()), "slate_set_device")
     a22, l21, u12 = a22.contiguous(), l21.contiguous(), u12.contiguous()
     out = torch.empty_like(a22)
+    bf16 = a22.dtype == torch.bfloat16
+    # U12^T for the bf16 tensor-core path, whose B operand is K-major
+    # (the kernel decides from the widths whether it takes that path)
+    scratch = torch.empty((w2, w1), dtype=a22.dtype, device=a22.device) \
+        if bf16 else None
     _build.check(lib.rank_update(a22.data_ptr(), l21.data_ptr(),
                                  u12.data_ptr(), out.data_ptr(), m2, w2, w1,
-                                 int(a22.dtype == torch.bfloat16),
+                                 int(bf16),
+                                 None if scratch is None
+                                 else scratch.data_ptr(),
                                  _stream(a22)), "rank_update")
     _rank_update.launches += 1
     return out
@@ -778,21 +794,29 @@ def chol_panel_plain(a: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def _chol_panel_launch(a: torch.Tensor, serial: bool = False
-                       ) -> torch.Tensor:
-    """ONE block through the Cholesky kernel (the counterpart of one
-    ``_chol_fused_pallas`` dispatch): the CUDA kernel for a CUDA
-    tensor, counted; the plain version for a CPU tensor. serial=True
-    launches each stripe's blocks one at a time, block 0 first: the
-    same result, bitwise, if no block depends on when another starts."""
-    if a.device.type != "cuda":
-        return chol_panel_plain(a)
+def _check_chol_block(a: torch.Tensor) -> None:
+    """Raise unless the Cholesky kernel takes the block: f32 (n, n),
+    n % 128 == 0."""
     n = a.shape[0]
     if a.dtype != torch.float32 or tuple(a.shape) != (n, n) \
             or n % _CHOL_BLK:
         raise ValueError("chol_panel kernel takes an f32 (n, n) block with "
                          "n %% %d == 0, got %s %s"
                          % (_CHOL_BLK, tuple(a.shape), a.dtype))
+
+
+def _chol_panel_launch(a: torch.Tensor, serial: bool = False
+                       ) -> torch.Tensor:
+    """ONE block through the Cholesky kernel (the counterpart of one
+    ``_chol_fused_pallas`` dispatch): the CUDA kernel for a CUDA
+    tensor, counted; the plain version for a CPU tensor. serial=True
+    launches the blocks of each stripe's solve and trailing update one
+    at a time, in order: the same result, bitwise, if no block depends
+    on when another starts."""
+    if a.device.type != "cuda":
+        return chol_panel_plain(a)
+    _check_chol_block(a)
+    n = a.shape[0]
     lib = _build.load("chol_panel")
     _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
     work = a.clone(memory_format=torch.contiguous_format)

@@ -441,6 +441,81 @@ def test_rank_update_bf16_exact_on_dyadic_inputs():
     assert np.array_equal(_f32(out), a22 - l21 @ u12)
 
 
+def test_rank_update_c_signature():
+    """The C entry takes the bf16 path's (w2, w1) scratch pointer before
+    the stream; the Cholesky entry is unchanged."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _build.LIBS["rank_update"] == (
+        "rank_update.cu", {"slate_set_device": [I],
+                           "rank_update": [P, P, P, P, I, I, I, I, P, P]})
+    assert _build.LIBS["chol_panel"][1]["chol_panel"] == [P, P, I, I, P]
+
+
+@pytest.mark.parametrize("shapes,dtypes", [
+    (((64, 32), (64, 16), (16, 32)), (torch.float32,) * 3),
+    (((64, 32), (64, 16), (16, 32)), (torch.bfloat16,) * 3),
+    (((64, 32), (64, 16), (16, 32)),
+     (torch.float32, torch.bfloat16, torch.float32)),
+    (((64, 32), (64, 16), (16, 32)), (torch.float64,) * 3),
+    (((64, 32), (63, 16), (16, 32)), (torch.float32,) * 3),
+    (((64, 32), (64, 16), (16, 31)), (torch.float32,) * 3),
+])
+def test_rank_update_checks(shapes, dtypes):
+    """The kernel's checks: one type, f32 or bf16, matching shapes; the
+    first two cases pass, the rest raise."""
+    ops = [torch.zeros(sh, dtype=dt) for sh, dt in zip(shapes, dtypes)]
+    ok = len(set(dtypes)) == 1 and dtypes[0] in pk.PANEL_DTYPES \
+        and shapes[1][0] == shapes[0][0] and shapes[2] == (shapes[1][1],
+                                                           shapes[0][1])
+    if ok:
+        pk._check_rank_update(*ops)
+    else:
+        with pytest.raises(ValueError, match="rank_update kernel"):
+            pk._check_rank_update(*ops)
+
+
+@pytest.mark.parametrize("shape,dtype,ok", [
+    ((256, 256), torch.float32, True), ((1024, 1024), torch.float32, True),
+    ((200, 200), torch.float32, False), ((256, 128), torch.float32, False),
+    ((256, 256), torch.bfloat16, False)])
+def test_chol_panel_checks(shape, dtype, ok):
+    """The Cholesky kernel's checks: an f32 square of order % 128."""
+    a = torch.zeros(shape, dtype=dtype)
+    if ok:
+        pk._check_chol_block(a)
+    else:
+        with pytest.raises(ValueError, match="chol_panel kernel"):
+            pk._check_chol_block(a)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m2,w", [(16128, 256), (16091, 128), (200, 64)])
+def test_rank_update_cpu_equals_plain_and_jax(dtype, m2, w):
+    """On the CPU the wrapper is its plain twin (bitwise), counts no
+    launch, and agrees with the reference at the split's widths and at
+    a height that is not a multiple of the kernels' 128-row tile."""
+    rng = np.random.default_rng(m2 + w)
+    ops = [rng.standard_normal(s).astype(np.float32)
+           for s in ((m2, w), (m2, w), (w, w))]
+    tops = [_to_torch(x, dtype) for x in ops]
+    pk.reset_launch_counts()
+    out = pk._rank_update(*tops)
+    assert pk.launch_counts()["rank_update"] == 0
+    assert torch.equal(out, pk.rank_update_plain(*tops))
+    ref = jpk._rank_update(*(_to_jax(x, dtype) for x in ops))
+    if dtype == "bfloat16":
+        # as test_rank_update_bf16_matches_jax
+        assert bf16_ulps(_f32(out), _f32(ref)) <= 2.0
+    else:
+        # sums of w <= 256 O(1) products in another order: 1e-5 of the
+        # result's norm is far above f32 rounding
+        ref = np.asarray(ref)
+        assert np.linalg.norm(out.numpy() - ref) \
+            <= 1e-5 * np.linalg.norm(ref)
+
+
 def test_lu_panel_gates_match_jax():
     """The rank-1 panel's numbers are the reference's: the same shapes
     pass its shape gate in both types, and the reasons come in its
@@ -569,6 +644,18 @@ def test_chol_panel_matches_jax(kind):
         assert np.array_equal(out, ref)
     else:
         assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_chol_panel_cpu_equals_plain(n):
+    """On the CPU the entry is the plain twin, bitwise, and counts no
+    launch (n = 128: one stripe; 512: four, the main path's middle
+    shape)."""
+    s = torch.as_tensor(spd_system(np.random.default_rng(n), n, 1)[0])
+    pk.reset_launch_counts()
+    out = pk.chol_panel(s)
+    assert pk.launch_counts()["chol_panel"] == 0
+    assert torch.equal(out, pk.chol_panel_plain(s))
 
 
 @pytest.mark.parametrize("kind,unit", [

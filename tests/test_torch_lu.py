@@ -210,7 +210,6 @@ def test_native_panel_pivots_match_xla(system):
     ({st.Option.MethodLU: st.MethodLU.CALU}, "getrf_tntpiv"),
     ({st.Option.MethodLU: st.MethodLU.NoPiv}, "getrf_nopiv"),
     ({st.Option.Grid: object()}, "grid"),
-    ({"nb": 8}, "scan form"),
 ])
 def test_unported_branches_raise(opts, match):
     """Branches of the reference this slice does not port raise,
@@ -221,9 +220,10 @@ def test_unported_branches_raise(opts, match):
 
 
 def test_pipelined_form_raises_for_non_native_dtype(monkeypatch):
-    """A dtype the library LU lacks (bf16) now takes the pipelined
-    form instead of raising; what still raises for it is the scan form
-    (more than LU_SCAN_THRESHOLD block steps), which is not ported."""
+    """A dtype the library LU lacks (bf16) takes the pipelined form,
+    also where the reference takes its scan form (more than
+    LU_SCAN_THRESHOLD block steps): eye(1024) at nb 8 runs the
+    pipelined loop at width 8 and factors to itself."""
     calls = []
     orig = tlu._getrf_pipelined
     monkeypatch.setattr(tlu, "_getrf_pipelined",
@@ -232,9 +232,67 @@ def test_pipelined_form_raises_for_non_native_dtype(monkeypatch):
     F = st.getrf(st.Matrix(a, mb=64, device="cpu"), {"nb": 64})
     assert calls == [64] and F.LU.dtype == torch.bfloat16
     assert torch.equal(F.LU.data, a) and int(F.info) == 0
-    with pytest.raises(NotImplementedError, match="scan form"):
-        st.getrf(st.Matrix(torch.eye(1024, dtype=torch.bfloat16), mb=128,
-                           device="cpu"), {"nb": 8})
+    eye = torch.eye(1024, dtype=torch.bfloat16)
+    F = st.getrf(st.Matrix(eye, mb=128, device="cpu"), {"nb": 8})
+    assert calls == [64, 8]
+    assert torch.equal(F.LU.data, eye) and int(F.info) == 0
+
+
+@pytest.mark.parametrize("n,mb,nb,width", [
+    (520, 8, 8, 8),        # nb divides N: the scan at nb
+    (264, 4, 4, 4),
+    (536, 8, 7, 8),        # nb does not divide N, the tile (8) does
+])
+def test_scan_route_matches_jax(n, mb, nb, width, monkeypatch):
+    """Squares with more than LU_SCAN_THRESHOLD block steps, where the
+    reference runs _lu_scan: the port runs its carry loop at the width
+    the reference resolves. The permuted boosted matrix forces every
+    pivot: bitwise; the factors as in test_gesv_matches_jax."""
+    calls = []
+    orig = tlu._getrf_carry
+    monkeypatch.setattr(tlu, "_getrf_carry",
+                        lambda a, w: calls.append(w) or orig(a, w))
+    a, _ = permuted_boosted_system(np.random.default_rng(n), n, 1)
+    JF = jst.getrf(jst.Matrix(a, mb=mb), {jst.Option.BlockSize: nb})
+    F = st.getrf(st.Matrix(a, mb=mb, device="cpu"),
+                 {st.Option.BlockSize: nb})
+    assert calls == [width]
+    assert np.array_equal(F.pivots.numpy(), np.asarray(JF.pivots))
+    assert int(F.info) == int(JF.info) == 0
+    jlu = np.asarray(JF.LU.data)
+    assert np.abs(F.LU.data.numpy() - jlu).max() \
+        <= 1e-4 * np.abs(jlu).max()
+
+
+@pytest.mark.parametrize("n,mb,nb", [(200, 8, 3), (512, 16, 6)])
+def test_scan_fall_through_matches_scipy(n, mb, nb, monkeypatch):
+    """More than LU_SCAN_THRESHOLD steps at a width that divides
+    nothing usable (200 at nb 3: 67 steps, the tile's 25 would leave
+    the scan regime; 512 at nb 6: 86 steps, the tile's 32 likewise):
+    the reference falls through to its carry form at the caller's nb,
+    and so does the port. That form takes the reference over 120 s on
+    the CPU at 67 steps, so these cases are held against
+    scipy.linalg.lu_factor instead: pivots bitwise (the matrix forces
+    every pivot) and P L U to 1e-5 of A."""
+    import scipy.linalg
+    calls = []
+    orig = tlu._getrf_carry
+    monkeypatch.setattr(tlu, "_getrf_carry",
+                        lambda a, w: calls.append(w) or orig(a, w))
+    a, _ = permuted_boosted_system(np.random.default_rng(n), n, 1)
+    F = st.getrf(st.Matrix(a, mb=mb, device="cpu"),
+                 {st.Option.BlockSize: nb})
+    assert calls == [nb] and int(F.info) == 0
+    _, spiv = scipy.linalg.lu_factor(a.astype(np.float64))
+    piv = F.pivots.numpy()[:n]
+    assert np.array_equal(piv, spiv)
+    lu = F.LU.data.numpy()[:n, :n].astype(np.float64)
+    L = np.tril(lu, -1) + np.eye(n)
+    U = np.triu(lu)
+    pa = a.astype(np.float64).copy()
+    for j, p in enumerate(piv):
+        pa[[j, p]] = pa[[p, j]]
+    assert np.abs(pa - L @ U).max() <= 1e-5 * np.abs(a).max()
 
 
 # -- BLAS-3 and blocked pieces the solve uses -------------------------------
