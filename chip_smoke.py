@@ -41,6 +41,9 @@ script exit non-zero without the final result line:
                                       first flush (64 elements,
                                       ceiling 608), the plain version
                                       on four of its elements; the
+                                      potrf phase also times the flush
+                                      that holds the stream's order-1024
+                                      request (ceiling 1024); the
                                       getrf phase also holds the
                                       batched compose_swaps on that
                                       flush's (64, 608) swap targets
@@ -709,7 +712,10 @@ def phase_chol_panel(results):
 def phase_trtri_lower(results):
     """trtri_lower, non-unit and unit: the adversarial suite (n = 256),
     then Cholesky factors at n = 512, 256, 128 (the public entry,
-    counted), each against the plain version, and times."""
+    counted), each against the plain version, and times: back to back
+    (ms, library_ms) and replayed from a CUDA graph (graph_ms,
+    library_graph_ms: the card's time without the wrapper's launch
+    overhead, which dominates a call at n = 128)."""
     ok, out, kinds = True, {"phase": "kernel.trtri_lower"}, {}
     for kind, a_np in trtri_cases(np.random.default_rng(23), 256).items():
         a = torch.as_tensor(a_np, device="cuda")
@@ -748,6 +754,11 @@ def phase_trtri_lower(results):
         b_ms, b_by = bound_ms(n ** 3 / 3.0, 2.0 * 4 * n * n)
         shapes[str(n)] = {"shape": "%dx%d" % (n, n), "err": err,
                           "ms": ms, "plain_ms": plain_ms,
+                          "graph_ms": graph_ms(
+                              lambda: pk._trtri_lower_launch(L, False)),
+                          "library_graph_ms": graph_ms(
+                              lambda: torch.linalg.solve_triangular(
+                                  L, eye, upper=False)),
                           "library_ms": lib_ms,
                           "library": "torch.linalg.solve_triangular "
                                      "against I",
@@ -1054,15 +1065,30 @@ def ragged_compare(dtype, kp, pp, sizes):
     return err <= RAGGED_LIMIT[dtype] and pad_eq, err, pad_eq
 
 
+def largest_flush(seed):
+    """Index of the serving stream's first flush of SERVE_BATCH that
+    holds its largest order (order 1024 at seed 0: flush 3)."""
+    sizes = serve_stream_sizes(seed)
+    top = max(sizes)
+    return next(f for f in range(len(sizes) // SERVE_BATCH)
+                if top in sizes[f * SERVE_BATCH:(f + 1) * SERVE_BATCH])
+
+
 @functools.lru_cache(maxsize=1)
-def path_stacks(seed):
-    """The first flush of the serving stream as the ragged route stacks
-    it: sizes, ceiling, and the zero-padded SPD, gesv (x / sqrt(n) +
-    2 sqrt(n) I) and one-column right-hand-side stacks (numpy f32)."""
+def serve_stream_sizes(seed):
+    return serve_stream(seed, SERVE_REQS)[0]
+
+
+@functools.lru_cache(maxsize=2)
+def path_stacks(seed, flush=0):
+    """Flush `flush` (SERVE_BATCH requests) of the serving stream as the
+    ragged route stacks it: sizes, ceiling, and the zero-padded SPD,
+    gesv (x / sqrt(n) + 2 sqrt(n) I) and one-column right-hand-side
+    stacks (numpy f32)."""
     from slate_tpu_torch.batch import bucket
     sizes, xs, spds = serve_stream(seed, SERVE_REQS)
-    sizes, xs, spds = sizes[:SERVE_BATCH], xs[:SERVE_BATCH], \
-        spds[:SERVE_BATCH]
+    part = slice(flush * SERVE_BATCH, (flush + 1) * SERVE_BATCH)
+    sizes, xs, spds = sizes[part], xs[part], spds[part]
     ceil = bucket.ragged_ceiling(sizes, blk=pk.ragged_blk())
     B = len(sizes)
     spd = np.zeros((B, ceil, ceil), np.float32)
@@ -1109,13 +1135,14 @@ def ragged_row(name, dtype, source, line, path, shape, worst, ms, plain_ms,
 def phase_ragged_potrf(seed, results):
     """ragged_potrf, f32 and bf16: the adversarial suite (garbage pads,
     orders 1 ... ceiling), then the serving stream's first flush
-    (64 elements, ceiling 608): kernel against plain (on four elements
-    of the flush), times, and the library Cholesky of the
-    identity-padded stack."""
+    (64 elements, ceiling 608) and the flush that holds its largest
+    order (ceiling 1024, the gate's largest): kernel against plain (on
+    four elements of the flush, its largest among them), the factor's
+    residual, times, and the library Cholesky of the identity-padded
+    stack."""
     ok, out = True, {"phase": "kernel.ragged_potrf"}
     cases = ragged_cases(np.random.default_rng(31))
-    sizes, ceil, spd, _gen, _rhs = path_stacks(seed)
-    sub = plain_subset(sizes)
+    flushes = (("first", 0), ("largest", largest_flush(seed)))
     for dname, dtype in DTYPES:
         st, sz = cases["potrf"]
         a = to_card(st, dtype)
@@ -1123,40 +1150,50 @@ def phase_ragged_potrf(seed, results):
         pp = pk.ragged_potrf_plain(a, sz, pk.ragged_blk())
         torch.cuda.synchronize()
         a_ok, a_err, a_pad = ragged_compare(dtype, kp, pp, sz)
-        a = to_card(spd, dtype)
-        szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-        kp = pk.ragged_potrf(a, szc)
-        pp = pk.ragged_potrf_plain(a[sub], [sizes[i] for i in sub],
-                                   pk.ragged_blk())
-        p_ok, p_err, p_pad = ragged_compare(dtype, kp[sub], pp,
-                                            [sizes[i] for i in sub])
-        res = max(float(torch.linalg.norm(
-            (kp[i, :s, :s].double() @ kp[i, :s, :s].double().T)
-            - a[i, :s, :s].double()) / torch.linalg.norm(
-                a[i, :s, :s].double())) for i, s in enumerate(sizes))
-        res_ok = res <= (1e-6 if dtype == torch.float32 else 2e-2)
-        ok &= a_ok and p_ok and res_ok
-        ms = cuda_ms(lambda: pk.ragged_potrf(a, szc), 5)
-        a4 = a[sub]
-        plain_ms = cuda_ms(lambda: pk.ragged_potrf_plain(
-            a4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
-        aid = identity_padded(a, sizes).float()
-        lib_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(aid), 5)
-        live2 = sum(s * s for s in sizes)
-        row, s = ragged_row(
-            "ragged_potrf", dname, "ragged_potrf.cu", "1147",
-            "batch.serve (ragged potrf)" if dtype == torch.float32
-            else "batch.serve (ragged bf16 posv)",
-            "%dx%dx%d" % a.shape, max(a_err, p_err), ms, plain_ms, len(sub),
-            lib_ms, "torch.linalg.cholesky_ex (identity pad, f32)",
-            sum(s ** 3 for s in sizes) / 3.0,
-            a.element_size() * (live2 + a.numel()) + 4.0 * len(sizes),
-            PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
-        results["ragged_potrf." + dname] = row
+        ok &= a_ok
         out[dname] = {"adversarial": {"err": a_err, "pad_bitwise": a_pad,
-                                      "ok": a_ok},
-                      "path": dict(s, err=p_err, pad_bitwise=p_pad,
-                                   residual=res, ok=p_ok and res_ok)}
+                                      "ok": a_ok}}
+        for label, flush in flushes:
+            sizes, ceil, spd, _gen, _rhs = path_stacks(seed, flush)
+            sub = plain_subset(sizes)
+            a = to_card(spd, dtype)
+            szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            kp = pk.ragged_potrf(a, szc)
+            pp = pk.ragged_potrf_plain(a[sub], [sizes[i] for i in sub],
+                                       pk.ragged_blk())
+            p_ok, p_err, p_pad = ragged_compare(dtype, kp[sub], pp,
+                                                [sizes[i] for i in sub])
+            res = max(float(torch.linalg.norm(
+                (kp[i, :s, :s].double() @ kp[i, :s, :s].double().T)
+                - a[i, :s, :s].double()) / torch.linalg.norm(
+                    a[i, :s, :s].double())) for i, s in enumerate(sizes))
+            res_ok = res <= (1e-6 if dtype == torch.float32 else 2e-2)
+            ok &= p_ok and res_ok
+            ms = cuda_ms(lambda: pk.ragged_potrf(a, szc), 5)
+            a4 = a[sub]
+            plain_ms = cuda_ms(lambda: pk.ragged_potrf_plain(
+                a4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
+            aid = identity_padded(a, sizes).float()
+            lib_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(aid), 5)
+            del aid
+            live2 = sum(s * s for s in sizes)
+            row, s = ragged_row(
+                "ragged_potrf", dname, "ragged_potrf.cu", "1147",
+                "batch.serve (ragged potrf)" if dtype == torch.float32
+                else "batch.serve (ragged bf16 posv)",
+                "%dx%dx%d" % a.shape, max(a_err, p_err), ms, plain_ms,
+                len(sub), lib_ms,
+                "torch.linalg.cholesky_ex (identity pad, f32)",
+                sum(s ** 3 for s in sizes) / 3.0,
+                a.element_size() * (live2 + a.numel()) + 4.0 * len(sizes),
+                PEAK_F32_FLOPS if dtype == torch.float32
+                else PEAK_BF16_FLOPS)
+            key = "ragged_potrf." + dname
+            results[key if label == "first" else key + "." + str(ceil)] = \
+                row
+            out[dname][label] = dict(s, err=p_err, pad_bitwise=p_pad,
+                                     residual=res, ok=p_ok and res_ok)
+            del a, kp
     out["ok"] = bool(ok)
     return out
 

@@ -917,8 +917,8 @@ def trtri_lower(a: torch.Tensor, unit_diagonal: bool = False
 RAGGED_BLK = 32
 #: widest stripe the CUDA ragged kernels take (one lane per column)
 RAGGED_MAX_BLK = 32
-#: largest ceiling the CUDA ragged kernels take: ragged_potrf keeps an
-#: (N, blk) stripe in shared memory (1024 x 33 f32 = 132 KiB)
+#: largest ceiling the CUDA ragged kernels take: ragged_getrf keeps an
+#: (N, blk) block in shared memory (1024 x 33 f32 = 132 KiB)
 RAGGED_MAX_N = 1024
 
 
@@ -1141,9 +1141,10 @@ def _ragged_potrf_launch(stack: torch.Tensor, sizes: torch.Tensor,
     if stack.device.type != "cuda":
         return ragged_potrf_plain(stack, sizes, blk)
     B, N = stack.shape[0], stack.shape[-1]
-    if stack.shape[1] != N:
-        raise ValueError("ragged_potrf kernel takes square elements, got "
-                         "%s" % (tuple(stack.shape),))
+    if stack.shape[1] != N or N % 8 or blk % 8:
+        raise ValueError("ragged_potrf kernel takes square elements of a "
+                         "ceiling and blk that are multiples of 8, got %s "
+                         "blk=%d" % (tuple(stack.shape), blk))
     lib, out = _ragged_setup("ragged_potrf", stack, blk, donate)
     a = stack.contiguous()
     _build.check(lib.ragged_potrf(a.data_ptr(), out.data_ptr(),

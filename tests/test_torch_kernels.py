@@ -659,14 +659,23 @@ def test_chol_panel_cpu_equals_plain(n):
 
 
 @pytest.mark.parametrize("kind,unit", [
-    (k, u) for k in ("zerodiag", "diag", "equal", "tiny", "huge")
+    pytest.param(k, u, id="%s-%s" % (k, u))
+    for k in ("zerodiag", "diag", "equal", "tiny", "huge",
+              "chol128", "chol512")
     for u in (False, True) if (k, u) != ("huge", True)])
 def test_trtri_lower_matches_jax(kind, unit):
-    """The triangular inverse (n = 256) against the JAX kernel, unit
-    and non-unit (a unit triangle with 2^40 off the diagonal has no
-    f32 inverse, so that pair is left out). The exact kinds match
-    bitwise; the others to 1e-5 of the scale."""
-    a = trtri_cases(np.random.default_rng(23), 256)[kind]
+    """The triangular inverse against the JAX kernel (interpret mode),
+    unit and non-unit: the adversarial suite at n = 256 (a unit
+    triangle with 2^40 off the diagonal has no f32 inverse, so that
+    pair is left out) and Cholesky factors at n = 128 and 512, the
+    shapes chip_smoke.py times. The exact kinds match bitwise; the
+    others to 1e-5 of the scale."""
+    if kind.startswith("chol"):
+        n = int(kind[4:])
+        s = spd_system(np.random.default_rng(n), n, 1)[0]
+        a = np.linalg.cholesky(s.astype(np.float64)).astype(np.float32)
+    else:
+        a = trtri_cases(np.random.default_rng(23), 256)[kind]
     ref = np.asarray(jpk.trtri_lower(jnp.asarray(a), unit_diagonal=unit))
     out = pk.trtri_lower(torch.as_tensor(a), unit_diagonal=unit).numpy()
     if kind in ("diag", "equal"):

@@ -113,6 +113,42 @@ def test_ragged_potrf_bf16_against_f32(rng):
         assert torch.equal(out[i, s:].float(), torch.eye(64)[s:])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_ragged_potrf_plain_partial_stripes(rng, dtype):
+    """The plain twin on orders that leave a partial last stripe of 32
+    (s mod 32 = 1 and 31), an empty element (s = 0) and the ceiling
+    (s = N = 96), garbage in the pad: each live block against numpy's
+    Cholesky (f64, of the same stored inputs) and the reference's
+    potrf_core (f32), to 1e-5 (f32, relative to the factor's largest
+    entry) or 2e-2 normwise (bf16: every stored value rounded to 2^-8);
+    the pad, and the whole of the empty element, the exact identity."""
+    sizes = [33, 63, 0, 65, 95, 96]
+    ceil = 96
+    mats = [_spd(rng, s) / max(s, 1) for s in sizes]
+    st = _t(_stack_garbage(mats, ceil)).to(dtype)
+    out = pk.ragged_potrf_plain(st, sizes, 32)
+    assert out.dtype == dtype
+    eye = torch.eye(ceil, dtype=torch.float64)
+    for i, s in enumerate(sizes):
+        assert torch.equal(out[i, s:].double(), eye[s:])
+        assert torch.equal(out[i, :s, s:].double(),
+                           torch.zeros((s, ceil - s), dtype=torch.float64))
+        if s == 0:
+            continue
+        a = st[i, :s, :s].double().numpy()
+        L = out[i, :s, :s].double().numpy()
+        ref = np.linalg.cholesky(a)
+        core = np.asarray(jdrivers.potrf_core(jnp.asarray(a, jnp.float32)),
+                          np.float64)
+        for r in (ref, core):
+            if dtype == torch.float32:
+                assert np.abs(L - r).max() <= 1e-5 * np.abs(r).max()
+            else:
+                assert np.linalg.norm(L - r) <= 2e-2 * np.linalg.norm(r)
+        assert np.array_equal(L, np.tril(L))
+
+
 # -- ragged_getrf ----------------------------------------------------------
 
 def _getrf_batch(rng, ceil=64):
