@@ -1,37 +1,39 @@
 #!/usr/bin/env python3
-"""Parent against change on one card, in one run: the triangular inverse
-(`trtri_lower`), the ragged batched Cholesky (`ragged_potrf`), the
-trailing update of the LU panel split (`_rank_update`), the Cholesky
-block (`chol_panel`), the LU solves and the serving stream's ragged
-potrf.
+"""Parent against change on one card, in one run: the Givens chain
+apply (`givens_chain_apply`), the recursive LU panel (`lu_panel_rec`:
+its base case, leaf solve and product update), the rank-1 LU panel
+(`lu_panel`, which shares the old base case), and the solves on their
+paths.
 
     git archive <parent> | tar -x -C smoke_archive/parent
     python3 chip_compare.py --parent smoke_archive/parent
 
-  1. kernels  the parent tree's trtri_lower.cu, ragged_potrf.cu,
-              rank_update.cu and chol_panel.cu are compiled from its
-              sources into libraries of their own and called through
-              their C entries on the same inputs as this tree's
-              wrappers, in the order parent, change, change, parent:
-              trtri_lower on Cholesky factors at n = 512, 256, 128,
-              back to back and replayed as a CUDA graph;
-              ragged_potrf (f32 and bf16) on the serving stream's first
-              flush (64 x 608^2) and on the flush that holds its
-              order-1024 request (64 x 1024^2); _rank_update at the
-              split's shapes of a 16384 x 512 panel (f32 and bf16),
-              timed as a replayed CUDA graph (the card's time) and back
-              to back; chol_panel at n = 1024, 512, 256, back to back.
-              Each result is held against the plain version first
-              (trtri and Cholesky 1e-5 of the scale; ragged f32 1e-5,
-              bf16 2^-7 of the scale on four elements, its largest
-              among them, and every pad bitwise; the update f32 1e-4,
-              bf16 2^-7 normwise);
-  2. solves   gesv and gesv_mixed at n = 16384 as chip_smoke.py's
-              phases run them (their checks included), then the serving
-              stream's potrf leg on the ragged route (256 requests
-              through CoalescingQueue(max_batch=64), a warm-up pass and
-              a measured one: matrices/s, p50/p99), one process per
-              tree, in the order parent, change, change, parent.
+  1. kernels  the parent tree's givens_chain.cu, lu_panel_rec.cu and
+              lu_panel.cu are compiled from its sources into libraries
+              of their own and called through their C entries on the
+              same inputs as this tree's wrappers, in the order parent,
+              change, change, parent, back to back (`ms`) and replayed
+              from a CUDA graph (`graph_ms`): the chain on Z 2048 x 2048,
+              512 x 512 and a transposed 512 x 512 view, each bitwise
+              against the plain version, beside Z @ G; lu_panel_rec at
+              f32 16384x128 and bf16 16384x64 (one dispatch) and at
+              16384x512 in both types (the tall split, its sub-panels
+              through either tree's panel kernels), each tree's panel
+              bitwise the other's, pivots bitwise against the plain
+              version (one dispatch; the split's bf16 update on the
+              tensor cores rounds otherwise) and the residual within
+              chip_smoke.RES_LIMIT; lu_panel bf16 4096x256 the same way;
+              then, this tree only and replayed from a CUDA graph,
+              qr_panel f32 4096x128 against torch.geqrf and ragged_trsm
+              f32 / bf16 on the serving stream's first flush (64 x 608^2,
+              K = 1) against torch.linalg.solve_triangular;
+  2. solves   in one process per tree, in the order parent, change,
+              change, parent: gesv and gesv_mixed at n = 16384 as
+              chip_smoke.py's phases run them (their checks included)
+              and gesv once more under torch.profiler (busy time, idle
+              share, the base case's share); heev at n = 2048 and svd at
+              512 through their QR iterations with the chain routed to
+              the kernel (chip_smoke.py's systems and accuracy checks).
 
 Prints one JSON line a phase and the card's nvidia-smi line; exits 1
 when a check fails and 2 without a CUDA card.
@@ -49,25 +51,29 @@ import torch
 
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
-from slate_tpu_torch.testing import spd_system
 
-from chip_smoke import (cuda_ms, graph_ms, identity_padded, largest_flush,
-                        path_stacks, plain_subset, ragged_compare, rel_diff,
-                        scaled_err, to_card)
+from chip_smoke import (DTYPES, RAGGED_LIMIT, RES_LIMIT, cuda_ms, graph_ms,
+                        identity_padded, lu_residual, path_stacks,
+                        plain_subset, qr_residual, scaled_err, to_card)
 
 N = 16384
 ORDER = ("parent", "change", "change", "parent")
 
 #: the parent's C entries
-_P, _I = ctypes.c_void_p, ctypes.c_int
-PARENT_LIBS = {"rank_update": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-               "chol_panel": [_P, _P, _I, _I, _P],
-               "trtri_lower": [_P, _P, _I, _I, _P],
-               "ragged_potrf": [_P, _P, _P, _I, _I, _I, _I, _P]}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+PARENT_LIBS = {
+    "lu_panel_rec": {"lu_rec_base": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+                     "lu_rec_solve_leaf": [_P, _I, _I, _I, _I, _I, _I, _P],
+                     "lu_rec_mm_update": [_P, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _P]},
+    "lu_panel": {"lu_panel": [_P, _P, _I, _I, _P, _P, _I, _P]},
+    "givens_chain": {"givens_chain": [_P, _L, _L, _P, _L, _L, _P, _P, _I,
+                                      _I, _P]},
+}
 
 
 def build_parent(tree):
-    """The parent's two libraries, compiled from its sources."""
+    """The parent's libraries, compiled from its sources, in parallel."""
     csrc = os.path.join(tree, "slate_tpu_torch", "ops", "csrc")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     libs, procs = {}, []
@@ -84,7 +90,8 @@ def build_parent(tree):
             raise RuntimeError("parent %s: nvcc failed\n%s" % (name, log))
         lib = ctypes.CDLL(out)
         lib.slate_set_device.argtypes = [_I]
-        getattr(lib, name).argtypes = PARENT_LIBS[name]
+        for fn, argtypes in PARENT_LIBS[name].items():
+            getattr(lib, fn).argtypes = argtypes
         lib.slate_set_device(torch.cuda.current_device())
         libs[name] = lib
     return libs
@@ -94,177 +101,270 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def parent_rank_update(lib, a22, l21, u12):
-    out = torch.empty_like(a22)
-    m2, w2 = a22.shape
-    bf16 = a22.dtype == torch.bfloat16
-    scratch = torch.empty((w2, l21.shape[1]), dtype=a22.dtype,
-                          device=a22.device) if bf16 else None
-    _build.check(lib.rank_update(a22.data_ptr(), l21.data_ptr(),
-                                 u12.data_ptr(), out.data_ptr(), m2, w2,
-                                 l21.shape[1], int(bf16),
-                                 None if scratch is None
-                                 else scratch.data_ptr(),
-                                 _stream()), "parent rank_update")
+def parent_chain(lib, Z, cs, sn):
+    out = torch.empty_like(Z)
+    _build.check(lib.givens_chain(Z.data_ptr(), Z.stride(0), Z.stride(1),
+                                  out.data_ptr(), out.stride(0),
+                                  out.stride(1), cs.data_ptr(), sn.data_ptr(),
+                                  Z.shape[0], Z.shape[1], _stream()),
+                 "parent givens_chain")
     return out
 
 
-def parent_chol(lib, a):
-    work = a.clone()
-    out = torch.zeros_like(work)
-    _build.check(lib.chol_panel(work.data_ptr(), out.data_ptr(),
-                                a.shape[0], 0, _stream()),
-                 "parent chol_panel")
-    return out
+def parent_panel_rec(lib, a, ib):
+    """One panel dispatch through the parent's kernels: the same
+    recursion, the parent's base case signature."""
+    m, w = a.shape
+    out = a.clone(memory_format=torch.contiguous_format)
+    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
+    scr_f = torch.empty(2 * 1024 + 4 * w, dtype=torch.float32,
+                        device=a.device)
+    scr_i = torch.empty(1 + 2 * 1024, dtype=torch.int32, device=a.device)
+    ptr, pptr, s = out.data_ptr(), piv.data_ptr(), _stream()
+    bf16 = int(a.dtype == torch.bfloat16)
+
+    def base(c0, wseg):
+        _build.check(lib.lu_rec_base(ptr, pptr, m, w, c0, wseg,
+                                     scr_f.data_ptr(), scr_i.data_ptr(),
+                                     bf16, s), "parent lu_rec_base")
+
+    def leaf(c0, ws, c1, c2):
+        _build.check(lib.lu_rec_solve_leaf(ptr, w, c0, ws, c1, c2, bf16, s),
+                     "parent lu_rec_solve_leaf")
+
+    def mm(r0, r1, k0, k1, c0, c1):
+        _build.check(lib.lu_rec_mm_update(ptr, w, r0, r1, k0, k1, c0, c1,
+                                          bf16, s), "parent lu_rec_mm_update")
+
+    pk._rec_drive(m, w, ib, base, leaf, mm)
+    return out, piv
 
 
-def parent_trtri(lib, L):
-    L = L.contiguous()
-    out = torch.zeros_like(L)
-    _build.check(lib.trtri_lower(L.data_ptr(), out.data_ptr(), L.shape[0],
-                                 0, _stream()), "parent trtri_lower")
-    return out
+def parent_lu_panel(lib, a):
+    m, w = a.shape
+    out = a.clone(memory_format=torch.contiguous_format)
+    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
+    scr_f = torch.empty(2 * 1024 + 4 * w, dtype=torch.float32,
+                        device=a.device)
+    scr_i = torch.empty(1 + 2 * 1024, dtype=torch.int32, device=a.device)
+    _build.check(lib.lu_panel(out.data_ptr(), piv.data_ptr(), m, w,
+                              scr_f.data_ptr(), scr_i.data_ptr(),
+                              int(a.dtype == torch.bfloat16), _stream()),
+                 "parent lu_panel")
+    return out, piv
 
 
-def parent_ragged_potrf(lib, a, sizes):
-    out = torch.empty_like(a)
-    _build.check(lib.ragged_potrf(a.data_ptr(), out.data_ptr(),
-                                  sizes.data_ptr(), a.shape[0], a.shape[1],
-                                  pk.ragged_blk(),
-                                  int(a.dtype == torch.bfloat16), _stream()),
-                 "parent ragged_potrf")
-    return out
+class parent_panels:
+    """Inside the block, lu_panel_rec's one-dispatch panels go through
+    the parent's kernels (so the tall split's sub-panels do too)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        self.saved = pk._lu_panel_rec_cuda
+        pk._lu_panel_rec_cuda = lambda a, ib: parent_panel_rec(self.lib, a,
+                                                               ib)
+
+    def __exit__(self, *exc):
+        pk._lu_panel_rec_cuda = self.saved
 
 
-def trtri_rows(libs, seed):
+def timed(row, fns, reps):
+    """ms and graph_ms of each tree's call, in the order ORDER."""
+    for i, who in enumerate(ORDER):
+        row["ms_%d_%s" % (i, who)] = cuda_ms(fns[who], reps)
+        row["graph_ms_%d_%s" % (i, who)] = graph_ms(fns[who], reps)
+
+
+def chain_rows(libs, rng):
+    from slate_tpu_torch.linalg.svd import _givens_chain_matrix
     ok, rows = True, []
-    gen = torch.Generator("cuda").manual_seed(seed + 23)
-    for n in (512, 256, 128):
-        L = torch.linalg.cholesky(spd_system(gen, n, 1)[0])
-        ref = pk.trtri_lower_plain(L)
-        fns = {"parent": lambda: parent_trtri(libs["trtri_lower"], L),
-               "change": lambda: pk._trtri_lower_launch(L, False)}
-        row = {"kernel": "trtri_lower", "dtype": "float32",
-               "shape": "%dx%d" % (n, n)}
+    for n_rows, n, trans in ((2048, 2048, False), (512, 512, False),
+                             (512, 512, True)):
+        th = rng.standard_normal(n - 1)
+        cs = torch.as_tensor(np.cos(th), dtype=torch.float32, device="cuda")
+        sn = torch.as_tensor(np.sin(th), dtype=torch.float32, device="cuda")
+        Z = torch.as_tensor(rng.standard_normal((n, n_rows) if trans
+                                                else (n_rows, n)),
+                            dtype=torch.float32, device="cuda")
+        if trans:
+            Z = Z.T
+        ref = pk.givens_chain_apply_plain(Z, cs, sn)
+        fns = {"parent": lambda: parent_chain(libs["givens_chain"], Z, cs,
+                                              sn),
+               "change": lambda: pk._givens_chain_launch(Z, cs, sn)}
+        row = {"kernel": "givens_chain_apply", "dtype": "float32",
+               "shape": "%dx%d%s" % (n_rows, n, " transposed" if trans
+                                     else "")}
         for who, fn in fns.items():
-            row["err_" + who] = scaled_err(fn(), ref)
-            ok &= row["err_" + who] <= 1e-5
-        for i, who in enumerate(ORDER):
-            row["ms_%d_%s" % (i, who)] = cuda_ms(fns[who], 10)
-            row["graph_ms_%d_%s" % (i, who)] = graph_ms(fns[who])
-        eye = torch.eye(n, device="cuda")
-        lib = lambda: torch.linalg.solve_triangular(L, eye, upper=False)
-        row["library_ms"] = cuda_ms(lib, 10)
-        row["library_graph_ms"] = graph_ms(lib)
+            row["bitwise_" + who] = bool(torch.equal(fn(), ref))
+            ok &= row["bitwise_" + who]
+        timed(row, fns, 20)
+        G = _givens_chain_matrix(cs, sn, n)
+        row["library_ms"] = cuda_ms(lambda: Z @ G, 20)
+        row["library_graph_ms"] = graph_ms(lambda: Z @ G)
         rows.append(row)
     return ok, rows
 
 
-def ragged_rows(libs, seed):
+def panel_rows(libs, rng):
     ok, rows = True, []
-    for flush in (0, largest_flush(seed)):
-        sizes, ceil, spd, _gen, _rhs = path_stacks(seed, flush)
-        sub = plain_subset(sizes)
-        szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-        for dname, dtype in (("float32", torch.float32),
-                             ("bfloat16", torch.bfloat16)):
-            a = to_card(spd, dtype)
-            pp = pk.ragged_potrf_plain(a[sub], [sizes[i] for i in sub],
-                                       pk.ragged_blk())
-            fns = {"parent": lambda: parent_ragged_potrf(
-                       libs["ragged_potrf"], a, szc),
-                   "change": lambda: pk.ragged_potrf(a, szc)}
-            row = {"kernel": "ragged_potrf", "dtype": dname,
-                   "shape": "%dx%dx%d" % a.shape, "flush": flush}
-            for who, fn in fns.items():
-                k_ok, err, pad = ragged_compare(dtype, fn()[sub], pp,
-                                                [sizes[i] for i in sub])
-                row["err_" + who], row["pad_bitwise_" + who] = err, pad
-                ok &= k_ok
-            for i, who in enumerate(ORDER):
-                row["ms_%d_%s" % (i, who)] = cuda_ms(fns[who], 5)
-            aid = identity_padded(a, sizes).float()
-            row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(aid),
-                                        5)
-            del aid, a
-            rows.append(row)
+    lib = libs["lu_panel_rec"]
+    for (dname, dtype), w in ((DTYPES[0], 128), (DTYPES[1], 64),
+                              (DTYPES[0], 512), (DTYPES[1], 512)):
+        a = torch.as_tensor(rng.standard_normal((N, w), dtype=np.float32),
+                            device="cuda").to(dtype)
+        pp, ppiv = pk.lu_panel_rec_plain(a)
+
+        def parent():
+            with parent_panels(lib):
+                return pk.lu_panel_rec(a)
+
+        fns = {"parent": parent, "change": lambda: pk.lu_panel_rec(a)}
+        split = N * w > pk._rec_max_elems(dtype, None)
+        row = {"kernel": "lu_panel_rec", "dtype": dname,
+               "shape": "%dx%d" % (N, w), "split": split}
+        got = {}
+        for who, fn in fns.items():
+            kp, kpiv = got[who] = fn()
+            row["pivots_bitwise_" + who] = bool(torch.equal(kpiv, ppiv))
+            row["residual_" + who] = lu_residual(a, kp, kpiv)
+            # the split's trailing update rounds otherwise than the
+            # plain product (bf16 on the tensor cores): held to the
+            # residual only, as chip_smoke.py holds it
+            ok &= (split or row["pivots_bitwise_" + who]) \
+                and row["residual_" + who] <= RES_LIMIT[dtype]
+        # the same arithmetic in both trees: equal, pivots and values
+        row["parent_equals_change"] = all(
+            torch.equal(x, y) for x, y in zip(got["parent"], got["change"]))
+        ok &= row["parent_equals_change"]
+        timed(row, fns, 5 if w < 512 else 3)
+        rows.append(row)
+    a = torch.as_tensor(rng.standard_normal((4096, 256), dtype=np.float32),
+                        device="cuda").to(torch.bfloat16)
+    pp, ppiv = pk.lu_panel_plain(a)
+    fns = {"parent": lambda: parent_lu_panel(libs["lu_panel"], a),
+           "change": lambda: pk.lu_panel(a)}
+    row = {"kernel": "lu_panel", "dtype": "bfloat16", "shape": "4096x256"}
+    for who, fn in fns.items():
+        kp, kpiv = fn()
+        row["pivots_bitwise_" + who] = bool(torch.equal(kpiv, ppiv))
+        row["residual_" + who] = lu_residual(a, kp, kpiv)
+        ok &= row["pivots_bitwise_" + who] \
+            and row["residual_" + who] <= RES_LIMIT[torch.bfloat16]
+    timed(row, fns, 5)
+    rows.append(row)
+    return ok, rows
+
+
+def retime_rows(rng, seed):
+    """qr_panel f32 and ragged_trsm against their library calls, as
+    CUDA graphs (their kernels are the same in both trees)."""
+    ok, rows = True, []
+    a = torch.as_tensor(rng.standard_normal((4096, 128), dtype=np.float32),
+                        device="cuda")
+    kp, kt = pk._qr_panel_launch(a)
+    res = qr_residual(a, kp, kt)
+    ok &= res <= 1e-5
+    rows.append({"kernel": "qr_panel", "dtype": "float32",
+                 "shape": "4096x128", "residual": res,
+                 "graph_ms": graph_ms(lambda: pk._qr_panel_launch(a), 10),
+                 "ms": cuda_ms(lambda: pk._qr_panel_launch(a), 10),
+                 "library_graph_ms": graph_ms(lambda: torch.geqrf(a), 10),
+                 "library_ms": cuda_ms(lambda: torch.geqrf(a), 10)})
+    sizes, ceil, spd, _gen, rhs = path_stacks(seed)
+    sub = plain_subset(sizes)
+    szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    for dname, dtype in DTYPES:
+        L = pk.ragged_potrf(to_card(spd, dtype), szc)
+        b = to_card(rhs, dtype)
+        kx = pk.ragged_trsm(L, b, szc)
+        px = pk.ragged_trsm_plain(L[sub], b[sub], [sizes[i] for i in sub],
+                                  pk.ragged_blk())
+        err = scaled_err(kx[sub], px)
+        ok &= err <= RAGGED_LIMIT[dtype]
+        Lid, b32 = identity_padded(L, sizes).float(), b.float()
+
+        def lib():
+            return torch.linalg.solve_triangular(Lid, b32, upper=False)
+
+        rows.append({"kernel": "ragged_trsm", "dtype": dname,
+                     "shape": "%dx%dx%d, K = 1" % L.shape, "err": err,
+                     "graph_ms": graph_ms(lambda: pk.ragged_trsm(L, b, szc)),
+                     "ms": cuda_ms(lambda: pk.ragged_trsm(L, b, szc), 20),
+                     "library_graph_ms": graph_ms(lib),
+                     "library_ms": cuda_ms(lib, 20)})
     return ok, rows
 
 
 def phase_kernels(libs, seed):
     rng = np.random.default_rng(seed)
     ok, rows = True, []
-    for part in (trtri_rows, ragged_rows):
-        p_ok, p_rows = part(libs, seed)
+    for part in (lambda: chain_rows(libs, rng), lambda: panel_rows(libs, rng),
+                 lambda: retime_rows(rng, seed)):
+        p_ok, p_rows = part()
         ok &= p_ok
         rows += p_rows
-    for dtype, dims in ((torch.float32, ((N - 256, 256, 256),
-                                         (N - 128, 128, 128))),
-                        (torch.bfloat16, ((N - 256, 256, 256),
-                                          (N - 128, 128, 128),
-                                          (N - 64, 64, 64)))):
-        lim = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-        for m2, w1, w2 in dims:
-            ops = [torch.as_tensor(rng.standard_normal(sh, dtype=np.float32),
-                                   device="cuda").to(dtype)
-                   for sh in ((m2, w2), (m2, w1), (w1, w2))]
-            ref = pk.rank_update_plain(*ops)
-            fns = {"parent": lambda: parent_rank_update(
-                       libs["rank_update"], *ops),
-                   "change": lambda: pk._rank_update(*ops)}
-            row = {"kernel": "rank_update", "dtype": str(dtype)[6:],
-                   "shape": "%dx%dx%d" % (m2, w1, w2)}
-            for who, fn in fns.items():
-                row["rel_" + who] = rel_diff(fn(), ref)
-                ok &= row["rel_" + who] <= lim
-            for i, who in enumerate(ORDER):
-                row["ms_%d_%s" % (i, who)] = graph_ms(fns[who])
-                row["eager_ms_%d_%s" % (i, who)] = cuda_ms(fns[who], 20)
-            rows.append(row)
-    gen = torch.Generator("cuda").manual_seed(seed)
-    for n in (1024, 512, 256):
-        s = spd_system(gen, n, 1)[0]
-        ref = pk.chol_panel_plain(s)
-        fns = {"parent": lambda: parent_chol(libs["chol_panel"], s),
-               "change": lambda: pk._chol_panel_launch(s)}
-        row = {"kernel": "chol_panel", "dtype": "float32",
-               "shape": "%dx%d" % (n, n)}
-        for who, fn in fns.items():
-            row["err_" + who] = scaled_err(fn(), ref)
-            ok &= row["err_" + who] <= 1e-5
-        for i, who in enumerate(ORDER):
-            row["ms_%d_%s" % (i, who)] = cuda_ms(fns[who], 10)
-        row["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(s), 10)
-        rows.append(row)
     return {"phase": "kernels", "ok": bool(ok), "rows": rows}
 
 
-#: run in each tree: chip_smoke.py's gesv and gesv_mixed phases, then
-#: the serving stream's potrf on the ragged route (warm-up, measured)
+#: run in each tree: chip_smoke.py's gesv and gesv_mixed phases, gesv
+#: under the profiler, then heev and svd through their QR iterations
 SOLVES = """
-import json, sys
+import json
+import torch
 import chip_smoke as cs
+import slate_tpu_torch as st
 seed = %d
 results, system = {}, {}
 g = cs.phase_gesv(seed, results, system)
 m = cs.phase_mixed(results, system)
+cs.fresh_tune_cache([torch.float32])
+prof = cs.profile_call(lambda: st.gesv(system["A"], system["B"],
+                                       system["opts"]), top=40)
+base_ms = sum(t["device_ms"] for t in prof["top"] if "lu_base" in t["kernel"])
 del system
-sizes, xs, spds = cs.serve_stream(seed, cs.SERVE_REQS)
-cs.serve_run("potrf", spds, None, "ragged")
-outs, rec, launches = cs.serve_run("potrf", spds, None, "ragged")
-berr = max(cs.chol_berr(L, a) for L, a in zip(outs, spds))
+gen = torch.Generator(device="cuda").manual_seed(seed)
+g2 = torch.randn((cs.N_EIG, cs.N_EIG), generator=gen, device="cuda")
+a = (g2 + g2.T) / 2
+A = st.HermitianMatrix(st.Uplo.Lower, a, mb=cs.MB_EIG)
+cs.fresh_tune_cache()
+w_ref, _ = st.heev(A)
+cs.route_chain("steqr2", torch.float32, cs.N_EIG)
+heev_s, (w, V) = cs.wall_s(lambda: st.heev(
+    A, {st.Option.MethodEig: st.MethodEig.QRIteration}))
+heev_ok, heev_chk = cs.eig_checks(a.double(), w, V, w_ref,
+                                  float(w_ref.abs().max()),
+                                  cs.STAGED_EIG_LIMIT)
+gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+b = torch.randn((cs.N_SVD, cs.N_SVD), generator=gen, device="cuda")
+B = st.Matrix(b, mb=cs.MB_SVD)
+cs.fresh_tune_cache()
+s_ref = st.svd(B).s
+cs.route_chain("bdsqr", torch.float32, cs.N_SVD)
+svd_s, r = cs.wall_s(lambda: st.svd(
+    B, {st.Option.MethodSVD: st.MethodSVD.QRIteration}))
+u, vh = r.U.to_dense().double(), r.Vh.to_dense().double()
+recon = float(torch.linalg.norm(u * r.s.double()[None, :] @ vh - b.double())
+              / torch.linalg.norm(b.double()))
+serr = float((r.s.double() - s_ref.double()).abs().max() / s_ref.max())
+svd_ok = max(recon, serr) <= cs.EIG_LIMIT
 print("SOLVES " + json.dumps({
     "gesv_wall_s": g["wall_s"], "gesv_ok": g["ok"],
     "gesv_backward_error": g["backward_error"],
-    "gesv_rank_update_launches": g["launches"]["rank_update"],
+    "gesv_launches": g["launches"],
     "gesv_mixed_wall_s": m["wall_s"], "gesv_mixed_ok": m["ok"],
     "gesv_mixed_iters": m["iters"],
-    "gesv_mixed_rank_update_launches": m["launches"]["rank_update"],
-    "serve_potrf_ragged": {k: rec[k] for k in (
-        "wall_s", "matrices_per_s", "p50_ms", "p99_ms", "dispatches")},
-    "serve_potrf_launches": launches["ragged_potrf"],
-    "serve_potrf_backward_error": berr,
-    "serve_potrf_ok": berr <= 1e-6 and launches["ragged_potrf"] > 0}))
+    "gesv_profile": {"wall_s": prof["wall_s"],
+                     "busy_s": prof["device_busy_s"],
+                     "idle_share": prof["idle_share"],
+                     "lu_base_ms": base_ms,
+                     "lu_base_share": base_ms / 1e3 / prof["device_busy_s"],
+                     "top": prof["top"][:6]},
+    "heev_qr_wall_s": heev_s, "heev_ok": heev_ok, "heev_checks": heev_chk,
+    "svd_qr_wall_s": svd_s, "svd_ok": svd_ok,
+    "svd_checks": {"reconstruction": recon, "values_vs_auto": serr}}))
 """
 
 
@@ -283,8 +383,8 @@ def phase_solves(trees, seed):
             continue
         rec = json.loads(line[-1][len("SOLVES "):])
         rec["tree"] = who
-        ok &= rec["gesv_ok"] and rec["gesv_mixed_ok"] \
-            and rec["serve_potrf_ok"]
+        ok &= rec["gesv_ok"] and rec["gesv_mixed_ok"] and rec["heev_ok"] \
+            and rec["svd_ok"]
         runs.append(rec)
     return {"phase": "solves", "ok": bool(ok), "runs": runs}
 
@@ -294,6 +394,8 @@ def main():
     ap.add_argument("--parent", required=True,
                     help="directory holding the parent commit's tree")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--skip-solves", action="store_true",
+                    help="run the kernels phase only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_compare: needs a CUDA card", file=sys.stderr)
@@ -305,9 +407,11 @@ def main():
                          text=True, timeout=60).stdout.strip()
     _build.build_all()
     failed = []
-    for name, fn in (("kernels", lambda: phase_kernels(
-                          build_parent(trees["parent"]), args.seed)),
-                     ("solves", lambda: phase_solves(trees, args.seed))):
+    phases = [("kernels", lambda: phase_kernels(
+        build_parent(trees["parent"]), args.seed))]
+    if not args.skip_solves:
+        phases.append(("solves", lambda: phase_solves(trees, args.seed)))
+    for name, fn in phases:
         out = fn()
         print(json.dumps(out), flush=True)
         if not out["ok"]:

@@ -17,7 +17,11 @@ script exit non-zero without the final result line:
               least time the card could take:
                 kernel.compose_swaps  the swap composition, bitwise;
                 kernel.lu_panel       the rank-1 panel;
-                kernel.lu_panel_rec   the recursive panel;
+                kernel.lu_panel_rec   the recursive panel (both panels
+                                      also replayed from a CUDA graph,
+                                      graph_ms, and with a latency
+                                      bound of one exchange between
+                                      SMs a column);
                 kernel.rank_update    the trailing update of its split
                                       (and a height off its 128-row
                                       tile), timed replayed from a CUDA
@@ -53,7 +57,9 @@ script exit non-zero without the final result line:
                                       rotations, c = 0 / s = +-1, 8
                                       rows), then Z 2048 x 2048 and
                                       512 x 512 (row-major and
-                                      transposed), beside Z @ G;
+                                      transposed), beside Z @ G, both
+                                      also replayed from a CUDA graph,
+                                      with the chain's latency bound;
                 kernel.qr_sweep       the tridiagonal and bidiagonal QR
                                       passes (steqr_sweep, bdsqr_sweep),
                                       bitwise in d, e, the rotations and
@@ -138,8 +144,8 @@ script exit non-zero without the final result line:
               svd QR iterations, once more under torch.profiler: host
               wall, device busy time (the union of the kernel, copy and
               memset intervals of the trace), idle share, the heaviest
-              kernels by device time and the trailing update's share
-              (rank_update's kernels);
+              kernels by device time and the shares of the trailing
+              update (rank_update's kernels) and of the LU base case;
  15. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
@@ -179,6 +185,14 @@ from slate_tpu_torch.tune import select as tselect
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+#: latency floors of the dependent recurrences (the "latency_bound_ms"
+#: beside the contract's bound): the card's boost clock (H100 SXM,
+#: nvidia-smi clocks.max.sm); a dependent f32 multiply or add, 4 cycles;
+#: an exchange between SMs, one round trip through L2 that finds its
+#: data ready (~1.1k cycles by clock64 marks on an H100)
+SM_HZ = 1.98e9
+DEP_OP_CYCLES = 4
+EXCHANGE_CYCLES = 1100
 
 N, NRHS, NB = 16384, 64, 512
 N_COLD, NB_COLD = 4096, 256
@@ -208,6 +222,20 @@ def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
+
+
+def latency_ms(steps, cycles):
+    """Least time of `steps` dependent steps of `cycles` each."""
+    return steps * cycles / SM_HZ * 1e3
+
+
+def try_graph_ms(fn, reps=20):
+    """graph_ms, or the reason the calls could not be captured."""
+    try:
+        return graph_ms(fn, reps), None
+    except Exception as e:                   # report, do not fail
+        torch.cuda.synchronize()
+        return None, "%s: %s" % (type(e).__name__, str(e)[:200])
 
 
 def cuda_ms(fn, reps):
@@ -330,7 +358,9 @@ def entry(name, dtype, source, replaces, path, s, worst):
             "shape": s["shape"], "launches": None, "max_abs_err": worst,
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"]}
+            "library_ms": s["library_ms"],
+            **{k: s[k] for k in ("graph_ms", "library_graph_ms",
+                                 "latency_bound_ms") if s.get(k) is not None}}
 
 
 def phase_device():
@@ -410,12 +440,16 @@ def time_panel(rng, dtype, m, w, run, plain, reps, peak):
     err = float((kp.double() - pp.double()).abs().max()) if piv_eq \
         else None
     ms = cuda_ms(lambda: run(a), reps)
+    g_ms, g_err = try_graph_ms(lambda: run(a), reps)
     plain_ms = cuda_ms(lambda: plain(a), 1)
     a32 = a.float()
     lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(a32), reps)
     b_ms, b_by = bound_ms(panel_flops(m, w), 2.0 * a.element_size() * m * w,
                           peak)
     return {"shape": "%dx%d" % (m, w), "residual": res,
+            "graph_ms": g_ms, "graph_error": g_err,
+            # one exchange between SMs a column
+            "latency_bound_ms": latency_ms(w, EXCHANGE_CYCLES),
             "residual_plain": lu_residual(a, pp, ppiv),
             "pivots_equal_plain": piv_eq, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1536,9 +1570,11 @@ def phase_givens_chain(rng, results):
     """givens_chain_apply against its plain version, bitwise: the
     adversarial suite at 256 columns, then the paths' shapes in f32:
     Z 2048 x 2048 (steqr2) and 512 x 512 row-major and transposed
-    (bdsqr applies its right chain to Gvh^T). Times beside the library
-    product Z @ G with G precomposed (timed only) and the bound: Z read
-    and written once at the memory rate."""
+    (bdsqr applies its right chain to Gvh^T). Times, back to back and
+    replayed from a CUDA graph (graph_ms), beside the library product
+    Z @ G with G precomposed (timed only), the bound (Z read and
+    written once at the memory rate) and the chain's latency bound
+    (n-1 dependent steps a row)."""
     from slate_tpu_torch.linalg.svd import _givens_chain_matrix
     out = {"phase": "kernel.givens_chain", "ok": True, "cases": {}}
     for kind, (c, s, rows) in chain_cases(rng, 256, 256).items():
@@ -1570,12 +1606,16 @@ def phase_givens_chain(rng, results):
         dense_err = float((k.double() - (Z.double() @ G.double())).abs()
                           .max())
         b_ms, b_by = bound_ms(6.0 * rows * (n - 1), 8.0 * rows * n)
+        run = functools.partial(pk._givens_chain_launch, Z, cs, sn)
         s = {"shape": "%dx%d%s" % (rows, n, " transposed" if trans else ""),
-             "ms": cuda_ms(lambda: pk._givens_chain_launch(Z, cs, sn), 50),
+             "ms": cuda_ms(run, 50), "graph_ms": graph_ms(run),
              "plain_ms": cuda_ms(
                  lambda: pk.givens_chain_apply_plain(Z, cs, sn), 1),
              "library_ms": cuda_ms(lambda: Z @ G, 20),
-             "bound_ms": b_ms, "bound_by": b_by}
+             "library_graph_ms": graph_ms(lambda: Z @ G),
+             "bound_ms": b_ms, "bound_by": b_by,
+             # each row's chain: n-1 steps of a multiply then an add
+             "latency_bound_ms": latency_ms(n - 1, 2 * DEP_OP_CYCLES)}
         out["ok"] &= same and dense_err <= 1e-4
         key = "givens_chain_apply." + path + (".T" if trans else "")
         out[key] = {**s, "bitwise": same, "max_abs_err_dense": dense_err}
@@ -1631,7 +1671,10 @@ def phase_qr_sweep(rng, results):
         s = {"shape": "n = %d, one pass" % n,
              "ms": cuda_ms(lambda: run(d0, e0), 20),
              "plain_ms": cuda_ms(lambda: plain(d0, e0), 2),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             # the chase: n-1 dependent steps, each at least four
+             # dependent f32 operations on the bulge
+             "latency_bound_ms": latency_ms(n - 1, 4 * DEP_OP_CYCLES)}
         out[name] = {**s, "passes_bitwise": passes}
         results[name] = entry(name, "float32", "qr_sweep.cu", line, path,
                               s, 0.0 if all(passes) else None)
@@ -1772,8 +1815,9 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 #: kernels whose share of a profiled call's busy time is reported: the
 #: trailing update of the LU panel split (its bf16 path transposes U12
-#: first)
-WATCH = {"rank_update": ("rank_update_", "transpose_bf16")}
+#: first) and the LU panels' base case (either kernel)
+WATCH = {"rank_update": ("rank_update_", "transpose_bf16"),
+         "lu_base": ("lu_base_",)}
 
 
 def profile_call(fn, top=8):

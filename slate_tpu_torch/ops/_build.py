@@ -38,7 +38,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 LIBS = {
     "lu_panel_rec": ("lu_panel_rec.cu", {
         "slate_set_device": [_I],
-        "lu_rec_base": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+        "lu_rec_base": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P],
         "lu_rec_solve_leaf": [_P, _I, _I, _I, _I, _I, _I, _P],
         "lu_rec_mm_update": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     }),
@@ -82,7 +82,7 @@ LIBS = {
     }),
     "givens_chain": ("givens_chain.cu", {
         "slate_set_device": [_I],
-        "givens_chain": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _P],
+        "givens_chain": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I, _I, _P],
     }),
     "qr_sweep": ("qr_sweep.cu", {
         "slate_set_device": [_I],
@@ -171,6 +171,30 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+_current = threading.local()
+
+
+def set_device(lib: ctypes.CDLL, name: str, device: int) -> None:
+    """Make `device` current for library `name`'s runtime (each library
+    links its own), calling into it only when this thread last set
+    another device there."""
+    if getattr(_current, name, None) != device:
+        check(lib.slate_set_device(device), "slate_set_device")
+        setattr(_current, name, device)
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device `device` (cached)."""
+    if device not in _sms:
+        import torch
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
 
 
 def check(rc: int, what: str) -> None:

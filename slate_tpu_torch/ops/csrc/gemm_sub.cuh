@@ -1,11 +1,9 @@
 // Shared-memory-tiled GEMM-with-subtract: D = T(C - T(A * op(B))).
 //
-// The product step of the ported LU kernels: the masked rank-w/2
-// update inside the recursive panel (lu_panel_rec.cu). One block
-// walking all tiles (cta_gemm_sub): the per-element updates of
-// ragged_potrf.cu and ragged_getrf.cu. (The trailing update of the
-// tall-panel split and the Cholesky block use sgemm_tile.cuh and the
-// tensor cores instead.) All operands are row-major
+// One block walking all tiles (cta_gemm_sub): the per-element updates
+// of ragged_getrf.cu. (The recursive LU panel's product update, the
+// trailing update of its tall split and the Cholesky block use
+// sgemm_tile.cuh and the tensor cores instead.) All operands are row-major
 // strided views of one storage type T (float or __nv_bfloat16); D may
 // alias C (each element is read and then written by the same thread),
 // and A and B must not overlap D.
@@ -101,15 +99,6 @@ gemm_sub_tile(const T* C, long ldc, const T* __restrict__ A, long lda,
     }
 }
 
-template <typename T, bool BT>
-__global__ void __launch_bounds__(GS_THREADS)
-gemm_sub_kernel(const T* C, long ldc, const T* __restrict__ A, long lda,
-                const T* __restrict__ B, long ldb, T* D, long ldd, int M,
-                int N, int K) {
-    gemm_sub_tile<T, BT>(C, ldc, A, lda, B, ldb, D, ldd, M, N, K,
-                         blockIdx.y * GS_BM, blockIdx.x * GS_BN);
-}
-
 // D = C - A op(B) by ONE block of GS_THREADS threads walking every
 // tile of D in turn (the per-element updates of the ragged kernels,
 // one block per element). The caller synchronises the block before it
@@ -122,18 +111,6 @@ __device__ void cta_gemm_sub(const T* C, long ldc, const T* A, long lda,
         for (int col0 = 0; col0 < N; col0 += GS_BN)
             gemm_sub_tile<T, BT>(C, ldc, A, lda, B, ldb, D, ldd, M, N, K,
                                  row0, col0);
-}
-
-// Launch D = C - A op(B) on `stream`; returns cudaGetLastError().
-template <typename T, bool BT = false>
-int launch_gemm_sub(const T* C, long ldc, const T* A, long lda, const T* B,
-                    long ldb, T* D, long ldd, int M, int N, int K,
-                    cudaStream_t stream) {
-    if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-    dim3 grid((N + GS_BN - 1) / GS_BN, (M + GS_BM - 1) / GS_BM);
-    gemm_sub_kernel<T, BT><<<grid, GS_THREADS, 0, stream>>>(
-        C, ldc, A, lda, B, ldb, D, ldd, M, N, K);
-    return (int)cudaGetLastError();
 }
 
 }  // namespace slate_torch

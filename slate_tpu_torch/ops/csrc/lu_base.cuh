@@ -1,7 +1,9 @@
 // Cooperative partial-pivot LU of a column segment: the per-column
-// recurrence shared by the recursive panel's base case
-// (lu_panel_rec.cu, segments of ib columns) and the rank-1 panel
-// (lu_panel.cu, one segment over the whole width).
+// recurrence of the rank-1 panel (lu_panel.cu, one segment over the
+// whole width) and of the recursive panel's base case where
+// lu_base_grid.cuh does not take the segment (lu_panel_rec.cu: wider
+// than 32 columns, or more than 4 x 256 rows a block), and the
+// argmax helpers both share.
 //
 // For each column j of the segment [c0, c0+wseg) of a row-major (m, w)
 // panel: argmax of |a| over rows >= j, in f32, the lowest row winning

@@ -48,6 +48,7 @@
 
 #include "pdl.cuh"
 #include "sgemm_tile.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -95,40 +96,11 @@ constexpr int WG_SLABS = WG_MAX_K / WG_SLAB;
 constexpr int WG_A_BOX = 64 * 128;      // bytes of a 64-row slab of L21
 constexpr int WG_A_BYTES = 2 * WG_SLABS * WG_A_BOX;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            int c0, int c1, uint32_t bar) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
-           "r"(c1), "r"(bar)
-        : "memory");
-}
+using slate_torch::mbar_expect_tx;
+using slate_torch::mbar_init;
+using slate_torch::mbar_wait;
+using slate_torch::smem_u32;
+using slate_torch::tma_load_2d;
 
 // Shared-memory matrix descriptor of a K-major operand in the 128B
 // swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
@@ -268,8 +240,7 @@ rank_update_wgmma(const __grid_constant__ CUtensorMap map_l21,
 
     if (tid == 0) {
         for (int s = 0; s < nk; ++s) mbar_init(smem_u32(&full[s]), 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        slate_torch::mbar_init_fence();
     }
     __syncthreads();
     if (tid == 0) {
@@ -356,36 +327,11 @@ rank_update_wgmma(const __grid_constant__ CUtensorMap map_l21,
     }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime (no link against libcuda).
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q);
-#else
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q);
-#endif
-        if (q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-    }
-    return fn;
-}
-
 // A (rows, cols) row-major bf16 tensor, boxes of (box_rows, 64) in the
 // 128B swizzle; out-of-range rows and columns read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
               int box_rows) {
-    EncodeTiled enc = encode_tiled();
+    slate_torch::EncodeTiled enc = slate_torch::encode_tiled();
     if (enc == nullptr) return false;
     const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
     const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};

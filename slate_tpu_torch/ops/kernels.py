@@ -152,7 +152,7 @@ def lu_pivots_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError("compose_swaps kernel takes a (w,) or (B, w) "
                          "pivot stack, got %s" % (tuple(piv.shape),))
     lib = _build.load("compose_swaps")
-    _build.check(lib.slate_set_device(piv.get_device()), "slate_set_device")
+    _build.set_device(lib, "compose_swaps", piv.get_device())
     piv = piv.to(torch.int32).contiguous()
     batch = piv.shape[0] if piv.dim() == 2 else 1
     perm = torch.empty(*piv.shape[:-1], m, dtype=torch.int64,
@@ -273,22 +273,57 @@ def _ct(dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+def swap_gather(piv, c0: int, ncols: int) -> Tuple[list, list]:
+    """The row swaps c0+jj <-> piv[c0+jj], jj < ncols, in order, as one
+    gather: (dst, src) with row dst[i] taking the values row src[i]
+    held before the swaps, for every row the swaps move (the segment's
+    rows first, then the rows below it in the order of their first
+    swap): the composition the base case kernel does after its last
+    column for the columns outside the segment
+    (csrc/lu_base_grid.cuh)."""
+    content = {}
+
+    def get(r):
+        return content.get(r, r)
+
+    below = []
+    for jj in range(ncols):
+        j, p = c0 + jj, int(piv[c0 + jj])
+        if p == j:
+            continue
+        if p >= c0 + ncols and p not in content:
+            below.append(p)
+        content[j], content[p] = get(p), get(j)
+    dst = [r for r in range(c0, c0 + ncols) if get(r) != r] \
+        + [r for r in below if get(r) != r]
+    return dst, [get(r) for r in dst]
+
+
 def _segment_plain(out: torch.Tensor, piv: list, c0: int, e: int) -> None:
     """Columns [c0, e) of `out`, in place: per column the argmax pivot
     (``torch.argmax`` returns the first maximum, so the lowest row wins
-    ties), the full-row swap, the f32 safe divide rounded to the panel
-    type, and the rank-1 update confined to the segment."""
+    ties), the row swap within the segment, the f32 safe divide rounded
+    to the panel type, and the rank-1 update confined to the segment;
+    then the swaps of the columns outside the segment as one gather
+    (swap_gather), as the kernel does (row swaps are exact, so when
+    they happen changes no value)."""
     ct = _ct(out.dtype)
-    for j in range(c0, min(e, out.shape[0])):
+    ncols = max(0, min(e, out.shape[0]) - c0)
+    for j in range(c0, c0 + ncols):
         p = j + int(torch.argmax(out[j:, j].to(ct).abs()))
         piv[j] = p
         if p != j:
-            out[[j, p]] = out[[p, j]]
+            out[[j, p], c0:e] = out[[p, j], c0:e]
         pivval = out[j, j].to(ct)
         safe = torch.where(pivval == 0, torch.ones_like(pivval), pivval)
         mults = (out[j + 1:, j].to(ct) / safe).to(out.dtype)
         out[j + 1:, j] = mults
         out[j + 1:, j + 1:e] -= torch.outer(mults, out[j, j + 1:e])
+    dst, src = swap_gather(piv, c0, ncols)
+    if dst:
+        off = [c for c in range(out.shape[1]) if c < c0 or c >= e]
+        d, s_ = torch.tensor(dst), torch.tensor(src)
+        out[d[:, None], off] = out[s_[:, None], off]
 
 
 def _product(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -358,6 +393,17 @@ def panel_rec_plain(a: torch.Tensor, ib: int
 #: candidate slots of the base case's cooperative grid (BASE_MAX_BLOCKS
 #: in csrc/lu_base.cuh)
 _BASE_MAX_BLOCKS = 1024
+#: the recursive panel's base case kernel (csrc/lu_base_grid.cuh): most
+#: blocks (LG_MAX_BLOCKS), words of a candidate slot (LG_SLOT) and
+#: widest segment (LG_WMAX)
+_LG_MAX_BLOCKS, _LG_SLOT, _LG_WMAX = 160, 34, 32
+
+
+def lu_grid_scratch_words(max_blocks: int) -> int:
+    """int64 words of the base case's exchange (lu_base_grid.cuh
+    lu_grid_scratch_words): a generation counter and its pad, then per
+    column parity `max_blocks` candidate slots and row j's segment."""
+    return 2 + 2 * (max_blocks * _LG_SLOT + _LG_WMAX)
 
 
 def _panel_launch_setup(name: str, a: torch.Tensor):
@@ -373,7 +419,7 @@ def _panel_launch_setup(name: str, a: torch.Tensor):
                          "w <= %d, got %s %s" % (name, LU_REC_MAX_W,
                                                  tuple(a.shape), a.dtype))
     lib = _build.load(name)
-    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    _build.set_device(lib, name, a.get_device())
     out = a.clone(memory_format=torch.contiguous_format)
     piv = torch.zeros(w, dtype=torch.int32, device=a.device)
     scr_f = torch.empty(2 * _BASE_MAX_BLOCKS + 4 * w, dtype=torch.float32,
@@ -390,13 +436,18 @@ def _lu_panel_rec_cuda(a: torch.Tensor, ib: int
         raise ValueError("lu_panel_rec kernel takes w <= m and ib >= 1, "
                          "got %s ib=%d" % (tuple(a.shape), ib))
     lib, out, piv, scr_f, scr_i = _panel_launch_setup("lu_panel_rec", a)
+    blocks = min(_build.sm_count(a.get_device()), _LG_MAX_BLOCKS)
+    # zeroed once a panel: the exchange's epochs start above every word
+    scr_g = torch.zeros(lu_grid_scratch_words(blocks), dtype=torch.int64,
+                        device=a.device)
     ptr, pptr, s = out.data_ptr(), piv.data_ptr(), _stream(a)
     bf16 = int(a.dtype == torch.bfloat16)
 
     def base(c0, wseg):
         _build.check(lib.lu_rec_base(ptr, pptr, m, w, c0, wseg,
                                      scr_f.data_ptr(), scr_i.data_ptr(),
-                                     bf16, s), "lu_rec_base")
+                                     scr_g.data_ptr(), blocks, bf16, s),
+                     "lu_rec_base")
 
     def leaf(c0, ws, c1, c2):
         _build.check(lib.lu_rec_solve_leaf(ptr, w, c0, ws, c1, c2, bf16, s),
@@ -466,7 +517,7 @@ def _rank_update(a22: torch.Tensor, l21: torch.Tensor,
     m2, w2 = a22.shape
     w1 = l21.shape[1]
     lib = _build.load("rank_update")
-    _build.check(lib.slate_set_device(a22.get_device()), "slate_set_device")
+    _build.set_device(lib, "rank_update", a22.get_device())
     a22, l21, u12 = a22.contiguous(), l21.contiguous(), u12.contiguous()
     out = torch.empty_like(a22)
     bf16 = a22.dtype == torch.bfloat16
@@ -691,7 +742,7 @@ def _qr_panel_launch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                          "with 0 < w <= m, got %s %s"
                          % (tuple(a.shape), a.dtype))
     lib = _build.load("qr_panel")
-    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    _build.set_device(lib, "qr_panel", a.get_device())
     out = a.clone(memory_format=torch.contiguous_format)
     taus = torch.empty(w, dtype=torch.float32, device=a.device)
     scr = torch.empty(lib.qr_panel_scratch(w), dtype=torch.float32,
@@ -818,7 +869,7 @@ def _chol_panel_launch(a: torch.Tensor, serial: bool = False
     _check_chol_block(a)
     n = a.shape[0]
     lib = _build.load("chol_panel")
-    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    _build.set_device(lib, "chol_panel", a.get_device())
     work = a.clone(memory_format=torch.contiguous_format)
     out = torch.zeros_like(work)
     _build.check(lib.chol_panel(work.data_ptr(), out.data_ptr(), n,
@@ -880,7 +931,7 @@ def _trtri_lower_launch(a: torch.Tensor, unit_diagonal: bool
                          "n <= %d, got %s %s"
                          % (TRTRI_FUSED_MAX, tuple(a.shape), a.dtype))
     lib = _build.load("trtri_lower")
-    _build.check(lib.slate_set_device(a.get_device()), "slate_set_device")
+    _build.set_device(lib, "trtri_lower", a.get_device())
     a = a.contiguous()
     out = torch.zeros_like(a)
     _build.check(lib.trtri_lower(a.data_ptr(), out.data_ptr(), n,
@@ -1127,7 +1178,7 @@ def _ragged_setup(name: str, x: torch.Tensor, blk: int, donate: bool):
                          % (name, RAGGED_MAX_N, RAGGED_MAX_BLK,
                             tuple(x.shape), x.dtype, blk))
     lib = _build.load(name)
-    _build.check(lib.slate_set_device(x.get_device()), "slate_set_device")
+    _build.set_device(lib, name, x.get_device())
     out = x if donate and x.is_contiguous() else torch.empty_like(
         x, memory_format=torch.contiguous_format)
     return lib, out
@@ -1382,12 +1433,58 @@ def givens_chain_apply_plain(Z: torch.Tensor, cs: torch.Tensor,
     return out
 
 
+def chain_rows_per_block(rows: int, sms: int) -> int:
+    """Rows a block of the chain kernel takes (one warp, one lane a
+    row): the most of 32, 16 and 8 whose blocks still cover three
+    quarters of the `sms` SMs, else 8, so the band's loads spread over
+    the card (2048 rows on 132 SMs: 16, 128 blocks; 512 rows: 8)."""
+    for rb in (32, 16):
+        if -(-rows // rb) * 4 >= 3 * sms:
+            return rb
+    return 8
+
+
+def _chain_operand(Z: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """Z as the kernel's tensor maps take it, and whether its columns
+    are the contiguous axis: one unit stride, the other a multiple of 4
+    elements, 16-byte aligned; otherwise a row-major copy padded to
+    such a stride."""
+    rows, n = Z.shape
+    aligned = Z.data_ptr() % 16 == 0
+    if aligned and Z.stride(1) == 1 and Z.stride(0) % 4 == 0:
+        return Z, True
+    if aligned and Z.stride(0) == 1 and Z.stride(1) % 4 == 0:
+        return Z, False
+    pad = torch.empty((rows, -(-n // 4) * 4), dtype=Z.dtype,
+                      device=Z.device)[:, :n]
+    pad.copy_(Z)
+    return pad, True
+
+
+def _chain_out(Z: torch.Tensor, kmaj: bool) -> torch.Tensor:
+    """An output of Z's shape and orientation whose leading stride is a
+    multiple of 4 elements."""
+    rows, n = Z.shape
+    if kmaj:
+        return torch.empty((rows, -(-n // 4) * 4), dtype=Z.dtype,
+                           device=Z.device)[:, :n]
+    return torch.empty((n, -(-rows // 4) * 4), dtype=Z.dtype,
+                       device=Z.device)[:, :rows].T
+
+
+def _rotations(v: torch.Tensor, device) -> torch.Tensor:
+    """A rotation vector as the kernel's 1D tensor map takes it: f32,
+    contiguous, 16-byte aligned, on `device`."""
+    v = v.to(device=device, dtype=torch.float32).contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def _givens_chain_launch(Z: torch.Tensor, cs: torch.Tensor,
                          sn: torch.Tensor) -> torch.Tensor:
     """Z @ G through the CUDA kernel for a CUDA tensor (counted), the
     plain version for a CPU tensor. Z may be a transposed view (bdsqr
     applies its right chain to Gvh^T): the kernel takes strides and
-    writes an output of the same layout, so no copy is made."""
+    writes an output of the same orientation, so no copy is made."""
     if Z.device.type != "cuda":
         return givens_chain_apply_plain(Z, cs, sn)
     rows, n = Z.shape
@@ -1396,18 +1493,17 @@ def _givens_chain_launch(Z: torch.Tensor, cs: torch.Tensor,
         raise ValueError("givens_chain kernel takes an f32 (rows, n) Z "
                          "and n-1 rotations, got %s %s and %s"
                          % (tuple(Z.shape), Z.dtype, tuple(cs.shape)))
-    if Z.stride(1) != 1 and Z.stride(0) != 1:
-        Z = Z.contiguous()
-    out = torch.empty_like(Z)        # Z's strides (a dense layout)
-    cs = cs.to(device=Z.device, dtype=torch.float32).contiguous()
-    sn = sn.to(device=Z.device, dtype=torch.float32).contiguous()
+    Z, kmaj = _chain_operand(Z)
+    out = _chain_out(Z, kmaj)
+    cs, sn = _rotations(cs, Z.device), _rotations(sn, Z.device)
     lib = _build.load("givens_chain")
-    _build.check(lib.slate_set_device(Z.get_device()), "slate_set_device")
-    _build.check(lib.givens_chain(Z.data_ptr(), Z.stride(0), Z.stride(1),
-                                  out.data_ptr(), out.stride(0),
-                                  out.stride(1), cs.data_ptr(),
-                                  sn.data_ptr(), rows, n, _stream(Z)),
-                 "givens_chain")
+    dev = Z.get_device()
+    _build.set_device(lib, "givens_chain", dev)
+    _build.check(lib.givens_chain(
+        Z.data_ptr(), Z.stride(0), Z.stride(1), out.data_ptr(),
+        out.stride(0), out.stride(1), cs.data_ptr(), sn.data_ptr(), rows, n,
+        chain_rows_per_block(rows, _build.sm_count(dev)), _stream(Z)),
+        "givens_chain")
     _givens_chain_launch.launches += 1
     return out
 
@@ -1640,7 +1736,7 @@ def _sweep_setup(name: str, d: torch.Tensor, e: torch.Tensor, nrot: int):
                          % (name, QR_SWEEP_MAX_N, tuple(d.shape), d.dtype,
                             tuple(e.shape), e.dtype))
     lib = _build.load("qr_sweep")
-    _build.check(lib.slate_set_device(d.get_device()), "slate_set_device")
+    _build.set_device(lib, "qr_sweep", d.get_device())
     d, e = d.contiguous(), e.contiguous()
     rots = [torch.empty(n - 1, dtype=torch.float32, device=d.device)
             for _ in range(nrot)]

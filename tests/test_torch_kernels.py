@@ -453,6 +453,21 @@ def test_rank_update_c_signature():
     assert _build.LIBS["chol_panel"][1]["chol_panel"] == [P, P, I, I, P]
 
 
+def test_panel_and_chain_c_signatures():
+    """The recursive panel's base case takes the exchange scratch and
+    the block count before the type flag; the chain apply takes the
+    rows a block before the stream."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    assert _build.LIBS["lu_panel_rec"][1]["lu_rec_base"] == \
+        [P, P, I, I, I, I, P, P, P, I, I, P]
+    assert _build.LIBS["givens_chain"][1]["givens_chain"] == \
+        [P, L, L, P, L, L, P, P, I, I, I, P]
+    # the scratch: a counter and its pad, per parity the slots and row j
+    assert pk.lu_grid_scratch_words(132) == 2 + 2 * (132 * 34 + 32)
+
+
 @pytest.mark.parametrize("shapes,dtypes", [
     (((64, 32), (64, 16), (16, 32)), (torch.float32,) * 3),
     (((64, 32), (64, 16), (16, 32)), (torch.bfloat16,) * 3),
@@ -785,6 +800,74 @@ def test_givens_chain_apply_plain_matches_jax(rng):
         pk.givens_chain_apply(Zt, torch.as_tensor(c),
                               torch.as_tensor(s)).numpy(),
         Z.T @ G.numpy(), atol=1e-12)
+
+
+@pytest.mark.parametrize("rows,n,trans", [(64, 256, False),
+                                           (512, 256, True)])
+def test_givens_chain_apply_f32_matches_jax(rng, rows, n, trans):
+    """f32 at rows != n, row-major and a transposed view (bdsqr's right
+    chain on Gvh^T): the streamed apply against the reference's Pallas
+    kernel (interpreted) and the f64 chain. Each output is n-1 rounded
+    rotation steps away from its inputs, so both are held to
+    n eps max|Z| (the reference's window products round in another
+    order; on the CPU the two differ by ~1% of that)."""
+    c, s = (x.astype(np.float32) for x in _angles(rng, n))
+    Z = rng.standard_normal((n, rows) if trans else (rows, n)
+                            ).astype(np.float32)
+    if trans:
+        Z = Z.T
+    Zt = torch.as_tensor(Z)
+    assert Zt.stride(0 if trans else 1) == 1
+    got = pk.givens_chain_apply(Zt, torch.as_tensor(c), torch.as_tensor(s))
+    ref = jpk.givens_chain_apply(jnp.asarray(Z), jnp.asarray(c),
+                                 jnp.asarray(s))
+    assert got is not None and ref is not None
+    tol = n * np.finfo(np.float32).eps * np.abs(Z).max()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol,
+                               rtol=0)
+    exact = pk.givens_chain_apply_plain(
+        torch.as_tensor(Z.astype(np.float64)),
+        torch.as_tensor(c.astype(np.float64)),
+        torch.as_tensor(s.astype(np.float64)))
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("rows,sms,rb", [(2048, 132, 16), (512, 132, 8),
+                                         (8192, 132, 32), (64, 132, 8),
+                                         (3168, 132, 32), (3136, 132, 16)])
+def test_chain_rows_per_block(rows, sms, rb):
+    """The chain kernel's rows a block: the most of 32, 16, 8 whose
+    blocks still cover three quarters of the SMs."""
+    assert pk.chain_rows_per_block(rows, sms) == rb
+    blocks = -(-rows // rb)
+    assert rb == 8 or 4 * blocks >= 3 * sms
+
+
+@pytest.mark.parametrize("case", ["rowmajor", "transposed", "unaligned",
+                                  "odd_width", "odd_transposed"])
+def test_chain_operand_layouts(case):
+    """What the kernel's tensor maps take: a unit stride on one axis,
+    the other a multiple of 4 elements, 16-byte aligned; anything else
+    becomes a padded row-major copy. Outputs keep the operand's
+    orientation with a padded leading stride."""
+    base = torch.arange(64 * 40, dtype=torch.float32)
+    Z = {"rowmajor": base.view(64, 40),
+         "transposed": base.view(40, 64).T,
+         "unaligned": base[1:1 + 64 * 36].view(64, 36),
+         "odd_width": base[:64 * 37].view(64, 37),
+         "odd_transposed": base[:37 * 63].view(37, 63).T}[case]
+    op, kmaj = pk._chain_operand(Z)
+    assert torch.equal(op, Z)
+    assert kmaj == (case != "transposed")
+    lead = op.stride(0) if kmaj else op.stride(1)
+    assert op.stride(1 if kmaj else 0) == 1 and lead % 4 == 0
+    assert op.data_ptr() % 16 == 0
+    assert (op.data_ptr() == Z.data_ptr()) == (case in ("rowmajor",
+                                                        "transposed"))
+    out = pk._chain_out(op, kmaj)
+    assert out.shape == Z.shape
+    assert out.stride(1 if kmaj else 0) == 1
+    assert (out.stride(0) if kmaj else out.stride(1)) % 4 == 0
 
 
 def test_givens_chain_factors_compose_to_dense(rng):

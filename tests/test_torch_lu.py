@@ -360,3 +360,81 @@ def test_tune_decisions_counted(tmp_path, monkeypatch):
     assert snap["decisions"]["getrf.nb[explicit]"] == 1
     assert snap["decisions"]["lu_panel.method_lu_panel[cached]"] == 4
     assert snap["cache_hits"] >= 4
+
+
+# -- the recursive panel's deferred row swaps ------------------------------
+
+def _segment_immediate(out, piv, c0, e):
+    """The base case with each row swap applied to the whole row at its
+    column (the form before the swaps outside the segment were deferred
+    to one gather, ops/kernels._segment_plain)."""
+    ct = torch.promote_types(out.dtype, torch.float32)
+    for j in range(c0, min(e, out.shape[0])):
+        p = j + int(torch.argmax(out[j:, j].to(ct).abs()))
+        piv[j] = p
+        if p != j:
+            out[[j, p]] = out[[p, j]]
+        pivval = out[j, j].to(ct)
+        safe = torch.where(pivval == 0, torch.ones_like(pivval), pivval)
+        mults = (out[j + 1:, j].to(ct) / safe).to(out.dtype)
+        out[j + 1:, j] = mults
+        out[j + 1:, j + 1:e] -= torch.outer(mults, out[j, j + 1:e])
+
+
+def _rec_cases():
+    """(name, panel, ib): the adversarial suite (m = 256, w = 32,
+    ib = 8) and a 256 x 128 panel at the frozen ib = 32, spiked so the
+    pivots cross every segment."""
+    from slate_tpu_torch.testing import panel_cases, spiked
+    cases = [(k, a, 8) for k, a in
+             panel_cases(np.random.default_rng(42), 256, 32, 8).items()]
+    rng = np.random.default_rng(11)
+    cases.append(("w128", spiked(rng, 256, 128,
+                                 [255 - (37 * j) % 200 for j in range(128)]),
+                  32))
+    return cases
+
+
+REC_CASES = _rec_cases()
+
+
+@pytest.mark.parametrize("case", range(len(REC_CASES)),
+                         ids=[c[0] for c in REC_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deferred_swaps_equal_immediate_and_jax(case, dtype, monkeypatch):
+    """The plain panel with the swaps outside each base-case segment
+    deferred to one gather (as the kernel does) is bitwise the panel
+    with every swap applied at its column, in pivots and values (row
+    swaps are exact); its pivots are bitwise those of the JAX
+    lu_panel_rec (the Pallas interpreter)."""
+    from slate_tpu.ops import pallas_kernels as jpk
+    name, a, ib = REC_CASES[case]
+    t = torch.as_tensor(a).to(dtype)
+    got, piv = pk.panel_rec_plain(t, ib)
+    monkeypatch.setattr(pk, "_segment_plain", _segment_immediate)
+    ref, rpiv = pk.panel_rec_plain(t, ib)
+    assert torch.equal(piv, rpiv)
+    assert torch.equal(got, ref)
+    if dtype == torch.float32:
+        _, jpiv = jpk.lu_panel_rec(jnp.asarray(a), ib=ib)
+        assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+
+
+@pytest.mark.parametrize("seed,c0,ncols,m", [(0, 0, 32, 256), (1, 64, 32, 256),
+                                             (2, 8, 8, 40), (3, 0, 16, 16)])
+def test_swap_gather_composes_the_swaps(seed, c0, ncols, m):
+    """swap_gather's (dst, src) moves exactly the rows the swap sequence
+    c0+jj <-> piv[c0+jj] moves, to where the sequence puts them."""
+    rng = np.random.default_rng(seed)
+    piv = list(range(c0)) + [c0 + jj + int(rng.integers(0, m - c0 - jj))
+                             for jj in range(ncols)]
+    rows = np.arange(m)
+    for jj in range(ncols):
+        j, p = c0 + jj, piv[c0 + jj]
+        rows[[j, p]] = rows[[p, j]]
+    dst, src = pk.swap_gather(piv, c0, ncols)
+    moved = np.arange(m)
+    moved[dst] = np.asarray(src, dtype=int)
+    assert np.array_equal(moved, rows)
+    assert sorted(dst) == sorted(set(dst))
+    assert all(rows[r] != r for r in dst)
