@@ -1,39 +1,38 @@
 #!/usr/bin/env python3
-"""Parent against change on one card, in one run: the Givens chain
-apply (`givens_chain_apply`), the recursive LU panel (`lu_panel_rec`:
-its base case, leaf solve and product update), the rank-1 LU panel
-(`lu_panel`, which shares the old base case), and the solves on their
-paths.
+"""Parent against change on one card, in one run: the Householder
+panel (`qr_panel`), the ragged triangular solve (`ragged_trsm`), and
+the calls on their paths.
 
     git archive <parent> | tar -x -C smoke_archive/parent
     python3 chip_compare.py --parent smoke_archive/parent
 
-  1. kernels  the parent tree's givens_chain.cu, lu_panel_rec.cu and
-              lu_panel.cu are compiled from its sources into libraries
-              of their own and called through their C entries on the
-              same inputs as this tree's wrappers, in the order parent,
-              change, change, parent, back to back (`ms`) and replayed
-              from a CUDA graph (`graph_ms`): the chain on Z 2048 x 2048,
-              512 x 512 and a transposed 512 x 512 view, each bitwise
-              against the plain version, beside Z @ G; lu_panel_rec at
-              f32 16384x128 and bf16 16384x64 (one dispatch) and at
-              16384x512 in both types (the tall split, its sub-panels
-              through either tree's panel kernels), each tree's panel
-              bitwise the other's, pivots bitwise against the plain
-              version (one dispatch; the split's bf16 update on the
-              tensor cores rounds otherwise) and the residual within
-              chip_smoke.RES_LIMIT; lu_panel bf16 4096x256 the same way;
-              then, this tree only and replayed from a CUDA graph,
-              qr_panel f32 4096x128 against torch.geqrf and ragged_trsm
-              f32 / bf16 on the serving stream's first flush (64 x 608^2,
-              K = 1) against torch.linalg.solve_triangular;
+  1. kernels  the parent tree's qr_panel.cu and ragged_trsm.cu are
+              compiled from its sources into libraries of their own and
+              called through their C entries on the same inputs as this
+              tree's wrappers, in the order parent, change, change,
+              parent, back to back (`ms`) and replayed from a CUDA graph
+              (`graph_ms`): qr_panel f32 and bf16 at 8192, 4096, 1024
+              and 256 x 128 (each tree against the plain version:
+              chip_smoke.qr_values_ok and the factors' residual within
+              chip_smoke.QR_RES_LIMIT), beside torch.geqrf (an f32
+              upcast for bf16); ragged_trsm f32 and bf16 in the four
+              modes the posv / gesv flushes run (000, 010, 001, 100:
+              upper, trans, unit) on the serving stream's first flush
+              and on the flush that holds the order-1024 request (the
+              factors from ragged_potrf), each tree within
+              chip_smoke.RAGGED_LIMIT of the plain version with zero pad
+              rows, beside torch.linalg.solve_triangular on the
+              identity-padded factors; each row carries its bound
+              (chip_smoke.qr_bounds / trsm_bounds);
   2. solves   in one process per tree, in the order parent, change,
-              change, parent: gesv and gesv_mixed at n = 16384 as
-              chip_smoke.py's phases run them (their checks included)
-              and gesv once more under torch.profiler (busy time, idle
-              share, the base case's share); heev at n = 2048 and svd at
-              512 through their QR iterations with the chain routed to
-              the kernel (chip_smoke.py's systems and accuracy checks).
+              change, parent: the bf16 gels at n = 8192 as chip_smoke.py's
+              phase runs it (its checks included, 64 qr_panel launches)
+              and once more under torch.profiler (busy time, idle share,
+              qr_panel's share); the ragged posv and gesv of the serving
+              stream's first flush on the card (batch.drivers
+              ragged_dispatch on device stacks, warm, CUDA events), and
+              the same posv through the queue (chip_smoke.serve_run, host
+              copies included).
 
 Prints one JSON line a phase and the card's nvidia-smi line; exits 1
 when a check fails and 2 without a CUDA card.
@@ -52,23 +51,22 @@ import torch
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 
-from chip_smoke import (DTYPES, RAGGED_LIMIT, RES_LIMIT, cuda_ms, graph_ms,
-                        identity_padded, lu_residual, path_stacks,
-                        plain_subset, qr_residual, scaled_err, to_card)
+from chip_smoke import (DTYPES, QR_RES_LIMIT, RAGGED_LIMIT, TRSM_PATH_MODES,
+                        cuda_ms, graph_ms, identity_padded, largest_flush,
+                        path_stacks, plain_subset, qr_bounds, qr_residual,
+                        qr_values_ok, scaled_err, to_card, trsm_bounds,
+                        trsm_library)
 
-N = 16384
 ORDER = ("parent", "change", "change", "parent")
+QR_SHAPES = (8192, 4096, 1024, 256)
 
 #: the parent's C entries
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_LIBS = {
-    "lu_panel_rec": {"lu_rec_base": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
-                     "lu_rec_solve_leaf": [_P, _I, _I, _I, _I, _I, _I, _P],
-                     "lu_rec_mm_update": [_P, _I, _I, _I, _I, _I, _I, _I,
-                                          _I, _P]},
-    "lu_panel": {"lu_panel": [_P, _P, _I, _I, _P, _P, _I, _P]},
-    "givens_chain": {"givens_chain": [_P, _L, _L, _P, _L, _L, _P, _P, _I,
-                                      _I, _P]},
+    "qr_panel": {"qr_panel_scratch": [_I],
+                 "qr_panel": [_P, _P, _I, _I, _P, _P, _I, _P]},
+    "ragged_trsm": {"ragged_trsm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _P]},
 }
 
 
@@ -101,73 +99,30 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def parent_chain(lib, Z, cs, sn):
-    out = torch.empty_like(Z)
-    _build.check(lib.givens_chain(Z.data_ptr(), Z.stride(0), Z.stride(1),
-                                  out.data_ptr(), out.stride(0),
-                                  out.stride(1), cs.data_ptr(), sn.data_ptr(),
-                                  Z.shape[0], Z.shape[1], _stream()),
-                 "parent givens_chain")
-    return out
-
-
-def parent_panel_rec(lib, a, ib):
-    """One panel dispatch through the parent's kernels: the same
-    recursion, the parent's base case signature."""
+def parent_qr_panel(lib, a):
+    """One panel through the parent's kernel, as its wrapper called it."""
     m, w = a.shape
     out = a.clone(memory_format=torch.contiguous_format)
-    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
-    scr_f = torch.empty(2 * 1024 + 4 * w, dtype=torch.float32,
-                        device=a.device)
-    scr_i = torch.empty(1 + 2 * 1024, dtype=torch.int32, device=a.device)
-    ptr, pptr, s = out.data_ptr(), piv.data_ptr(), _stream()
-    bf16 = int(a.dtype == torch.bfloat16)
-
-    def base(c0, wseg):
-        _build.check(lib.lu_rec_base(ptr, pptr, m, w, c0, wseg,
-                                     scr_f.data_ptr(), scr_i.data_ptr(),
-                                     bf16, s), "parent lu_rec_base")
-
-    def leaf(c0, ws, c1, c2):
-        _build.check(lib.lu_rec_solve_leaf(ptr, w, c0, ws, c1, c2, bf16, s),
-                     "parent lu_rec_solve_leaf")
-
-    def mm(r0, r1, k0, k1, c0, c1):
-        _build.check(lib.lu_rec_mm_update(ptr, w, r0, r1, k0, k1, c0, c1,
-                                          bf16, s), "parent lu_rec_mm_update")
-
-    pk._rec_drive(m, w, ib, base, leaf, mm)
-    return out, piv
-
-
-def parent_lu_panel(lib, a):
-    m, w = a.shape
-    out = a.clone(memory_format=torch.contiguous_format)
-    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
-    scr_f = torch.empty(2 * 1024 + 4 * w, dtype=torch.float32,
-                        device=a.device)
-    scr_i = torch.empty(1 + 2 * 1024, dtype=torch.int32, device=a.device)
-    _build.check(lib.lu_panel(out.data_ptr(), piv.data_ptr(), m, w,
-                              scr_f.data_ptr(), scr_i.data_ptr(),
+    taus = torch.empty(w, dtype=torch.float32, device=a.device)
+    scr = torch.empty(lib.qr_panel_scratch(w), dtype=torch.float32,
+                      device=a.device)
+    bar = torch.empty(1, dtype=torch.int32, device=a.device)
+    _build.check(lib.qr_panel(out.data_ptr(), taus.data_ptr(), m, w,
+                              scr.data_ptr(), bar.data_ptr(),
                               int(a.dtype == torch.bfloat16), _stream()),
-                 "parent lu_panel")
-    return out, piv
+                 "parent qr_panel")
+    return out, taus
 
 
-class parent_panels:
-    """Inside the block, lu_panel_rec's one-dispatch panels go through
-    the parent's kernels (so the tall split's sub-panels do too)."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def __enter__(self):
-        self.saved = pk._lu_panel_rec_cuda
-        pk._lu_panel_rec_cuda = lambda a, ib: parent_panel_rec(self.lib, a,
-                                                               ib)
-
-    def __exit__(self, *exc):
-        pk._lu_panel_rec_cuda = self.saved
+def parent_ragged_trsm(lib, t, b, sizes, upper, trans, unit):
+    B, N, K = b.shape
+    out = torch.empty_like(b)
+    _build.check(lib.ragged_trsm(t.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 sizes.data_ptr(), B, N, K, pk.ragged_blk(),
+                                 int(upper), int(trans), int(unit),
+                                 int(b.dtype == torch.bfloat16), _stream()),
+                 "parent ragged_trsm")
+    return out
 
 
 def timed(row, fns, reps):
@@ -177,194 +132,139 @@ def timed(row, fns, reps):
         row["graph_ms_%d_%s" % (i, who)] = graph_ms(fns[who], reps)
 
 
-def chain_rows(libs, rng):
-    from slate_tpu_torch.linalg.svd import _givens_chain_matrix
+def qr_rows(libs, rng):
     ok, rows = True, []
-    for n_rows, n, trans in ((2048, 2048, False), (512, 512, False),
-                             (512, 512, True)):
-        th = rng.standard_normal(n - 1)
-        cs = torch.as_tensor(np.cos(th), dtype=torch.float32, device="cuda")
-        sn = torch.as_tensor(np.sin(th), dtype=torch.float32, device="cuda")
-        Z = torch.as_tensor(rng.standard_normal((n, n_rows) if trans
-                                                else (n_rows, n)),
-                            dtype=torch.float32, device="cuda")
-        if trans:
-            Z = Z.T
-        ref = pk.givens_chain_apply_plain(Z, cs, sn)
-        fns = {"parent": lambda: parent_chain(libs["givens_chain"], Z, cs,
-                                              sn),
-               "change": lambda: pk._givens_chain_launch(Z, cs, sn)}
-        row = {"kernel": "givens_chain_apply", "dtype": "float32",
-               "shape": "%dx%d%s" % (n_rows, n, " transposed" if trans
-                                     else "")}
-        for who, fn in fns.items():
-            row["bitwise_" + who] = bool(torch.equal(fn(), ref))
-            ok &= row["bitwise_" + who]
-        timed(row, fns, 20)
-        G = _givens_chain_matrix(cs, sn, n)
-        row["library_ms"] = cuda_ms(lambda: Z @ G, 20)
-        row["library_graph_ms"] = graph_ms(lambda: Z @ G)
-        rows.append(row)
+    for m in QR_SHAPES:
+        for dname, dtype in DTYPES:
+            a = torch.as_tensor(rng.standard_normal((m, 128),
+                                                    dtype=np.float32),
+                                device="cuda").to(dtype)
+            pp, pt = pk.qr_panel_plain(a)
+            fns = {"parent": lambda: parent_qr_panel(libs["qr_panel"], a),
+                   "change": lambda: pk._qr_panel_launch(a)}
+            row = {"kernel": "qr_panel", "dtype": dname,
+                   "shape": "%dx128" % m}
+            for who, fn in fns.items():
+                kp, kt = fn()
+                v_ok, err, terr = qr_values_ok("random", dtype, kp, kt, pp,
+                                               pt)
+                res = qr_residual(a, kp, kt)
+                row.update({"values_ok_" + who: v_ok, "err_" + who: err,
+                            "tau_err_" + who: terr, "residual_" + who: res})
+                ok &= res <= QR_RES_LIMIT[dtype]
+            timed(row, fns, 10)
+            a32 = a.float()
+            row["library"] = "torch.geqrf" + (
+                " (f32 upcast)" if dtype != torch.float32 else "")
+            row["library_ms"] = cuda_ms(lambda: torch.geqrf(a32), 10)
+            row["library_graph_ms"] = graph_ms(lambda: torch.geqrf(a32), 10)
+            row.update(qr_bounds(m, 128, a.element_size()))
+            rows.append(row)
     return ok, rows
 
 
-def panel_rows(libs, rng):
+def trsm_rows(libs, seed):
     ok, rows = True, []
-    lib = libs["lu_panel_rec"]
-    for (dname, dtype), w in ((DTYPES[0], 128), (DTYPES[1], 64),
-                              (DTYPES[0], 512), (DTYPES[1], 512)):
-        a = torch.as_tensor(rng.standard_normal((N, w), dtype=np.float32),
-                            device="cuda").to(dtype)
-        pp, ppiv = pk.lu_panel_rec_plain(a)
-
-        def parent():
-            with parent_panels(lib):
-                return pk.lu_panel_rec(a)
-
-        fns = {"parent": parent, "change": lambda: pk.lu_panel_rec(a)}
-        split = N * w > pk._rec_max_elems(dtype, None)
-        row = {"kernel": "lu_panel_rec", "dtype": dname,
-               "shape": "%dx%d" % (N, w), "split": split}
-        got = {}
-        for who, fn in fns.items():
-            kp, kpiv = got[who] = fn()
-            row["pivots_bitwise_" + who] = bool(torch.equal(kpiv, ppiv))
-            row["residual_" + who] = lu_residual(a, kp, kpiv)
-            # the split's trailing update rounds otherwise than the
-            # plain product (bf16 on the tensor cores): held to the
-            # residual only, as chip_smoke.py holds it
-            ok &= (split or row["pivots_bitwise_" + who]) \
-                and row["residual_" + who] <= RES_LIMIT[dtype]
-        # the same arithmetic in both trees: equal, pivots and values
-        row["parent_equals_change"] = all(
-            torch.equal(x, y) for x, y in zip(got["parent"], got["change"]))
-        ok &= row["parent_equals_change"]
-        timed(row, fns, 5 if w < 512 else 3)
-        rows.append(row)
-    a = torch.as_tensor(rng.standard_normal((4096, 256), dtype=np.float32),
-                        device="cuda").to(torch.bfloat16)
-    pp, ppiv = pk.lu_panel_plain(a)
-    fns = {"parent": lambda: parent_lu_panel(libs["lu_panel"], a),
-           "change": lambda: pk.lu_panel(a)}
-    row = {"kernel": "lu_panel", "dtype": "bfloat16", "shape": "4096x256"}
-    for who, fn in fns.items():
-        kp, kpiv = fn()
-        row["pivots_bitwise_" + who] = bool(torch.equal(kpiv, ppiv))
-        row["residual_" + who] = lu_residual(a, kp, kpiv)
-        ok &= row["pivots_bitwise_" + who] \
-            and row["residual_" + who] <= RES_LIMIT[torch.bfloat16]
-    timed(row, fns, 5)
-    rows.append(row)
-    return ok, rows
-
-
-def retime_rows(rng, seed):
-    """qr_panel f32 and ragged_trsm against their library calls, as
-    CUDA graphs (their kernels are the same in both trees)."""
-    ok, rows = True, []
-    a = torch.as_tensor(rng.standard_normal((4096, 128), dtype=np.float32),
-                        device="cuda")
-    kp, kt = pk._qr_panel_launch(a)
-    res = qr_residual(a, kp, kt)
-    ok &= res <= 1e-5
-    rows.append({"kernel": "qr_panel", "dtype": "float32",
-                 "shape": "4096x128", "residual": res,
-                 "graph_ms": graph_ms(lambda: pk._qr_panel_launch(a), 10),
-                 "ms": cuda_ms(lambda: pk._qr_panel_launch(a), 10),
-                 "library_graph_ms": graph_ms(lambda: torch.geqrf(a), 10),
-                 "library_ms": cuda_ms(lambda: torch.geqrf(a), 10)})
-    sizes, ceil, spd, _gen, rhs = path_stacks(seed)
-    sub = plain_subset(sizes)
-    szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-    for dname, dtype in DTYPES:
-        L = pk.ragged_potrf(to_card(spd, dtype), szc)
-        b = to_card(rhs, dtype)
-        kx = pk.ragged_trsm(L, b, szc)
-        px = pk.ragged_trsm_plain(L[sub], b[sub], [sizes[i] for i in sub],
-                                  pk.ragged_blk())
-        err = scaled_err(kx[sub], px)
-        ok &= err <= RAGGED_LIMIT[dtype]
-        Lid, b32 = identity_padded(L, sizes).float(), b.float()
-
-        def lib():
-            return torch.linalg.solve_triangular(Lid, b32, upper=False)
-
-        rows.append({"kernel": "ragged_trsm", "dtype": dname,
-                     "shape": "%dx%dx%d, K = 1" % L.shape, "err": err,
-                     "graph_ms": graph_ms(lambda: pk.ragged_trsm(L, b, szc)),
-                     "ms": cuda_ms(lambda: pk.ragged_trsm(L, b, szc), 20),
-                     "library_graph_ms": graph_ms(lib),
-                     "library_ms": cuda_ms(lib, 20)})
+    for flush in (0, largest_flush(seed)):
+        sizes, ceil, spd, _gen, rhs = path_stacks(seed, flush)
+        sub = plain_subset(sizes)
+        szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        for dname, dtype in DTYPES:
+            L = pk.ragged_potrf(to_card(spd, dtype), szc)
+            U = L.mT.contiguous()
+            b = to_card(rhs, dtype)
+            Lid = identity_padded(L, sizes).float()
+            b32 = b.float()
+            for up, tr, un in TRSM_PATH_MODES:
+                T = U if up else L
+                px = pk.ragged_trsm_plain(T[sub], b[sub],
+                                          [sizes[i] for i in sub],
+                                          pk.ragged_blk(), up, tr, un)
+                fns = {"parent": lambda: parent_ragged_trsm(
+                           libs["ragged_trsm"], T, b, szc, up, tr, un),
+                       "change": lambda: pk.ragged_trsm(
+                           T, b, szc, upper=up, trans=tr, unit=un)}
+                row = {"kernel": "ragged_trsm", "dtype": dname,
+                       "mode": "%d%d%d" % (up, tr, un), "flush": flush,
+                       "shape": "%dx%dx%d, K = 1" % L.shape}
+                for who, fn in fns.items():
+                    kx = fn()
+                    err = scaled_err(kx[sub], px)
+                    zero_pad = all(bool((kx[i, s:] == 0).all())
+                                   for i, s in enumerate(sizes))
+                    row["err_" + who], row["zero_pad_" + who] = err, zero_pad
+                    ok &= err <= RAGGED_LIMIT[dtype] and zero_pad
+                timed(row, fns, 20)
+                lib = trsm_library(Lid, b32, up, tr, un)
+                row["library_ms"] = cuda_ms(lib, 20)
+                row["library_graph_ms"] = graph_ms(lib)
+                row.update(trsm_bounds(sizes, b))
+                rows.append(row)
     return ok, rows
 
 
 def phase_kernels(libs, seed):
     rng = np.random.default_rng(seed)
     ok, rows = True, []
-    for part in (lambda: chain_rows(libs, rng), lambda: panel_rows(libs, rng),
-                 lambda: retime_rows(rng, seed)):
+    for part in (lambda: qr_rows(libs, rng), lambda: trsm_rows(libs, seed)):
         p_ok, p_rows = part()
         ok &= p_ok
         rows += p_rows
     return {"phase": "kernels", "ok": bool(ok), "rows": rows}
 
 
-#: run in each tree: chip_smoke.py's gesv and gesv_mixed phases, gesv
-#: under the profiler, then heev and svd through their QR iterations
+#: run in each tree (only what both trees' chip_smoke.py have): the bf16
+#: gels phase, the bf16 gels under the profiler, then the serving
+#: stream's first flush as ragged posv and gesv on the card and the
+#: posv through the queue
 SOLVES = """
 import json
+import numpy as np
 import torch
 import chip_smoke as cs
 import slate_tpu_torch as st
+from slate_tpu_torch.batch import drivers
 seed = %d
 results, system = {}, {}
-g = cs.phase_gesv(seed, results, system)
-m = cs.phase_mixed(results, system)
-cs.fresh_tune_cache([torch.float32])
-prof = cs.profile_call(lambda: st.gesv(system["A"], system["B"],
-                                       system["opts"]), top=40)
-base_ms = sum(t["device_ms"] for t in prof["top"] if "lu_base" in t["kernel"])
-del system
-gen = torch.Generator(device="cuda").manual_seed(seed)
-g2 = torch.randn((cs.N_EIG, cs.N_EIG), generator=gen, device="cuda")
-a = (g2 + g2.T) / 2
-A = st.HermitianMatrix(st.Uplo.Lower, a, mb=cs.MB_EIG)
-cs.fresh_tune_cache()
-w_ref, _ = st.heev(A)
-cs.route_chain("steqr2", torch.float32, cs.N_EIG)
-heev_s, (w, V) = cs.wall_s(lambda: st.heev(
-    A, {st.Option.MethodEig: st.MethodEig.QRIteration}))
-heev_ok, heev_chk = cs.eig_checks(a.double(), w, V, w_ref,
-                                  float(w_ref.abs().max()),
-                                  cs.STAGED_EIG_LIMIT)
-gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-b = torch.randn((cs.N_SVD, cs.N_SVD), generator=gen, device="cuda")
-B = st.Matrix(b, mb=cs.MB_SVD)
-cs.fresh_tune_cache()
-s_ref = st.svd(B).s
-cs.route_chain("bdsqr", torch.float32, cs.N_SVD)
-svd_s, r = cs.wall_s(lambda: st.svd(
-    B, {st.Option.MethodSVD: st.MethodSVD.QRIteration}))
-u, vh = r.U.to_dense().double(), r.Vh.to_dense().double()
-recon = float(torch.linalg.norm(u * r.s.double()[None, :] @ vh - b.double())
-              / torch.linalg.norm(b.double()))
-serr = float((r.s.double() - s_ref.double()).abs().max() / s_ref.max())
-svd_ok = max(recon, serr) <= cs.EIG_LIMIT
+g = cs.phase_gels_bf16(seed, results, system)
+a_np, b_np = cs.permuted_boosted_system(np.random.default_rng(seed),
+                                        cs.N_QR_BF16, cs.NRHS)
+Ab = st.Matrix(torch.as_tensor(a_np, device="cuda").bfloat16(), mb=cs.NB)
+Bb = st.Matrix(torch.as_tensor(b_np, device="cuda").bfloat16(), mb=cs.NB)
+del a_np, b_np
+prof = cs.profile_call(lambda: st.gels(Ab, Bb), top=40)
+qr_ms = sum(t["device_ms"] for t in prof["top"]
+            if "qr_panel" in t["kernel"])
+del Ab, Bb
+sizes, ceil, spd, gen, rhs = cs.path_stacks(seed)
+szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+flush = {}
+for op, stack in (("posv", spd), ("gesv", gen)):
+    S = torch.as_tensor(stack, device="cuda")
+    R = torch.as_tensor(rhs, device="cuda")
+    x = drivers.ragged_dispatch(op, S, szc, R, device="cuda")
+    a64 = S.double()
+    r = torch.linalg.norm(a64 @ x.double() - R.double()) / (
+        torch.linalg.norm(a64) * torch.linalg.norm(x.double()))
+    flush[op] = {"ms": cs.cuda_ms(lambda: drivers.ragged_dispatch(
+        op, S, szc, R, device="cuda"), 10), "backward_error": float(r)}
+mats = [np.ascontiguousarray(spd[i, :n, :n]) for i, n in enumerate(sizes)]
+rhss = [np.ascontiguousarray(rhs[i, :n]) for i, n in enumerate(sizes)]
+cs.serve_run("posv", mats, rhss, "ragged")
+_, rec, _ = cs.serve_run("posv", mats, rhss, "ragged")
 print("SOLVES " + json.dumps({
-    "gesv_wall_s": g["wall_s"], "gesv_ok": g["ok"],
-    "gesv_backward_error": g["backward_error"],
-    "gesv_launches": g["launches"],
-    "gesv_mixed_wall_s": m["wall_s"], "gesv_mixed_ok": m["ok"],
-    "gesv_mixed_iters": m["iters"],
-    "gesv_profile": {"wall_s": prof["wall_s"],
-                     "busy_s": prof["device_busy_s"],
-                     "idle_share": prof["idle_share"],
-                     "lu_base_ms": base_ms,
-                     "lu_base_share": base_ms / 1e3 / prof["device_busy_s"],
-                     "top": prof["top"][:6]},
-    "heev_qr_wall_s": heev_s, "heev_ok": heev_ok, "heev_checks": heev_chk,
-    "svd_qr_wall_s": svd_s, "svd_ok": svd_ok,
-    "svd_checks": {"reconstruction": recon, "values_vs_auto": serr}}))
+    "gels_bf16_wall_s": g["wall_s"], "gels_bf16_ok": g["ok"],
+    "gels_bf16_x_rel_diff_f32": g["x_rel_diff_f32"],
+    "gels_bf16_qr_panel_launches": g["launches"]["qr_panel"],
+    "gels_f32_wall_s": g["gels_f32_wall_s"],
+    "gels_bf16_profile": {"wall_s": prof["wall_s"],
+                          "busy_s": prof["device_busy_s"],
+                          "idle_share": prof["idle_share"],
+                          "qr_panel_ms": qr_ms,
+                          "qr_panel_share": qr_ms / 1e3
+                          / prof["device_busy_s"],
+                          "top": prof["top"][:8]},
+    "ragged_flush": flush, "posv_queue_flush": rec}))
 """
 
 
@@ -383,8 +283,8 @@ def phase_solves(trees, seed):
             continue
         rec = json.loads(line[-1][len("SOLVES "):])
         rec["tree"] = who
-        ok &= rec["gesv_ok"] and rec["gesv_mixed_ok"] and rec["heev_ok"] \
-            and rec["svd_ok"]
+        ok &= rec["gels_bf16_ok"] and all(
+            f["backward_error"] <= 1e-6 for f in rec["ragged_flush"].values())
         runs.append(rec)
     return {"phase": "solves", "ok": bool(ok), "runs": runs}
 

@@ -56,8 +56,7 @@ LIBS = {
     }),
     "qr_panel": ("qr_panel.cu", {
         "slate_set_device": [_I],
-        "qr_panel_scratch": [_I],
-        "qr_panel": [_P, _P, _I, _I, _P, _P, _I, _P],
+        "qr_panel": [_P, _P, _I, _I, _I, _P, _I, _P],
     }),
     "chol_panel": ("chol_panel.cu", {
         "slate_set_device": [_I],

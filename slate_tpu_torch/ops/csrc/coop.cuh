@@ -2,11 +2,12 @@
 // conversions with the panel type's rounding, the grid-wide barrier, and
 // the cooperative launch of up to one block per SM.
 //
-// Used by the LU segment factorization (lu_base.cuh: the recursive
-// panel's base case and the rank-1 panel) and the Householder panel
-// (qr_panel.cu). A cooperative kernel here keeps its row slice of the
-// panel in shared memory for the whole call; the only cross-block
-// traffic is what a column's reduction posts between two barriers.
+// The barrier and the launch are used by the LU segment factorization
+// (lu_base.cuh: the rank-1 panel, and the recursive panel's wider
+// segments); the conversions by every panel kernel. A cooperative
+// kernel here keeps its row slice of the panel in shared memory for the
+// whole call; the only cross-block traffic is what a column's reduction
+// posts between two barriers.
 
 #pragma once
 

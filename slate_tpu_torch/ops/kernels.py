@@ -660,6 +660,23 @@ def lu_panel(a: torch.Tensor
 QR_PANEL_MAX_W = 128
 #: tallest QR panel of one dispatch
 QR_PANEL_MAX_M = 8192
+#: the kernel's launch (csrc/qr_panel.cu): widest panel it takes, rows
+#: a block, most blocks (each posts a partial vector that every block
+#: reads, once a column)
+_QR_KERNEL_MAX_W, _QR_BLOCK_ROWS, _QR_MAX_BLOCKS = 256, 32, 64
+
+
+def qr_panel_blocks(m: int, sms: int) -> int:
+    """Blocks of the qr_panel kernel over m rows on `sms` SMs: one for
+    every _QR_BLOCK_ROWS rows, at most _QR_MAX_BLOCKS and one a SM (every
+    block is resident: they poll each other's words)."""
+    return max(1, min(-(-m // _QR_BLOCK_ROWS), _QR_MAX_BLOCKS, sms))
+
+
+def qr_scratch_words(blocks: int, w: int) -> int:
+    """int64 words of the qr_panel kernel's exchange: per column parity
+    `blocks` partial vectors of w words, then row j."""
+    return 2 * (blocks + 1) * w
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -737,19 +754,20 @@ def _qr_panel_launch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if a.device.type != "cuda":
         return qr_panel_plain(a)
     m, w = a.shape
-    if a.dtype not in PANEL_DTYPES or not 0 < w <= m:
+    if a.dtype not in PANEL_DTYPES or not 0 < w <= min(m, _QR_KERNEL_MAX_W):
         raise ValueError("qr_panel kernel takes an f32/bf16 (m, w) panel "
-                         "with 0 < w <= m, got %s %s"
-                         % (tuple(a.shape), a.dtype))
+                         "with 0 < w <= m and w <= %d, got %s %s"
+                         % (_QR_KERNEL_MAX_W, tuple(a.shape), a.dtype))
     lib = _build.load("qr_panel")
     _build.set_device(lib, "qr_panel", a.get_device())
     out = a.clone(memory_format=torch.contiguous_format)
     taus = torch.empty(w, dtype=torch.float32, device=a.device)
-    scr = torch.empty(lib.qr_panel_scratch(w), dtype=torch.float32,
+    blocks = qr_panel_blocks(m, _build.sm_count(a.get_device()))
+    # zeroed once a call: the exchange's epochs start above every word
+    scr = torch.zeros(qr_scratch_words(blocks, w), dtype=torch.int64,
                       device=a.device)
-    bar = torch.empty(1, dtype=torch.int32, device=a.device)
     _build.check(lib.qr_panel(out.data_ptr(), taus.data_ptr(), m, w,
-                              scr.data_ptr(), bar.data_ptr(),
+                              blocks, scr.data_ptr(),
                               int(a.dtype == torch.bfloat16), _stream(a)),
                  "qr_panel")
     _qr_panel_launch.launches += 1

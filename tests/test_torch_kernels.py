@@ -453,6 +453,35 @@ def test_rank_update_c_signature():
     assert _build.LIBS["chol_panel"][1]["chol_panel"] == [P, P, I, I, P]
 
 
+def test_qr_panel_and_ragged_trsm_c_signatures():
+    """The Householder panel takes its block count and one exchange
+    scratch (no barrier word, no scratch-size entry); the ragged solve's
+    entry is unchanged."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _build.LIBS["qr_panel"] == (
+        "qr_panel.cu", {"slate_set_device": [I],
+                        "qr_panel": [P, P, I, I, I, P, I, P]})
+    assert _build.LIBS["ragged_trsm"] == (
+        "ragged_trsm.cu", {"slate_set_device": [I],
+                           "ragged_trsm": [P, P, P, P, I, I, I, I, I, I, I,
+                                           I, P]})
+    # per column parity: a partial vector a block, then row j
+    assert pk.qr_scratch_words(64, 128) == 2 * 65 * 128
+
+
+@pytest.mark.parametrize("m,sms,blocks", [(8192, 132, 64), (4096, 132, 64),
+                                          (1024, 132, 32), (256, 132, 8),
+                                          (128, 132, 4), (32, 132, 1),
+                                          (8192, 48, 48), (200, 132, 7)])
+def test_qr_panel_blocks(m, sms, blocks):
+    """The Householder panel's blocks: one for every 32 rows, at most 64
+    of them and one a SM."""
+    assert pk.qr_panel_blocks(m, sms) == blocks
+    assert -(-m // blocks) <= 32 or blocks == min(64, sms)
+
+
 def test_panel_and_chain_c_signatures():
     """The recursive panel's base case takes the exchange scratch and
     the block count before the type flag; the chain apply takes the
@@ -631,14 +660,59 @@ def test_qr_panel_adversarial_matches_jax(qr_adversarial, kind, dtype):
         assert np.all(t == 2.0) and np.all(_f32(jt) == 2.0)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,w", [(512, 128), (256, 64)])
+@pytest.mark.parametrize("m,w,dtype", [
+    (512, 128, "float32"), (512, 128, "bfloat16"), (256, 64, "float32"),
+    (256, 64, "bfloat16"),
+    # the bf16 gels path's sub-panel width at one of its last heights
+    (256, 128, "float32")])
 def test_qr_panel_random_matches_jax(m, w, dtype):
     a = np.random.default_rng(m + w).standard_normal((m, w)) \
         .astype(np.float32)
     jp, jt = jpk.qr_panel(_to_jax(a, dtype))
     packed, taus = pk.qr_panel(_to_torch(a, dtype))
     _assert_qr("random", dtype, packed, taus, jp, jt)
+
+
+def _qr_residual(a, packed, taus):
+    """||A - Q R||_F / ||A||_F of a packed (m, w) Householder panel, in
+    f64 (chip_smoke.qr_residual's)."""
+    m, w = a.shape
+    p = _f32(packed).astype(np.float64)
+    x = np.zeros((m, w))
+    x[:w] = np.triu(p[:w])
+    V = np.tril(p, -1)
+    V[np.arange(w), np.arange(w)] = 1.0
+    t = _f32(taus).astype(np.float64)
+    for j in reversed(range(w)):
+        x -= t[j] * np.outer(V[:, j], V[:, j] @ x)
+    return np.linalg.norm(a - x) / np.linalg.norm(a)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [128, 256])
+def test_qr_panel_gels_subpanels_match_jax(m, dtype):
+    """The bf16 gels path's last sub-panels (w = 128, m = 128 and 256):
+    both packages' factors reconstruct the panel (chip_smoke.py's
+    QR_RES_LIMIT: f32 1e-5, bf16 0.05), their taus lie in [0, 2], and in
+    f32 the factors agree to 1e-5 of the scale. Not compared at
+    test_qr_panel_random_matches_jax's limits: with w close to m the
+    last columns hold a few rows, whose reflectors follow each sum's
+    rounding (f32 taus 1.3e-6 apart at 128 x 128; bf16 factors 0.009 /
+    0.0041 apart normwise at 128 / 256, where a bf16 ulp is 0.0039)."""
+    w = 128
+    a = np.random.default_rng(m + w).standard_normal((m, w)) \
+        .astype(np.float32)
+    a_in = _f32(_to_torch(a, dtype)).astype(np.float64)
+    jp, jt = jpk.qr_panel(_to_jax(a, dtype))
+    packed, taus = pk.qr_panel(_to_torch(a, dtype))
+    limit = 0.05 if dtype == "bfloat16" else 1e-5
+    assert _qr_residual(a_in, packed, taus) <= limit
+    assert _qr_residual(a_in, np.asarray(jp), np.asarray(jt)) <= limit
+    t = _f32(taus)
+    assert np.all((t >= 0) & (t <= 2))
+    if dtype == "float32":
+        out, ref = _f32(packed), _f32(jp)
+        assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("kind", ["zerocol", "diag", "equal", "tiny",

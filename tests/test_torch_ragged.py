@@ -245,12 +245,22 @@ def _trsm_case(rng, upper, sizes=(17, 64, 40), ceil=64, k=3):
     return list(sizes), tris, rhss, packed, rhs
 
 
-@pytest.mark.parametrize("upper,trans,unit", MODES)
-def test_ragged_trsm_modes_match_reference(rng, upper, trans, unit):
-    """Every solve mode the compositions use, plus U^T: against the
-    reference kernel (interpreted) to 1e-10 and scipy per element;
-    padded rhs rows come back exact zeros."""
-    sizes, tris, rhss, packed, rhs = _trsm_case(rng, upper)
+#: one right-hand side (the serving flushes'), orders off the block
+#: width (45, 7, 33 against blk 32), the ceiling 64
+K1 = {"sizes": (45, 7, 33), "k": 1}
+
+
+@pytest.mark.parametrize(
+    "upper,trans,unit,case",
+    [pytest.param(*m, {}, id="-".join(map(str, m))) for m in MODES]
+    + [pytest.param(*m, K1, id="-".join(map(str, m)) + "-K1")
+       for m in MODES])
+def test_ragged_trsm_modes_match_reference(rng, upper, trans, unit, case):
+    """Every solve mode the compositions use, plus U^T, with 3
+    right-hand sides and (K1) with one: against the reference kernel
+    (interpreted) to 1e-10 and scipy per element; padded rhs rows come
+    back exact zeros."""
+    sizes, tris, rhss, packed, rhs = _trsm_case(rng, upper, **case)
     out = pk.ragged_trsm(_t(packed), _t(rhs), sizes, upper=upper,
                          trans=trans, unit=unit)
     jout = np.asarray(jpk.ragged_trsm(jnp.asarray(packed), jnp.asarray(rhs),
@@ -266,7 +276,7 @@ def test_ragged_trsm_modes_match_reference(rng, upper, trans, unit):
                                    atol=1e-10 * scale)
         np.testing.assert_allclose(out[i, :s], ref, rtol=1e-10,
                                    atol=1e-10 * scale)
-        assert np.array_equal(out[i, s:], np.zeros((64 - s, 3)))
+        assert np.array_equal(out[i, s:], np.zeros((64 - s, rhs.shape[-1])))
 
 
 def test_ragged_trsm_bf16_matches_reference(rng):
