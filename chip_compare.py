@@ -1,38 +1,39 @@
 #!/usr/bin/env python3
-"""Parent against change on one card, in one run: the Householder
-panel (`qr_panel`), the ragged triangular solve (`ragged_trsm`), and
-the calls on their paths.
+"""Parent against change on one card, in one run: the rank-1 LU panel
+(`lu_panel`), the ragged batched LU (`ragged_getrf`), and the calls on
+their paths.
 
     git archive <parent> | tar -x -C smoke_archive/parent
     python3 chip_compare.py --parent smoke_archive/parent
 
-  1. kernels  the parent tree's qr_panel.cu and ragged_trsm.cu are
+  1. kernels  the parent tree's lu_panel.cu and ragged_getrf.cu are
               compiled from its sources into libraries of their own and
               called through their C entries on the same inputs as this
               tree's wrappers, in the order parent, change, change,
               parent, back to back (`ms`) and replayed from a CUDA graph
-              (`graph_ms`): qr_panel f32 and bf16 at 8192, 4096, 1024
-              and 256 x 128 (each tree against the plain version:
-              chip_smoke.qr_values_ok and the factors' residual within
-              chip_smoke.QR_RES_LIMIT), beside torch.geqrf (an f32
-              upcast for bf16); ragged_trsm f32 and bf16 in the four
-              modes the posv / gesv flushes run (000, 010, 001, 100:
-              upper, trans, unit) on the serving stream's first flush
-              and on the flush that holds the order-1024 request (the
-              factors from ragged_potrf), each tree within
-              chip_smoke.RAGGED_LIMIT of the plain version with zero pad
-              rows, beside torch.linalg.solve_triangular on the
-              identity-padded factors; each row carries its bound
-              (chip_smoke.qr_bounds / trsm_bounds);
+              (`graph_ms`): lu_panel f32 and bf16 on random 256-column
+              panels at every height the cold mixed route runs (4096,
+              3840, ..., 256 rows), each tree BITWISE against
+              lu_panel_plain (packed LU and pivots), beside
+              torch.linalg.lu_factor (an f32 upcast for bf16; replayed
+              from a graph as lu_factor_ex where the capture takes it);
+              ragged_getrf f32 and bf16 on the serving stream's first
+              flush and on the flush that holds the order-1024 request,
+              each tree against the plain version on four elements
+              (pivots and pads bitwise, values within
+              chip_smoke.RAGGED_LIMIT), beside torch.linalg.lu_factor_ex
+              on the identity-padded stack (f32); each row carries its
+              bound and latency floor;
   2. solves   in one process per tree, in the order parent, change,
-              change, parent: the bf16 gels at n = 8192 as chip_smoke.py's
-              phase runs it (its checks included, 64 qr_panel launches)
-              and once more under torch.profiler (busy time, idle share,
-              qr_panel's share); the ragged posv and gesv of the serving
-              stream's first flush on the card (batch.drivers
-              ragged_dispatch on device stacks, warm, CUDA events), and
-              the same posv through the queue (chip_smoke.serve_run, host
-              copies included).
+              change, parent: gesv_mixed cold at n = 4096 as
+              chip_smoke.py's phase runs it (its checks included, 16
+              lu_panel launches; the pivots' digest, to hold the trees
+              equal) and once more under torch.profiler (busy time, idle
+              share, lu_panel's share: its base-case kernels, over the grid
+              and in one block, and its trailing-column kernel); the ragged gesv of the serving stream's first
+              flush on the card (batch.drivers ragged_dispatch on device
+              stacks, warm, CUDA events) and the same gesv through the
+              queue (chip_smoke.serve_run, host copies included).
 
 Prints one JSON line a phase and the card's nvidia-smi line; exits 1
 when a check fails and 2 without a CUDA card.
@@ -51,23 +52,27 @@ import torch
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 
-from chip_smoke import (DTYPES, QR_RES_LIMIT, RAGGED_LIMIT, TRSM_PATH_MODES,
-                        cuda_ms, graph_ms, identity_padded, largest_flush,
-                        path_stacks, plain_subset, qr_bounds, qr_residual,
-                        qr_values_ok, scaled_err, to_card, trsm_bounds,
-                        trsm_library)
+from chip_smoke import (DTYPES, N_COLD, PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
+                        RAGGED_LIMIT, bound_ms, cuda_ms, graph_ms,
+                        identity_padded, largest_flush, lu_panel_latency_ms,
+                        panel_flops, path_stacks, plain_subset,
+                        ragged_compare, ragged_getrf_cluster,
+                        ragged_lu_latency_ms, to_card, try_graph_ms)
 
 ORDER = ("parent", "change", "change", "parent")
-QR_SHAPES = (8192, 4096, 1024, 256)
+#: the cold mixed route's panels at n = 4096: 256 columns, 4096 ... 256
+#: rows
+LU_HEIGHTS = tuple(range(N_COLD, 0, -256))
 
 #: the parent's C entries
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_LIBS = {
-    "qr_panel": {"qr_panel_scratch": [_I],
-                 "qr_panel": [_P, _P, _I, _I, _P, _P, _I, _P]},
-    "ragged_trsm": {"ragged_trsm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _P]},
+    "lu_panel": {"lu_panel": [_P, _P, _I, _I, _P, _P, _I, _P]},
+    "ragged_getrf": {"ragged_getrf": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
 }
+#: the parent's lu_panel scratch (csrc/lu_base.cuh launch_lu_base):
+#: candidate slots of its cooperative grid
+_PARENT_BASE_MAX_BLOCKS = 1024
 
 
 def build_parent(tree):
@@ -99,30 +104,32 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def parent_qr_panel(lib, a):
+def parent_lu_panel(lib, a):
     """One panel through the parent's kernel, as its wrapper called it."""
     m, w = a.shape
     out = a.clone(memory_format=torch.contiguous_format)
-    taus = torch.empty(w, dtype=torch.float32, device=a.device)
-    scr = torch.empty(lib.qr_panel_scratch(w), dtype=torch.float32,
-                      device=a.device)
-    bar = torch.empty(1, dtype=torch.int32, device=a.device)
-    _build.check(lib.qr_panel(out.data_ptr(), taus.data_ptr(), m, w,
-                              scr.data_ptr(), bar.data_ptr(),
+    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
+    scr_f = torch.empty(2 * _PARENT_BASE_MAX_BLOCKS + 4 * w,
+                        dtype=torch.float32, device=a.device)
+    scr_i = torch.empty(1 + 2 * _PARENT_BASE_MAX_BLOCKS, dtype=torch.int32,
+                        device=a.device)
+    _build.check(lib.lu_panel(out.data_ptr(), piv.data_ptr(), m, w,
+                              scr_f.data_ptr(), scr_i.data_ptr(),
                               int(a.dtype == torch.bfloat16), _stream()),
-                 "parent qr_panel")
-    return out, taus
+                 "parent lu_panel")
+    return out, piv
 
 
-def parent_ragged_trsm(lib, t, b, sizes, upper, trans, unit):
-    B, N, K = b.shape
-    out = torch.empty_like(b)
-    _build.check(lib.ragged_trsm(t.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 sizes.data_ptr(), B, N, K, pk.ragged_blk(),
-                                 int(upper), int(trans), int(unit),
-                                 int(b.dtype == torch.bfloat16), _stream()),
-                 "parent ragged_trsm")
-    return out
+def parent_ragged_getrf(lib, a, sizes):
+    B, N = a.shape[0], a.shape[-1]
+    out = torch.empty_like(a)
+    piv = torch.empty((B, N), dtype=torch.int32, device=a.device)
+    _build.check(lib.ragged_getrf(a.data_ptr(), out.data_ptr(),
+                                  piv.data_ptr(), sizes.data_ptr(), B, N,
+                                  pk.ragged_blk(),
+                                  int(a.dtype == torch.bfloat16), _stream()),
+                 "parent ragged_getrf")
+    return out, piv
 
 
 def timed(row, fns, reps):
@@ -132,92 +139,109 @@ def timed(row, fns, reps):
         row["graph_ms_%d_%s" % (i, who)] = graph_ms(fns[who], reps)
 
 
-def qr_rows(libs, rng):
+def lu_rows(libs, rng):
     ok, rows = True, []
-    for m in QR_SHAPES:
+    for m in LU_HEIGHTS:
         for dname, dtype in DTYPES:
-            a = torch.as_tensor(rng.standard_normal((m, 128),
+            a = torch.as_tensor(rng.standard_normal((m, 256),
                                                     dtype=np.float32),
                                 device="cuda").to(dtype)
-            pp, pt = pk.qr_panel_plain(a)
-            fns = {"parent": lambda: parent_qr_panel(libs["qr_panel"], a),
-                   "change": lambda: pk._qr_panel_launch(a)}
-            row = {"kernel": "qr_panel", "dtype": dname,
-                   "shape": "%dx128" % m}
+            pp, ppiv = pk.lu_panel_plain(a)
+            fns = {"parent": lambda: parent_lu_panel(libs["lu_panel"], a),
+                   "change": lambda: pk._lu_panel_launch(a)}
+            row = {"kernel": "lu_panel", "dtype": dname,
+                   "shape": "%dx256" % m}
             for who, fn in fns.items():
-                kp, kt = fn()
-                v_ok, err, terr = qr_values_ok("random", dtype, kp, kt, pp,
-                                               pt)
-                res = qr_residual(a, kp, kt)
-                row.update({"values_ok_" + who: v_ok, "err_" + who: err,
-                            "tau_err_" + who: terr, "residual_" + who: res})
-                ok &= res <= QR_RES_LIMIT[dtype]
-            timed(row, fns, 10)
+                kp, kpiv = fn()
+                same = bool(torch.equal(kp, pp) and torch.equal(kpiv, ppiv))
+                row["bitwise_plain_" + who] = same
+                ok &= same
+            timed(row, fns, 5)
             a32 = a.float()
-            row["library"] = "torch.geqrf" + (
+            row["library"] = "torch.linalg.lu_factor" + (
                 " (f32 upcast)" if dtype != torch.float32 else "")
-            row["library_ms"] = cuda_ms(lambda: torch.geqrf(a32), 10)
-            row["library_graph_ms"] = graph_ms(lambda: torch.geqrf(a32), 10)
-            row.update(qr_bounds(m, 128, a.element_size()))
+            row["library_ms"] = cuda_ms(lambda: torch.linalg.lu_factor(a32),
+                                        5)
+            row["library_graph_ms"], row["library_graph_error"] = \
+                try_graph_ms(lambda: torch.linalg.lu_factor_ex(a32), 5)
+            b, by = bound_ms(panel_flops(m, 256),
+                             2.0 * a.element_size() * m * 256)
+            row.update(bound_ms=b, bound_by=by,
+                       latency_bound_ms=lu_panel_latency_ms(m, 256))
             rows.append(row)
     return ok, rows
 
 
-def trsm_rows(libs, seed):
+def getrf_rows(libs, seed):
     ok, rows = True, []
     for flush in (0, largest_flush(seed)):
-        sizes, ceil, spd, _gen, rhs = path_stacks(seed, flush)
+        sizes, ceil, _spd, gen, _rhs = path_stacks(seed, flush)
         sub = plain_subset(sizes)
         szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
         for dname, dtype in DTYPES:
-            L = pk.ragged_potrf(to_card(spd, dtype), szc)
-            U = L.mT.contiguous()
-            b = to_card(rhs, dtype)
-            Lid = identity_padded(L, sizes).float()
-            b32 = b.float()
-            for up, tr, un in TRSM_PATH_MODES:
-                T = U if up else L
-                px = pk.ragged_trsm_plain(T[sub], b[sub],
-                                          [sizes[i] for i in sub],
-                                          pk.ragged_blk(), up, tr, un)
-                fns = {"parent": lambda: parent_ragged_trsm(
-                           libs["ragged_trsm"], T, b, szc, up, tr, un),
-                       "change": lambda: pk.ragged_trsm(
-                           T, b, szc, upper=up, trans=tr, unit=un)}
-                row = {"kernel": "ragged_trsm", "dtype": dname,
-                       "mode": "%d%d%d" % (up, tr, un), "flush": flush,
-                       "shape": "%dx%dx%d, K = 1" % L.shape}
-                for who, fn in fns.items():
-                    kx = fn()
-                    err = scaled_err(kx[sub], px)
-                    zero_pad = all(bool((kx[i, s:] == 0).all())
-                                   for i, s in enumerate(sizes))
-                    row["err_" + who], row["zero_pad_" + who] = err, zero_pad
-                    ok &= err <= RAGGED_LIMIT[dtype] and zero_pad
-                timed(row, fns, 20)
-                lib = trsm_library(Lid, b32, up, tr, un)
-                row["library_ms"] = cuda_ms(lib, 20)
-                row["library_graph_ms"] = graph_ms(lib)
-                row.update(trsm_bounds(sizes, b))
-                rows.append(row)
+            a = to_card(gen, dtype)
+            pl, ppv = pk.ragged_getrf_plain(a[sub], [sizes[i] for i in sub],
+                                            pk.ragged_blk())
+            fns = {"parent": lambda: parent_ragged_getrf(
+                       libs["ragged_getrf"], a, szc),
+                   "change": lambda: pk.ragged_getrf(a, szc)}
+            row = {"kernel": "ragged_getrf", "dtype": dname, "flush": flush,
+                   "shape": "%dx%dx%d" % a.shape, "s_max": max(sizes),
+                   "cluster": ragged_getrf_cluster(ceil)}
+            outs = {}
+            for who, fn in fns.items():
+                kl, kpv = fn()
+                outs[who] = (kl, kpv)
+                piv_eq = bool(torch.equal(kpv[sub], ppv))
+                c_ok, err, pad = ragged_compare(dtype, kl[sub], pl,
+                                                [sizes[i] for i in sub])
+                row.update({"pivots_bitwise_" + who: piv_eq,
+                            "err_" + who: err, "pad_bitwise_" + who: pad})
+                ok &= piv_eq and c_ok
+            row["pivots_equal_trees"] = bool(torch.equal(
+                outs["parent"][1], outs["change"][1]))
+            row["bitwise_trees"] = bool(torch.equal(outs["parent"][0],
+                                                    outs["change"][0]))
+            del outs
+            timed(row, fns, 5)
+            aid = identity_padded(a, sizes).float()
+            row["library"] = "torch.linalg.lu_factor_ex (identity pad, f32" \
+                + (" upcast)" if dtype != torch.float32 else ")")
+            row["library_ms"] = cuda_ms(
+                lambda: torch.linalg.lu_factor_ex(aid), 5)
+            row["library_graph_ms"], row["library_graph_error"] = \
+                try_graph_ms(lambda: torch.linalg.lu_factor_ex(aid), 5)
+            del aid
+            live2 = sum(s * s for s in sizes)
+            b, by = bound_ms(
+                2.0 / 3.0 * sum(s ** 3 for s in sizes),
+                a.element_size() * (live2 + a.numel())
+                + 4.0 * a.shape[0] * (1 + ceil),
+                PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+            row.update(bound_ms=b, bound_by=by,
+                       latency_bound_ms=ragged_lu_latency_ms(max(sizes)))
+            rows.append(row)
+            del a
     return ok, rows
 
 
 def phase_kernels(libs, seed):
     rng = np.random.default_rng(seed)
     ok, rows = True, []
-    for part in (lambda: qr_rows(libs, rng), lambda: trsm_rows(libs, seed)):
+    for part in (lambda: lu_rows(libs, rng), lambda: getrf_rows(libs, seed)):
         p_ok, p_rows = part()
         ok &= p_ok
         rows += p_rows
     return {"phase": "kernels", "ok": bool(ok), "rows": rows}
 
 
-#: run in each tree (only what both trees' chip_smoke.py have): the bf16
-#: gels phase, the bf16 gels under the profiler, then the serving
-#: stream's first flush as ragged posv and gesv on the card and the
-#: posv through the queue
+#: run in each tree (only what both trees' chip_smoke.py have): the cold
+#: mixed phase, gesv_mixed cold once more under the profiler, then the
+#: serving stream's first flush as a ragged gesv on the card and through
+#: the queue
 SOLVES = """
+import hashlib
+import inspect
 import json
 import numpy as np
 import torch
@@ -226,45 +250,52 @@ import slate_tpu_torch as st
 from slate_tpu_torch.batch import drivers
 seed = %d
 results, system = {}, {}
-g = cs.phase_gels_bf16(seed, results, system)
+args = (seed, results, system)
+nargs = len(inspect.signature(cs.phase_mixed_cold).parameters)
+cold = cs.phase_mixed_cold(*args[:nargs])
+cs.fresh_tune_cache()
 a_np, b_np = cs.permuted_boosted_system(np.random.default_rng(seed),
-                                        cs.N_QR_BF16, cs.NRHS)
-Ab = st.Matrix(torch.as_tensor(a_np, device="cuda").bfloat16(), mb=cs.NB)
-Bb = st.Matrix(torch.as_tensor(b_np, device="cuda").bfloat16(), mb=cs.NB)
-del a_np, b_np
-prof = cs.profile_call(lambda: st.gels(Ab, Bb), top=40)
-qr_ms = sum(t["device_ms"] for t in prof["top"]
-            if "qr_panel" in t["kernel"])
-del Ab, Bb
+                                        cs.N_COLD, cs.NRHS)
+A = st.Matrix(a_np, mb=cs.NB_COLD)
+B = st.Matrix(b_np, mb=cs.NB_COLD)
+F, X, iters = st.gesv_mixed(A, B)
+digest = hashlib.sha256(F.pivots.cpu().numpy().tobytes()).hexdigest()[:16]
+prof = cs.profile_call(lambda: st.gesv_mixed(A, B), top=40)
+panel_ms = sum(t["device_ms"] for t in prof["top"]
+               if any(k in t["kernel"] for k in
+                      ("lu_base", "lu_block_kernel", "lu_trail")))
+del A, B, F, X
 sizes, ceil, spd, gen, rhs = cs.path_stacks(seed)
 szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-flush = {}
-for op, stack in (("posv", spd), ("gesv", gen)):
-    S = torch.as_tensor(stack, device="cuda")
-    R = torch.as_tensor(rhs, device="cuda")
-    x = drivers.ragged_dispatch(op, S, szc, R, device="cuda")
-    a64 = S.double()
-    r = torch.linalg.norm(a64 @ x.double() - R.double()) / (
-        torch.linalg.norm(a64) * torch.linalg.norm(x.double()))
-    flush[op] = {"ms": cs.cuda_ms(lambda: drivers.ragged_dispatch(
-        op, S, szc, R, device="cuda"), 10), "backward_error": float(r)}
-mats = [np.ascontiguousarray(spd[i, :n, :n]) for i, n in enumerate(sizes)]
+S = torch.as_tensor(gen, device="cuda")
+R = torch.as_tensor(rhs, device="cuda")
+x = drivers.ragged_dispatch("gesv", S, szc, R, device="cuda")
+a64 = S.double()
+r = torch.linalg.norm(a64 @ x.double() - R.double()) / (
+    torch.linalg.norm(a64) * torch.linalg.norm(x.double()))
+flush = {"ms": cs.cuda_ms(lambda: drivers.ragged_dispatch(
+    "gesv", S, szc, R, device="cuda"), 10), "backward_error": float(r)}
+mats = [np.ascontiguousarray(gen[i, :n, :n]) for i, n in enumerate(sizes)]
 rhss = [np.ascontiguousarray(rhs[i, :n]) for i, n in enumerate(sizes)]
-cs.serve_run("posv", mats, rhss, "ragged")
-_, rec, _ = cs.serve_run("posv", mats, rhss, "ragged")
+cs.serve_run("gesv", mats, rhss, "ragged")
+_, rec, _ = cs.serve_run("gesv", mats, rhss, "ragged")
+m = cold["gesv_mixed"]
 print("SOLVES " + json.dumps({
-    "gels_bf16_wall_s": g["wall_s"], "gels_bf16_ok": g["ok"],
-    "gels_bf16_x_rel_diff_f32": g["x_rel_diff_f32"],
-    "gels_bf16_qr_panel_launches": g["launches"]["qr_panel"],
-    "gels_f32_wall_s": g["gels_f32_wall_s"],
-    "gels_bf16_profile": {"wall_s": prof["wall_s"],
-                          "busy_s": prof["device_busy_s"],
-                          "idle_share": prof["idle_share"],
-                          "qr_panel_ms": qr_ms,
-                          "qr_panel_share": qr_ms / 1e3
-                          / prof["device_busy_s"],
-                          "top": prof["top"][:8]},
-    "ragged_flush": flush, "posv_queue_flush": rec}))
+    "cold_ok": cold["ok"], "cold_wall_s": m["wall_s"],
+    "cold_iters": m["iters"], "cold_backward_error": m["backward_error"],
+    "cold_x_rel_diff_f32": m["x_rel_diff_f32"],
+    "cold_lu_panel_launches": m["launches"]["lu_panel"],
+    "cold_gesv_f32_wall_s": m["gesv_f32_wall_s"],
+    "cold_gmres_wall_s": cold["gesv_mixed_gmres"]["wall_s"],
+    "cold_pivots_digest": digest,
+    "cold_profile": {"wall_s": prof["wall_s"],
+                     "busy_s": prof["device_busy_s"],
+                     "idle_share": prof["idle_share"],
+                     "lu_panel_ms": panel_ms,
+                     "lu_panel_share": panel_ms / 1e3
+                     / prof["device_busy_s"],
+                     "top": prof["top"][:8]},
+    "ragged_gesv_flush": flush, "gesv_queue_flush": rec}))
 """
 
 
@@ -283,10 +314,12 @@ def phase_solves(trees, seed):
             continue
         rec = json.loads(line[-1][len("SOLVES "):])
         rec["tree"] = who
-        ok &= rec["gels_bf16_ok"] and all(
-            f["backward_error"] <= 1e-6 for f in rec["ragged_flush"].values())
+        ok &= rec["cold_ok"] and rec["cold_lu_panel_launches"] == 16 \
+            and rec["ragged_gesv_flush"]["backward_error"] <= 1e-6
         runs.append(rec)
-    return {"phase": "solves", "ok": bool(ok), "runs": runs}
+    digests = {r.get("cold_pivots_digest") for r in runs}
+    return {"phase": "solves", "ok": bool(ok and len(digests) == 1),
+            "cold_pivots_equal": len(digests) == 1, "runs": runs}
 
 
 def main():

@@ -16,7 +16,10 @@ script exit non-zero without the final result line:
               function (timed only; the port never calls it) and the
               least time the card could take:
                 kernel.compose_swaps  the swap composition, bitwise;
-                kernel.lu_panel       the rank-1 panel;
+                kernel.lu_panel       the rank-1 panel, bitwise (packed
+                                      LU and pivots): adversarial suites
+                                      at 256 x 32 and 512 x 256, then
+                                      4096, 2048, 1024 and 256 x 256;
                 kernel.lu_panel_rec   the recursive panel (both panels
                                       also replayed from a CUDA graph,
                                       graph_ms, and with a latency
@@ -54,7 +57,12 @@ script exit non-zero without the final result line:
                                       the trsm phase in the four modes
                                       the posv / gesv flushes run,
                                       replayed from a CUDA graph; the
-                                      getrf phase also holds the
+                                      getrf phase adds a suite at
+                                      ceiling 384 (a cluster of three
+                                      blocks an element), times both
+                                      flushes replayed from a CUDA
+                                      graph too, with a latency floor,
+                                      and also holds the
                                       batched compose_swaps on that
                                       flush's (64, 608) swap targets
                                       bitwise against its plain version;
@@ -145,7 +153,8 @@ script exit non-zero without the final result line:
               the chain kernel (ge2tb -> tb2bd -> bdsqr_qr, two chain
               launches a pass); reconstruction and values within
               EIG_LIMIT;
- 14. profile  gesv on both routes, gesv_mixed, posv on both routes, the
+ 14. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+              n = 4096, posv on both routes, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               the heev and
               svd QR iterations, once more under torch.profiler: host
@@ -153,7 +162,8 @@ script exit non-zero without the final result line:
               memset intervals of the trace), idle share, the heaviest
               kernels by device time and the shares of the trailing
               update (rank_update's kernels), of the LU base case, of
-              qr_panel and of ragged_trsm;
+              the rank-1 panel's trailing-column updates, of qr_panel
+              and of ragged_trsm;
  15. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
@@ -184,7 +194,8 @@ from slate_tpu_torch.linalg import qr as tqr
 from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
                                      panel_cases, permuted_boosted_system,
                                      qr_panel_cases, ragged_cases,
-                                     serve_stream, spd_system, trtri_cases)
+                                     ragged_getrf_wide_case, serve_stream,
+                                     spd_system, trtri_cases)
 from slate_tpu_torch.tune import cache as tcache
 from slate_tpu_torch.tune import select as tselect
 
@@ -417,18 +428,23 @@ def phase_compose_swaps(rng, results):
             "bitwise": same, **s}
 
 
-def adversarial(dtype, run, plain):
-    """The adversarial suite (m = 256, w = 32, ib = 8) through `run`
-    and `plain`: pivots bitwise, values by values_ok."""
+def adversarial(dtype, run, plain, shape=(256, 32, 8), bitwise=False):
+    """The adversarial suite (m, w, ib = `shape`; 256, 32, 8 unless
+    given) through `run` and `plain`: pivots bitwise, values by
+    values_ok, or bitwise throughout with `bitwise`."""
     ok, worst, kinds = True, 0.0, {}
-    for kind, a_np in panel_cases(np.random.default_rng(42), 256, 32,
-                                  8).items():
+    for kind, a_np in panel_cases(np.random.default_rng(42),
+                                  *shape).items():
         a = torch.as_tensor(a_np, device="cuda").to(dtype)
         kp, kpiv = run(a)
         pp, ppiv = plain(a)
         torch.cuda.synchronize()
         piv_eq = torch.equal(kpiv, ppiv)
-        val_ok, err = values_ok(kind, dtype, kp, pp)
+        if bitwise:
+            err = float((kp.double() - pp.double()).abs().max())
+            val_ok = bool(torch.equal(kp, pp))
+        else:
+            val_ok, err = values_ok(kind, dtype, kp, pp)
         ok &= piv_eq and val_ok
         worst = max(worst, err)
         kinds[kind] = {"pivots_bitwise": piv_eq, "max_abs_err": err,
@@ -436,9 +452,10 @@ def adversarial(dtype, run, plain):
     return ok, worst, kinds
 
 
-def time_panel(rng, dtype, m, w, run, plain, reps, peak):
+def time_panel(rng, dtype, m, w, run, plain, reps, peak, latency=None):
     """A random (m, w) panel: residual of the kernel's factors, pivots
-    against the plain version, and times."""
+    against the plain version, and times. `latency`: the latency floor
+    (one exchange between SMs a column unless given)."""
     a = torch.as_tensor(rng.standard_normal((m, w), dtype=np.float32),
                         device="cuda").to(dtype)
     kp, kpiv = run(a)
@@ -456,8 +473,8 @@ def time_panel(rng, dtype, m, w, run, plain, reps, peak):
                           peak)
     return {"shape": "%dx%d" % (m, w), "residual": res,
             "graph_ms": g_ms, "graph_error": g_err,
-            # one exchange between SMs a column
-            "latency_bound_ms": latency_ms(w, EXCHANGE_CYCLES),
+            "latency_bound_ms": latency_ms(w, EXCHANGE_CYCLES)
+                                if latency is None else latency,
             "residual_plain": lu_residual(a, pp, ppiv),
             "pivots_equal_plain": piv_eq, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -475,19 +492,52 @@ def time_panel(rng, dtype, m, w, run, plain, reps, peak):
 RES_LIMIT = {torch.float32: 1e-5, torch.bfloat16: 0.1}
 
 
+#: heights of the rank-1 panels timed: the cold mixed path's panels run
+#: 4096, 3840, ..., 256 rows of 256 columns
+LU_PANEL_HEIGHTS = (N_COLD, 2048, 1024, 256)
+
+
+def lu_panel_latency_ms(m, w):
+    """The rank-1 panel's latency floor, a segment of 32 columns at a
+    time (csrc/lu_panel.cu): a column of a segment whose base case runs
+    over the grid takes one exchange between SMs; one of a segment that
+    runs in one block (the kernel's library says which) stays inside
+    the SM, the in-SM floor of ragged_lu_latency_ms over the segment's
+    rows."""
+    lib = _build.load("lu_panel")
+    total = 0.0
+    for c0 in range(0, min(m, w), 32):
+        cols = min(32, w - c0, m - c0)
+        if lib.lu_panel_block_takes(m, w, c0):
+            total += ragged_lu_latency_ms(m - c0, cols)
+        else:
+            total += latency_ms(cols, EXCHANGE_CYCLES)
+    return total
+
+
 def phase_lu_panel(rng, results):
-    """lu_panel, f32 and bf16: the adversarial suite, then random
-    4096x256 (the cold mixed path's first panel) and 256x256 panels."""
+    """lu_panel, f32 and bf16, held BITWISE to lu_panel_plain (packed LU
+    and pivots): the adversarial suite at 256 x 32 (one segment of the
+    kernel) and at 512 x 256 with the spikes at the 32-column segment
+    edges, then random panels of 256 columns at LU_PANEL_HEIGHTS (the
+    cold mixed path's first panel and three of its later ones)."""
     ok, out = True, {"phase": "kernel.lu_panel"}
     for dname, dtype in DTYPES:
-        a_ok, worst, kinds = adversarial(dtype, pk.lu_panel,
-                                         pk.lu_panel_plain)
-        ok &= a_ok
+        kinds = {}
+        worst = 0.0
+        for shape in ((256, 32, 8), (512, 256, 32)):
+            a_ok, err, k = adversarial(dtype, pk.lu_panel, pk.lu_panel_plain,
+                                       shape, bitwise=True)
+            ok &= a_ok
+            worst = max(worst, err)
+            kinds["%dx%d" % shape[:2]] = k
         shapes = {}
-        for m, w in ((N_COLD, 256), (256, 256)):
-            s = time_panel(rng, dtype, m, w, pk.lu_panel, pk.lu_panel_plain,
-                           5, PEAK_F32_FLOPS)
-            ok &= s["residual"] <= RES_LIMIT[dtype]
+        for m in LU_PANEL_HEIGHTS:
+            s = time_panel(rng, dtype, m, 256, pk.lu_panel,
+                           pk.lu_panel_plain, 5, PEAK_F32_FLOPS,
+                           lu_panel_latency_ms(m, 256))
+            s["bitwise_plain"] = s["max_abs_err"] == 0.0
+            ok &= s["residual"] <= RES_LIMIT[dtype] and s["bitwise_plain"]
             shapes[s["shape"]] = s
             if s["max_abs_err"] is not None:
                 worst = max(worst, s["max_abs_err"])
@@ -910,14 +960,16 @@ def mixed_check(name, A, B, call, ref_x, factor="LU"):
                           "factor_dtype": str(fdt)}
 
 
-def phase_mixed_cold(seed, results):
-    """gesv_mixed and gesv_mixed_gmres on the cold route at n = 4096."""
+def phase_mixed_cold(seed, results, system):
+    """gesv_mixed and gesv_mixed_gmres on the cold route at n = 4096;
+    leaves the system in `system` for the profile phase."""
     fresh_tune_cache()
     a_np, b_np = permuted_boosted_system(np.random.default_rng(seed),
                                          N_COLD, NRHS)
     A = st.Matrix(a_np, mb=NB_COLD)
     B = st.Matrix(b_np, mb=NB_COLD)
     B1 = st.Matrix(b_np[:, :1], mb=NB_COLD)
+    system["cold"] = (A, B)
     steps = N_COLD // min(512, pk.LU_PANEL_MAX_W)
     out = {"phase": "gesv_mixed.cold", "n": N_COLD, "tiles": NB_COLD,
            "lu_panel_launches_expected": steps}
@@ -1295,58 +1347,105 @@ def compose_swaps_stack(piv, m, results):
     return dict(s, bitwise=same, ok=same)
 
 
+def ragged_lu_latency_ms(s_max, cols=None):
+    """The ragged LU's latency floor: its largest element's s_max
+    dependent columns (or `cols` of them), each an argmax tree over the
+    column (ceil(log2 s_max) compare-selects), the pivot's broadcast, a
+    divide, a product and a difference, DEP_OP_CYCLES each."""
+    steps = int(np.ceil(np.log2(max(s_max, 2)))) + 4
+    return latency_ms(s_max if cols is None else cols,
+                      steps * DEP_OP_CYCLES)
+
+
+def ragged_getrf_cluster(n):
+    """Blocks of the ragged LU kernel's cluster at ceiling n, as its
+    launch takes them (the kernel's library says)."""
+    return _build.load("ragged_getrf").ragged_getrf_cluster(n)
+
+
+def getrf_adversarial(dtype, st, sz):
+    """One ragged LU suite (garbage pads) against the plain version:
+    pivots bitwise, values by ragged_compare (pads bitwise)."""
+    a = to_card(st, dtype)
+    kl, kpv = pk.ragged_getrf(a, sz)
+    pl, ppv = pk.ragged_getrf_plain(a, sz, pk.ragged_blk())
+    torch.cuda.synchronize()
+    piv = bool(torch.equal(kpv, ppv))
+    ok, err, pad = ragged_compare(dtype, kl, pl, sz)
+    return {"ceiling": a.shape[-1], "cluster": ragged_getrf_cluster(
+                a.shape[-1]), "pivots_bitwise": piv, "err": err,
+            "pad_bitwise": pad, "ok": ok and piv}
+
+
 def phase_ragged_getrf(seed, results):
-    """ragged_getrf, f32 and bf16: the adversarial suite (pivots across
-    elements, a zero column, order 1, exact ties, garbage pads), then
-    the serving flush's gesv stack: pivots bitwise, values against the
-    plain version, times, and the library LU of the identity-padded
-    stack; the f32 flush's (64, 608) swap targets then go through the
-    batched compose_swaps, as the ragged gesv sends them."""
+    """ragged_getrf, f32 and bf16: the adversarial suites (ceiling 64:
+    pivots across elements, a zero column, order 1, exact ties, garbage
+    pads; ceiling 384, wide enough for a cluster of several blocks an
+    element), then the serving stream's first flush (64 x 608^2) and
+    the flush that holds its order-1024 request (64 x 1024^2) as the
+    ragged gesv stacks them: pivots and pads bitwise, values against the
+    plain version on four elements, times (back to back and replayed
+    from a CUDA graph), the latency floor, and the library LU of the
+    identity-padded stack; the f32 first flush's (64, 608) swap targets
+    then go through the batched compose_swaps, as the ragged gesv sends
+    them."""
     ok, out = True, {"phase": "kernel.ragged_getrf"}
     cases = ragged_cases(np.random.default_rng(32))
-    sizes, ceil, _spd, gen, _rhs = path_stacks(seed)
-    sub = plain_subset(sizes)
+    wide = ragged_getrf_wide_case(np.random.default_rng(33))
+    flushes = (("first", 0), ("largest", largest_flush(seed)))
     for dname, dtype in DTYPES:
-        st, sz = cases["getrf"]
-        a = to_card(st, dtype)
-        kl, kpv = pk.ragged_getrf(a, sz)
-        pl, ppv = pk.ragged_getrf_plain(a, sz, pk.ragged_blk())
-        torch.cuda.synchronize()
-        a_piv = bool(torch.equal(kpv, ppv))
-        a_ok, a_err, a_pad = ragged_compare(dtype, kl, pl, sz)
-        a = to_card(gen, dtype)
-        szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-        kl, kpv = pk.ragged_getrf(a, szc)
-        pl, ppv = pk.ragged_getrf_plain(a[sub], [sizes[i] for i in sub],
-                                        pk.ragged_blk())
-        p_piv = bool(torch.equal(kpv[sub], ppv))
-        p_ok, p_err, p_pad = ragged_compare(dtype, kl[sub], pl,
-                                            [sizes[i] for i in sub])
-        ok &= a_ok and a_piv and p_ok and p_piv
-        ms = cuda_ms(lambda: pk.ragged_getrf(a, szc), 5)
-        a4 = a[sub]
-        plain_ms = cuda_ms(lambda: pk.ragged_getrf_plain(
-            a4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
-        aid = identity_padded(a, sizes).float()
-        lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(aid), 5)
-        live2 = sum(s * s for s in sizes)
-        row, s = ragged_row(
-            "ragged_getrf", dname, "ragged_getrf.cu", "1263",
-            "batch.serve (ragged gesv)", "%dx%dx%d" % a.shape,
-            max(a_err, p_err), ms, plain_ms, len(sub), lib_ms,
-            "torch.linalg.lu_factor_ex (identity pad, f32)",
-            2.0 / 3.0 * sum(s ** 3 for s in sizes),
-            a.element_size() * (live2 + a.numel()) + 4.0 * a.shape[0]
-            * (1 + ceil),
-            PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
-        if dtype == torch.float32:
-            results["ragged_getrf." + dname] = row
-            out["compose_swaps"] = compose_swaps_stack(kpv, ceil, results)
-            ok &= out["compose_swaps"]["ok"]
-        out[dname] = {"adversarial": {"pivots_bitwise": a_piv, "err": a_err,
-                                      "pad_bitwise": a_pad, "ok": a_ok},
-                      "path": dict(s, pivots_bitwise=p_piv, err=p_err,
-                                   pad_bitwise=p_pad, ok=p_ok and p_piv)}
+        adv = [getrf_adversarial(dtype, *cases["getrf"]),
+               getrf_adversarial(dtype, *wide)]
+        ok &= all(r["ok"] for r in adv)
+        out[dname] = {"adversarial": adv}
+        worst = max(r["err"] for r in adv)
+        for label, flush in flushes:
+            sizes, ceil, _spd, gen, _rhs = path_stacks(seed, flush)
+            sub = plain_subset(sizes)
+            a = to_card(gen, dtype)
+            szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            kl, kpv = pk.ragged_getrf(a, szc)
+            pl, ppv = pk.ragged_getrf_plain(a[sub], [sizes[i] for i in sub],
+                                            pk.ragged_blk())
+            p_piv = bool(torch.equal(kpv[sub], ppv))
+            p_ok, p_err, p_pad = ragged_compare(dtype, kl[sub], pl,
+                                                [sizes[i] for i in sub])
+            ok &= p_ok and p_piv
+            call = lambda: pk.ragged_getrf(a, szc)
+            ms = cuda_ms(call, 5)
+            g_ms, g_err = try_graph_ms(call, 5)
+            a4 = a[sub]
+            plain_ms = cuda_ms(lambda: pk.ragged_getrf_plain(
+                a4, [sizes[i] for i in sub], pk.ragged_blk()), 1)
+            aid = identity_padded(a, sizes).float()
+            lib_ms = cuda_ms(lambda: torch.linalg.lu_factor_ex(aid), 5)
+            del aid
+            live2 = sum(s * s for s in sizes)
+            row, s = ragged_row(
+                "ragged_getrf", dname, "ragged_getrf.cu", "1263",
+                "batch.serve (ragged gesv)", "%dx%dx%d" % a.shape,
+                max(worst, p_err), ms, plain_ms, len(sub), lib_ms,
+                "torch.linalg.lu_factor_ex (identity pad, f32"
+                + (" upcast)" if dtype != torch.float32 else ")"),
+                2.0 / 3.0 * sum(s ** 3 for s in sizes),
+                a.element_size() * (live2 + a.numel()) + 4.0 * a.shape[0]
+                * (1 + ceil),
+                PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+            s.update(graph_ms=g_ms, graph_error=g_err,
+                     latency_bound_ms=ragged_lu_latency_ms(max(sizes)),
+                     cluster=ragged_getrf_cluster(ceil))
+            row.update(graph_ms=g_ms, latency_bound_ms=s["latency_bound_ms"])
+            if dtype == torch.float32:
+                key = "ragged_getrf." + dname
+                results[key if label == "first" else key + "." + str(ceil)] \
+                    = row
+                if label == "first":
+                    out["compose_swaps"] = compose_swaps_stack(kpv, ceil,
+                                                               results)
+                    ok &= out["compose_swaps"]["ok"]
+            out[dname][label] = dict(s, pivots_bitwise=p_piv, err=p_err,
+                                     pad_bitwise=p_pad, ok=p_ok and p_piv)
+            del a, kl
     out["ok"] = bool(ok)
     return out
 
@@ -1903,10 +2002,14 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 #: kernels whose share of a profiled call's busy time is reported: the
 #: trailing update of the LU panel split (its bf16 path transposes U12
-#: first), the LU panels' base case (either kernel), the Householder
-#: panel and the ragged solve
+#: first), the LU panels' base case over the grid (either panel kernel),
+#: the rank-1 panel's one-block base case and its trailing-column
+#: updates (the three together: lu_panel's device time), the
+#: Householder panel and the ragged solve
 WATCH = {"rank_update": ("rank_update_", "transpose_bf16"),
-         "lu_base": ("lu_base_",), "qr_panel": ("qr_panel_kernel",),
+         "lu_base": ("lu_base_",), "lu_block": ("lu_block_kernel",),
+         "lu_trail": ("lu_trail_kernel",),
+         "qr_panel": ("qr_panel_kernel",),
          "ragged_trsm": ("ragged_trsm_kernel",)}
 
 
@@ -1956,7 +2059,8 @@ def profile_call(fn, top=8):
 def phase_profile(system):
     """Where the time of the main paths goes: gesv on both routes (f32
     recursive panels cached), gesv_mixed (recursive panels cached for
-    both types), posv on both routes, the square gels, the bf16 gels
+    both types), gesv_mixed cold at n = 4096 (its 16 lu_panel
+    launches), posv on both routes, the square gels, the bf16 gels
     (its 64 qr_panel launches), and one ragged
     posv flush of the serving stream's first 64 requests (host stacking
     and copies included)."""
@@ -1969,6 +2073,8 @@ def phase_profile(system):
     fresh_tune_cache([torch.float32, torch.bfloat16])
     out["gesv_mixed"] = profile_call(lambda: st.gesv_mixed(A, B, opts))
     fresh_tune_cache()
+    CA, CB = system["cold"]
+    out["gesv_mixed.cold"] = profile_call(lambda: st.gesv_mixed(CA, CB))
     SA, SB = system["SA"], system["SB"]
     out["posv.fused"] = profile_call(lambda: st.posv(SA, SB))
     out["posv.tiled"] = profile_call(lambda: st.posv(
@@ -2020,7 +2126,8 @@ def main():
         ("kernel.givens_chain", lambda: phase_givens_chain(rng, results)),
         ("kernel.qr_sweep", lambda: phase_qr_sweep(rng, results)),
         ("gesv", lambda: phase_gesv(args.seed, results, system)),
-        ("gesv_mixed.cold", lambda: phase_mixed_cold(args.seed, results)),
+        ("gesv_mixed.cold",
+         lambda: phase_mixed_cold(args.seed, results, system)),
         ("gesv_mixed", lambda: phase_mixed(results, system)),
         ("posv", lambda: phase_posv(args.seed, system)),
         ("posv_mixed", lambda: phase_posv_mixed(system)),

@@ -49,6 +49,7 @@ LIBS = {
     "lu_panel": ("lu_panel.cu", {
         "slate_set_device": [_I],
         "lu_panel": [_P, _P, _I, _I, _P, _P, _I, _P],
+        "lu_panel_block_takes": [_I, _I, _I],
     }),
     "compose_swaps": ("compose_swaps.cu", {
         "slate_set_device": [_I],
@@ -73,6 +74,7 @@ LIBS = {
     "ragged_getrf": ("ragged_getrf.cu", {
         "slate_set_device": [_I],
         "ragged_getrf": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ragged_getrf_cluster": [_I],
     }),
     "ragged_trsm": ("ragged_trsm.cu", {
         "slate_set_device": [_I],

@@ -4,8 +4,7 @@
 // The f32 product of the port's redesigned kernels: the f32 trailing
 // update of the tall-panel split (rank_update.cu, 128 x 128 tiles) and
 // the trailing update of the Cholesky block (chol_panel.cu, 64 x 64
-// tiles, op(B) = B^T). gemm_sub.cuh stays the tile of the kernels that
-// hold their pivots bitwise.
+// tiles, op(B) = B^T).
 //
 // Bound on an H100: f32 FLOPs at 67 TFLOP/s (TF32 is off, so the tensor
 // cores cannot take the products exactly). Design: a BM x BN output tile

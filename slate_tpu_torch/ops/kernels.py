@@ -7,9 +7,9 @@ port of XLA's builtin of that name, which the reference calls between
 panels, and over a batch between the ragged LU and its solves), the
 Householder panel ``qr_panel``, the Cholesky block ``chol_panel``, the
 lower-triangular inverse ``trtri_lower``, the batch layer's ragged
-kernels ``ragged_potrf``, ``ragged_getrf`` and ``ragged_trsm`` (one
-block per element of a (B, N, N) stack, each bounded by its own order
-from a device ``sizes`` vector), the Givens chain apply
+kernels ``ragged_potrf``, ``ragged_getrf`` and ``ragged_trsm`` (each
+element of a (B, N, N) stack bounded by its own order from a device
+``sizes`` vector), the Givens chain apply
 ``givens_chain_apply`` (the QR iterations' transform accumulation,
 Z @ G streamed along each row), and the QR passes ``steqr_sweep`` /
 ``bdsqr_sweep`` (the port of the XLA scans the reference runs once a
@@ -408,11 +408,8 @@ def lu_grid_scratch_words(max_blocks: int) -> int:
 
 def _panel_launch_setup(name: str, a: torch.Tensor):
     """What both panel kernels take: the library on a's device, the
-    output (a contiguous copy of the panel, factored in place), the
-    int32 pivots, and the cooperative base case's scratch
-    (csrc/lu_base.cuh launch_lu_base: per-block pivot candidates and
-    posted rows, one grid-barrier counter). Raises on a panel the
-    kernels do not take."""
+    output (a contiguous copy of the panel, factored in place) and the
+    int32 pivots. Raises on a panel the kernels do not take."""
     m, w = a.shape
     if a.dtype not in PANEL_DTYPES or w > LU_REC_MAX_W:
         raise ValueError("%s kernel takes an f32/bf16 (m, w) panel with "
@@ -422,11 +419,7 @@ def _panel_launch_setup(name: str, a: torch.Tensor):
     _build.set_device(lib, name, a.get_device())
     out = a.clone(memory_format=torch.contiguous_format)
     piv = torch.zeros(w, dtype=torch.int32, device=a.device)
-    scr_f = torch.empty(2 * _BASE_MAX_BLOCKS + 4 * w, dtype=torch.float32,
-                        device=a.device)
-    scr_i = torch.empty(1 + 2 * _BASE_MAX_BLOCKS, dtype=torch.int32,
-                        device=a.device)
-    return lib, out, piv, scr_f, scr_i
+    return lib, out, piv
 
 
 def _lu_panel_rec_cuda(a: torch.Tensor, ib: int
@@ -435,7 +428,14 @@ def _lu_panel_rec_cuda(a: torch.Tensor, ib: int
     if not (w <= m and ib >= 1):
         raise ValueError("lu_panel_rec kernel takes w <= m and ib >= 1, "
                          "got %s ib=%d" % (tuple(a.shape), ib))
-    lib, out, piv, scr_f, scr_i = _panel_launch_setup("lu_panel_rec", a)
+    lib, out, piv = _panel_launch_setup("lu_panel_rec", a)
+    # the wider segments' cooperative base case (csrc/lu_base.cuh
+    # launch_lu_base): per-block pivot candidates and posted rows, one
+    # grid-barrier counter
+    scr_f = torch.empty(2 * _BASE_MAX_BLOCKS + 4 * w, dtype=torch.float32,
+                        device=a.device)
+    scr_i = torch.empty(1 + 2 * _BASE_MAX_BLOCKS, dtype=torch.int32,
+                        device=a.device)
     blocks = min(_build.sm_count(a.get_device()), _LG_MAX_BLOCKS)
     # zeroed once a panel: the exchange's epochs start above every word
     scr_g = torch.zeros(lu_grid_scratch_words(blocks), dtype=torch.int64,
@@ -620,6 +620,26 @@ def lu_panel_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, torch.tensor(piv, dtype=torch.int32, device=a.device)
 
 
+def lu_panel_segmented_plain(a: torch.Tensor, seg: int = _LG_WMAX
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """lu_panel_plain in the rank-1 kernel's order (csrc/lu_panel.cu):
+    per segment of `seg` columns [c0, c0 + seg) up to the last column
+    with a pivot row, the base case confined to the segment (its swaps
+    gathered into every other column), then the segment's rank-1
+    updates of the trailing columns, column by column. Every entry
+    takes the recurrence's operations in its order, so the result is
+    bitwise lu_panel_plain's for any `seg`."""
+    m, w = a.shape
+    out = a.clone()
+    piv = [0] * w
+    for c0 in range(0, min(m, w), seg):
+        c1 = min(c0 + seg, w)
+        _segment_plain(out, piv, c0, c1)
+        for j in range(c0, min(c1, m)):
+            out[j + 1:, c1:] -= torch.outer(out[j + 1:, j], out[j, c1:])
+    return out, torch.tensor(piv, dtype=torch.int32, device=a.device)
+
+
 def _lu_panel_launch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """ONE panel through the rank-1 kernel (the counterpart of one
     ``_lu_panel_pallas`` dispatch): the CUDA kernel for a CUDA tensor,
@@ -627,9 +647,13 @@ def _lu_panel_launch(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if a.device.type != "cuda":
         return lu_panel_plain(a)
     m, w = a.shape
-    lib, out, piv, scr_f, scr_i = _panel_launch_setup("lu_panel", a)
+    lib, out, piv = _panel_launch_setup("lu_panel", a)
+    # the segments' exchange (csrc/lu_base_grid.cuh), zeroed by the
+    # kernel's entry; its second scratch pointer is not read
+    scr = torch.empty(lu_grid_scratch_words(_LG_MAX_BLOCKS),
+                      dtype=torch.int64, device=a.device)
     _build.check(lib.lu_panel(out.data_ptr(), piv.data_ptr(), m, w,
-                              scr_f.data_ptr(), scr_i.data_ptr(),
+                              scr.data_ptr(), None,
                               int(a.dtype == torch.bfloat16), _stream(a)),
                  "lu_panel")
     _lu_panel_launch.launches += 1
@@ -986,8 +1010,9 @@ def trtri_lower(a: torch.Tensor, unit_diagonal: bool = False
 RAGGED_BLK = 32
 #: widest stripe the CUDA ragged kernels take (one lane per column)
 RAGGED_MAX_BLK = 32
-#: largest ceiling the CUDA ragged kernels take: ragged_getrf keeps an
-#: (N, blk) block in shared memory (1024 x 33 f32 = 132 KiB)
+#: largest ceiling the CUDA ragged kernels take: ragged_getrf's base
+#: case keeps a stripe's rows in one 256-thread block's registers, at
+#: most four rows a thread
 RAGGED_MAX_N = 1024
 
 

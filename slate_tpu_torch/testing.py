@@ -209,6 +209,23 @@ def ragged_cases(rng) -> Dict[str, tuple]:
     return cases
 
 
+def ragged_getrf_wide_case(rng, ceil: int = 384) -> tuple:
+    """The ragged LU's adversarial suite at a ceiling wide enough for a
+    cluster of several blocks an element (ceil // 128 of them, the
+    kernel's rule): the ceiling with two equal rows permuted, a permuted
+    Gaussian whose order is off the stripe width, a zero column, order
+    1; f32, garbage in every pad. (stack, sizes)."""
+    c = rng.standard_normal((ceil, ceil))
+    c[5] = c[ceil - 7]
+    a = rng.standard_normal((ceil - 84, ceil - 84))
+    b = rng.standard_normal((ceil - 127, ceil - 127))
+    b[:, 40] = 0.0
+    mats = [c[rng.permutation(ceil)], a[rng.permutation(ceil - 84)], b,
+            np.array([[3.5]])]
+    return (stack_garbage([m.astype(np.float32) for m in mats], ceil),
+            [m.shape[0] for m in mats])
+
+
 def serve_stream(seed: int = 0, reqs: int = 256):
     """The batch layer's serving stream (the reference's bench.py
     --serve): orders n lognormal around 180 (sigma 0.6) clipped to

@@ -368,6 +368,73 @@ def test_lu_panel_adversarial_matches_jax(adversarial_rank1, kind, dtype):
     _assert_values(kind, dtype, packed, jp)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,w,seg", [(256, 96, 32), (384, 136, 32),
+                                     (128, 256, 32), (40, 64, 32),
+                                     (96, 64, 8), (200, 100, 64)])
+def test_lu_panel_segmented_plain_shapes(m, w, seg, dtype):
+    """The segmented order gives lu_panel_plain's packed LU and pivots
+    bitwise on random panels of every kind of edge: a width off the
+    segment width, fewer rows than columns (the last segment factors
+    only the columns that have a pivot row), and other segment
+    widths."""
+    a = np.random.default_rng(m + w + seg).standard_normal((m, w))
+    t = _to_torch(a.astype(np.float32), dtype)
+    sp, spiv = pk.lu_panel_segmented_plain(t, seg)
+    pp, ppiv = pk.lu_panel_plain(t)
+    assert torch.equal(sp, pp) and torch.equal(spiv, ppiv)
+
+
+@pytest.fixture(scope="module")
+def adversarial_rank1_wide():
+    """The adversarial suite at 256 x 96 with the boundary spikes at the
+    kernel's segment edges (ib = 32), through the JAX rank-1 kernel, in
+    both types, once."""
+    cases = panel_cases(np.random.default_rng(42), 256, 96, 32)
+    return {(kind, dt): (a,) + tuple(map(np.asarray,
+                                         jpk.lu_panel(_to_jax(a, dt))))
+            for kind, a in cases.items() for dt in DTYPES}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_lu_panel_segmented_plain_bitwise(adversarial_rank1_wide, kind,
+                                          dtype):
+    """The kernel's order on the plain side (segments of 32 columns,
+    then each segment's rank-1 updates of the trailing columns) gives
+    lu_panel_plain's packed LU and pivots bitwise, across three
+    segments; against the JAX rank-1 kernel (interpreted) the pivots
+    are bitwise, and so are the bf16 values."""
+    a, jp, jpiv = adversarial_rank1_wide[(kind, dtype)]
+    t = _to_torch(a, dtype)
+    sp, spiv = pk.lu_panel_segmented_plain(t)
+    pp, ppiv = pk.lu_panel_plain(t)
+    assert torch.equal(sp, pp) and torch.equal(spiv, ppiv)
+    assert np.array_equal(spiv.numpy(), jpiv)
+    if dtype == "bfloat16":
+        assert np.array_equal(_f32(sp), _f32(jp))
+    else:
+        _assert_values(kind, dtype, sp, jp)
+
+
+def test_lu_panel_scratch_and_c_signature():
+    """The rank-1 kernel keeps its C entry; its first scratch pointer
+    carries the segments' exchange, sized for the most blocks the base
+    case takes (the entry zeroes it, so every panel's epochs start above
+    every word). A second entry tells a report which segments run their
+    base case in one block."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _build.LIBS["lu_panel"] == (
+        "lu_panel.cu", {"slate_set_device": [I],
+                        "lu_panel": [P, P, I, I, P, P, I, P],
+                        "lu_panel_block_takes": [I, I, I]})
+    assert pk._LG_MAX_BLOCKS == 160
+    assert pk.lu_grid_scratch_words(pk._LG_MAX_BLOCKS) == \
+        2 + 2 * (160 * 34 + 32)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_lu_panel_rec_bf16_adversarial_matches_jax(kind):
     a = panel_cases(np.random.default_rng(42), 256, 32, 8)[kind]

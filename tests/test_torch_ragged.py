@@ -222,6 +222,40 @@ def test_ragged_getrf_bf16_matches_reference(rng):
         assert d <= 2 * 2.0 ** -7 * max(np.abs(jl[i]).max(), 1.0)
 
 
+def test_ragged_getrf_c_signature():
+    """The ragged LU keeps its C entry; a second entry gives the
+    cluster size the launch takes at a ceiling (reports read it from
+    there)."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _build.LIBS["ragged_getrf"] == (
+        "ragged_getrf.cu", {"slate_set_device": [I],
+                            "ragged_getrf": [P, P, P, P, I, I, I, I, P],
+                            "ragged_getrf_cluster": [I]})
+
+
+def test_ragged_getrf_ceiling_1024_matches_reference(rng):
+    """The gate's largest ceiling on the plain path: an element of order
+    1024 (two equal rows, permuted) beside a short one, against the
+    reference kernel (interpreted): pivots bitwise, values to 1e-9, the
+    pad the identity with identity swaps."""
+    ceil = 1024
+    c = rng.standard_normal((ceil, ceil))
+    c[3] = c[900]
+    mats = [c[rng.permutation(ceil)], rng.standard_normal((45, 45))]
+    sizes = [m.shape[0] for m in mats]
+    stack = _stack_garbage(mats, ceil)
+    assert pk.ragged_getrf_eligible(ceil, torch.float64)
+    lu, piv = pk.ragged_getrf(_t(stack), np.asarray(sizes))
+    jlu, jpiv = jpk.ragged_getrf(jnp.asarray(stack), np.asarray(sizes))
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    np.testing.assert_allclose(lu.numpy(), np.asarray(jlu), rtol=1e-9,
+                               atol=1e-9)
+    np.testing.assert_array_equal(piv[1, 45:].numpy(), np.arange(45, ceil))
+    assert np.array_equal(lu[1, 45:].numpy(), np.eye(ceil)[45:])
+
+
 # -- ragged_trsm -----------------------------------------------------------
 
 MODES = [(False, False, False),     # posv forward sweep
