@@ -1,39 +1,44 @@
 #!/usr/bin/env python3
-"""Parent against change on one card, in one run: the rank-1 LU panel
-(`lu_panel`), the ragged batched LU (`ragged_getrf`), and the calls on
-their paths.
+"""Parent against change on one card, in one run: the swap composition
+(`compose_swaps`), the tridiagonal QR pass (`steqr_sweep`), and the
+calls on their paths.
 
     git archive <parent> | tar -x -C smoke_archive/parent
     python3 chip_compare.py --parent smoke_archive/parent
 
-  1. kernels  the parent tree's lu_panel.cu and ragged_getrf.cu are
+  1. kernels  the parent tree's compose_swaps.cu and qr_sweep.cu are
               compiled from its sources into libraries of their own and
               called through their C entries on the same inputs as this
               tree's wrappers, in the order parent, change, change,
               parent, back to back (`ms`) and replayed from a CUDA graph
-              (`graph_ms`): lu_panel f32 and bf16 on random 256-column
-              panels at every height the cold mixed route runs (4096,
-              3840, ..., 256 rows), each tree BITWISE against
-              lu_panel_plain (packed LU and pivots), beside
-              torch.linalg.lu_factor (an f32 upcast for bf16; replayed
-              from a graph as lu_factor_ex where the capture takes it);
-              ragged_getrf f32 and bf16 on the serving stream's first
-              flush and on the flush that holds the order-1024 request,
-              each tree against the plain version on four elements
-              (pivots and pads bitwise, values within
-              chip_smoke.RAGGED_LIMIT), beside torch.linalg.lu_factor_ex
-              on the identity-padded stack (f32); each row carries its
-              bound and latency floor;
+              (`graph_ms`): compose_swaps on LU swap sequences over
+              16384 rows (gesv's 512 swaps, the recursive panel's split
+              sizes 256 ... 32, getrs' 16384), on 512 targets below
+              their steps and 512 outside the rows, and on the ragged
+              gesv's (64, 608) and (64, 1024) swap stacks (the serving
+              stream's first flush and the flush of its order-1024
+              request, factored by ragged_getrf), each tree BITWISE
+              against compose_swaps_plain (the parent skips targets
+              outside the rows, XLA does not: there it is reported, not
+              held); one full-width steqr_sweep pass at n = 2048, each
+              tree bitwise against steqr_sweep_plain over 3 passes, and
+              this tree's multi-pass launch of STEQR_PASSES_PER_LAUNCH
+              passes, a pass; each row with its bound and latency floor
+              (the sweep's: the 4-operation one and the bitwise floor,
+              chip_smoke.sweep_floor_ms);
   2. solves   in one process per tree, in the order parent, change,
-              change, parent: gesv_mixed cold at n = 4096 as
-              chip_smoke.py's phase runs it (its checks included, 16
-              lu_panel launches; the pivots' digest, to hold the trees
-              equal) and once more under torch.profiler (busy time, idle
-              share, lu_panel's share: its base-case kernels, over the grid
-              and in one block, and its trailing-column kernel); the ragged gesv of the serving stream's first
-              flush on the card (batch.drivers ragged_dispatch on device
-              stacks, warm, CUDA events) and the same gesv through the
-              queue (chip_smoke.serve_run, host copies included).
+              change, parent: gesv_mixed at n = 16384 (tiles 512, f32
+              and bf16 panels routed to the recursive kernel, as
+              chip_smoke.py's phase) once warm and once under
+              torch.profiler (compose_swaps' device time, launches and
+              share of busy time; wall, busy, idle); heev QRIteration at
+              n = 2048 (chip_smoke.py's matrix, the chain routed to
+              givens_chain_apply) once warm and once under the profiler:
+              the wall, the sweep's device time, passes (the chain's
+              launches, one a pass), sweep launches and host reads (the
+              parent reads the count once a pass and once more at the
+              end), and digests of the eigenvalues, the eigenvectors and
+              info, equal between the trees.
 
 Prints one JSON line a phase and the card's nvidia-smi line; exits 1
 when a check fails and 2 without a CUDA card.
@@ -52,27 +57,19 @@ import torch
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 
-from chip_smoke import (DTYPES, N_COLD, PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
-                        RAGGED_LIMIT, bound_ms, cuda_ms, graph_ms,
-                        identity_padded, largest_flush, lu_panel_latency_ms,
-                        panel_flops, path_stacks, plain_subset,
-                        ragged_compare, ragged_getrf_cluster,
-                        ragged_lu_latency_ms, to_card, try_graph_ms)
+from chip_smoke import (N, N_EIG, SWAP_WIDTHS, bound_ms, compose_latency_ms,
+                        cuda_ms, graph_ms, largest_flush, latency_ms,
+                        lu_swaps, path_stacks, sweep_bound, sweep_floor_ms,
+                        to_card, tridiag, DEP_OP_CYCLES)
 
 ORDER = ("parent", "change", "change", "parent")
-#: the cold mixed route's panels at n = 4096: 256 columns, 4096 ... 256
-#: rows
-LU_HEIGHTS = tuple(range(N_COLD, 0, -256))
 
 #: the parent's C entries
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PARENT_LIBS = {
-    "lu_panel": {"lu_panel": [_P, _P, _I, _I, _P, _P, _I, _P]},
-    "ragged_getrf": {"ragged_getrf": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "compose_swaps": {"compose_swaps": [_P, _I, _I, _I, _P, _P]},
+    "qr_sweep": {"steqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P]},
 }
-#: the parent's lu_panel scratch (csrc/lu_base.cuh launch_lu_base):
-#: candidate slots of its cooperative grid
-_PARENT_BASE_MAX_BLOCKS = 1024
 
 
 def build_parent(tree):
@@ -104,32 +101,33 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def parent_lu_panel(lib, a):
-    """One panel through the parent's kernel, as its wrapper called it."""
-    m, w = a.shape
-    out = a.clone(memory_format=torch.contiguous_format)
-    piv = torch.zeros(w, dtype=torch.int32, device=a.device)
-    scr_f = torch.empty(2 * _PARENT_BASE_MAX_BLOCKS + 4 * w,
-                        dtype=torch.float32, device=a.device)
-    scr_i = torch.empty(1 + 2 * _PARENT_BASE_MAX_BLOCKS, dtype=torch.int32,
-                        device=a.device)
-    _build.check(lib.lu_panel(out.data_ptr(), piv.data_ptr(), m, w,
-                              scr_f.data_ptr(), scr_i.data_ptr(),
-                              int(a.dtype == torch.bfloat16), _stream()),
-                 "parent lu_panel")
-    return out, piv
+def parent_compose(lib, piv, m):
+    """The swaps composed by the parent's kernel, as its wrapper called
+    it."""
+    piv = piv.to(torch.int32).contiguous()
+    batch = piv.shape[0] if piv.dim() == 2 else 1
+    perm = torch.empty(*piv.shape[:-1], m, dtype=torch.int64,
+                       device=piv.device)
+    _build.check(lib.compose_swaps(piv.data_ptr(), batch, piv.shape[-1], m,
+                                   perm.data_ptr(), _stream()),
+                 "parent compose_swaps")
+    return perm
 
 
-def parent_ragged_getrf(lib, a, sizes):
-    B, N = a.shape[0], a.shape[-1]
-    out = torch.empty_like(a)
-    piv = torch.empty((B, N), dtype=torch.int32, device=a.device)
-    _build.check(lib.ragged_getrf(a.data_ptr(), out.data_ptr(),
-                                  piv.data_ptr(), sizes.data_ptr(), B, N,
-                                  pk.ragged_blk(),
-                                  int(a.dtype == torch.bfloat16), _stream()),
-                 "parent ragged_getrf")
-    return out, piv
+def parent_steqr(lib, d, e):
+    """One pass through the parent's kernel, as its wrapper called it."""
+    n = d.shape[0]
+    dout, eout = torch.empty_like(d), torch.empty_like(e)
+    cs, sn = (torch.empty(n - 1, dtype=torch.float32, device=d.device)
+              for _ in range(2))
+    cnt = torch.empty((), dtype=torch.int32, device=d.device)
+    _build.check(lib.steqr_sweep(d.data_ptr(), e.data_ptr(), n,
+                                 float(torch.finfo(torch.float32).eps),
+                                 dout.data_ptr(), eout.data_ptr(),
+                                 cs.data_ptr(), sn.data_ptr(),
+                                 cnt.data_ptr(), _stream()),
+                 "parent steqr_sweep")
+    return dout, eout, cs, sn, cnt
 
 
 def timed(row, fns, reps):
@@ -139,163 +137,158 @@ def timed(row, fns, reps):
         row["graph_ms_%d_%s" % (i, who)] = graph_ms(fns[who], reps)
 
 
-def lu_rows(libs, rng):
-    ok, rows = True, []
-    for m in LU_HEIGHTS:
-        for dname, dtype in DTYPES:
-            a = torch.as_tensor(rng.standard_normal((m, 256),
-                                                    dtype=np.float32),
-                                device="cuda").to(dtype)
-            pp, ppiv = pk.lu_panel_plain(a)
-            fns = {"parent": lambda: parent_lu_panel(libs["lu_panel"], a),
-                   "change": lambda: pk._lu_panel_launch(a)}
-            row = {"kernel": "lu_panel", "dtype": dname,
-                   "shape": "%dx256" % m}
-            for who, fn in fns.items():
-                kp, kpiv = fn()
-                same = bool(torch.equal(kp, pp) and torch.equal(kpiv, ppiv))
-                row["bitwise_plain_" + who] = same
-                ok &= same
-            timed(row, fns, 5)
-            a32 = a.float()
-            row["library"] = "torch.linalg.lu_factor" + (
-                " (f32 upcast)" if dtype != torch.float32 else "")
-            row["library_ms"] = cuda_ms(lambda: torch.linalg.lu_factor(a32),
-                                        5)
-            row["library_graph_ms"], row["library_graph_error"] = \
-                try_graph_ms(lambda: torch.linalg.lu_factor_ex(a32), 5)
-            b, by = bound_ms(panel_flops(m, 256),
-                             2.0 * a.element_size() * m * 256)
-            row.update(bound_ms=b, bound_by=by,
-                       latency_bound_ms=lu_panel_latency_ms(m, 256))
-            rows.append(row)
-    return ok, rows
-
-
-def getrf_rows(libs, seed):
-    ok, rows = True, []
+def ragged_swaps(seed):
+    """The ragged gesv's swap stacks of the two flushes: ragged_getrf's
+    pivots on the serving stream's stacks, with their ceilings."""
+    out = []
     for flush in (0, largest_flush(seed)):
         sizes, ceil, _spd, gen, _rhs = path_stacks(seed, flush)
-        sub = plain_subset(sizes)
+        a = to_card(gen, torch.float32)
         szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-        for dname, dtype in DTYPES:
-            a = to_card(gen, dtype)
-            pl, ppv = pk.ragged_getrf_plain(a[sub], [sizes[i] for i in sub],
-                                            pk.ragged_blk())
-            fns = {"parent": lambda: parent_ragged_getrf(
-                       libs["ragged_getrf"], a, szc),
-                   "change": lambda: pk.ragged_getrf(a, szc)}
-            row = {"kernel": "ragged_getrf", "dtype": dname, "flush": flush,
-                   "shape": "%dx%dx%d" % a.shape, "s_max": max(sizes),
-                   "cluster": ragged_getrf_cluster(ceil)}
-            outs = {}
-            for who, fn in fns.items():
-                kl, kpv = fn()
-                outs[who] = (kl, kpv)
-                piv_eq = bool(torch.equal(kpv[sub], ppv))
-                c_ok, err, pad = ragged_compare(dtype, kl[sub], pl,
-                                                [sizes[i] for i in sub])
-                row.update({"pivots_bitwise_" + who: piv_eq,
-                            "err_" + who: err, "pad_bitwise_" + who: pad})
-                ok &= piv_eq and c_ok
-            row["pivots_equal_trees"] = bool(torch.equal(
-                outs["parent"][1], outs["change"][1]))
-            row["bitwise_trees"] = bool(torch.equal(outs["parent"][0],
-                                                    outs["change"][0]))
-            del outs
-            timed(row, fns, 5)
-            aid = identity_padded(a, sizes).float()
-            row["library"] = "torch.linalg.lu_factor_ex (identity pad, f32" \
-                + (" upcast)" if dtype != torch.float32 else ")")
-            row["library_ms"] = cuda_ms(
-                lambda: torch.linalg.lu_factor_ex(aid), 5)
-            row["library_graph_ms"], row["library_graph_error"] = \
-                try_graph_ms(lambda: torch.linalg.lu_factor_ex(aid), 5)
-            del aid
-            live2 = sum(s * s for s in sizes)
-            b, by = bound_ms(
-                2.0 / 3.0 * sum(s ** 3 for s in sizes),
-                a.element_size() * (live2 + a.numel())
-                + 4.0 * a.shape[0] * (1 + ceil),
-                PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
-            row.update(bound_ms=b, bound_by=by,
-                       latency_bound_ms=ragged_lu_latency_ms(max(sizes)))
-            rows.append(row)
-            del a
+        out.append(("ragged.%d" % ceil, pk.ragged_getrf(a, szc)[1], ceil))
+        del a
+    return out
+
+
+def compose_rows(lib, seed):
+    rng = np.random.default_rng(seed)
+    cases = [("lu.%d" % w, torch.as_tensor(lu_swaps(rng, N, w),
+                                           device="cuda"), N)
+             for w in SWAP_WIDTHS + (N,)]
+    cases += [("any.512", torch.as_tensor(
+        rng.integers(0, N, 512).astype(np.int32), device="cuda"), N),
+              ("out_of_range.512", torch.as_tensor(
+                  rng.integers(-2 * N, 2 * N, 512).astype(np.int32),
+                  device="cuda"), N)]
+    cases += ragged_swaps(seed)
+    ok, rows = True, []
+    for label, piv, m in cases:
+        ref = pk.compose_swaps_plain(piv, m)
+        fns = {"parent": lambda: parent_compose(lib, piv, m),
+               "change": lambda: pk.lu_pivots_to_permutation(piv, m)}
+        row = {"kernel": "compose_swaps", "case": label,
+               "shape": "%s swaps over %d" % ("x".join(
+                   map(str, piv.shape)), m)}
+        for who, fn in fns.items():
+            row["bitwise_plain_" + who] = bool(torch.equal(fn(), ref))
+        ok &= row["bitwise_plain_change"] and (
+            row["bitwise_plain_parent"] or label == "out_of_range.512")
+        timed(row, fns, 50)
+        B = piv.shape[0] if piv.dim() == 2 else 1
+        b, by = bound_ms(0.0, B * (4.0 * piv.shape[-1] + 8.0 * m))
+        row.update(bound_ms=b, bound_by=by, library_ms=None,
+                   latency_bound_ms=compose_latency_ms(piv.shape[-1]))
+        rows.append(row)
     return ok, rows
+
+
+def steqr_rows(lib, seed):
+    d0, e0 = tridiag(np.random.default_rng(seed), N_EIG)
+    fns = {"parent": lambda: parent_steqr(lib, d0, e0),
+           "change": lambda: pk.steqr_sweep(d0, e0)}
+    row = {"kernel": "steqr_sweep", "shape": "n = %d, one pass" % N_EIG}
+    ok = True
+    for who, run in (("parent", lambda d, e: parent_steqr(lib, d, e)),
+                     ("change", pk.steqr_sweep)):
+        d, e, same = d0, e0, []
+        for _ in range(3):
+            got = run(d, e)
+            same.append(all(torch.equal(a, b) for a, b in
+                            zip(got, pk.steqr_sweep_plain(d, e))))
+            d, e = got[0], got[1]
+        row["bitwise_plain_" + who] = same
+        ok &= all(same)
+    timed(row, fns, 20)
+    k = pk.STEQR_PASSES_PER_LAUNCH
+    ran = pk.steqr_sweeps(d0, e0, k)[4].tolist()
+    row["multi_pass_graph_ms_a_pass"] = graph_ms(
+        lambda: pk.steqr_sweeps(d0, e0, k), 3) / max(ran[0], 1)
+    row["multi_pass_ran"] = ran
+    b, by = sweep_bound(N_EIG - 1, N_EIG, 2)
+    row.update(bound_ms=b, bound_by=by, library_ms=None,
+               latency_bound_ms=latency_ms(N_EIG - 1, 4 * DEP_OP_CYCLES))
+    row["bitwise_floor_ms"], row["floor_cycles_per_step"] = \
+        sweep_floor_ms(d0, e0)
+    return ok, [row]
 
 
 def phase_kernels(libs, seed):
-    rng = np.random.default_rng(seed)
     ok, rows = True, []
-    for part in (lambda: lu_rows(libs, rng), lambda: getrf_rows(libs, seed)):
+    for part in (lambda: compose_rows(libs["compose_swaps"], seed),
+                 lambda: steqr_rows(libs["qr_sweep"], seed)):
         p_ok, p_rows = part()
         ok &= p_ok
         rows += p_rows
     return {"phase": "kernels", "ok": bool(ok), "rows": rows}
 
 
-#: run in each tree (only what both trees' chip_smoke.py have): the cold
-#: mixed phase, gesv_mixed cold once more under the profiler, then the
-#: serving stream's first flush as a ragged gesv on the card and through
-#: the queue
+#: run in each tree (only what both trees' chip_smoke.py have): gesv_mixed
+#: at n = 16384 warm and under the profiler, then heev QRIteration at
+#: n = 2048 warm and under the profiler
 SOLVES = """
 import hashlib
-import inspect
 import json
 import numpy as np
 import torch
 import chip_smoke as cs
 import slate_tpu_torch as st
-from slate_tpu_torch.batch import drivers
+from slate_tpu_torch.ops import kernels as pk
 seed = %d
-results, system = {}, {}
-args = (seed, results, system)
-nargs = len(inspect.signature(cs.phase_mixed_cold).parameters)
-cold = cs.phase_mixed_cold(*args[:nargs])
-cs.fresh_tune_cache()
-a_np, b_np = cs.permuted_boosted_system(np.random.default_rng(seed),
-                                        cs.N_COLD, cs.NRHS)
-A = st.Matrix(a_np, mb=cs.NB_COLD)
-B = st.Matrix(b_np, mb=cs.NB_COLD)
-F, X, iters = st.gesv_mixed(A, B)
-digest = hashlib.sha256(F.pivots.cpu().numpy().tobytes()).hexdigest()[:16]
-prof = cs.profile_call(lambda: st.gesv_mixed(A, B), top=40)
-panel_ms = sum(t["device_ms"] for t in prof["top"]
-               if any(k in t["kernel"] for k in
-                      ("lu_base", "lu_block_kernel", "lu_trail")))
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def share(prof, subs):
+    hits = [t for t in prof["top"] if any(s in t["kernel"] for s in subs)]
+    ms = sum(t["device_ms"] for t in hits)
+    return {"device_ms": ms, "calls": sum(t["calls"] for t in hits),
+            "busy_share": ms / 1e3 / prof["device_busy_s"]}
+
+
+out = {}
+cs.fresh_tune_cache([torch.float32, torch.bfloat16])
+a_np, b_np = cs.permuted_boosted_system(np.random.default_rng(seed), cs.N,
+                                        cs.NRHS)
+A, B = st.Matrix(a_np, mb=cs.NB), st.Matrix(b_np, mb=cs.NB)
+del a_np, b_np
+opts = {st.Option.BlockSize: cs.NB}
+st.gesv_mixed(A, B, opts)
+pk.reset_launch_counts()
+wall, (F, X, iters) = cs.wall_s(lambda: st.gesv_mixed(A, B, opts))
+launches = pk.launch_counts()
+prof = cs.profile_call(lambda: st.gesv_mixed(A, B, opts), top=400)
+out["gesv_mixed"] = {
+    "wall_s": wall, "iters": int(iters),
+    "backward_error": cs.berr(A, X, B),
+    "compose_swaps_launches": launches["compose_swaps"],
+    "pivots_digest": digest(F.pivots),
+    "profile": {"wall_s": prof["wall_s"], "busy_s": prof["device_busy_s"],
+                "idle_share": prof["idle_share"], "top": prof["top"][:6]},
+    "compose_swaps": share(prof, ("compose_swaps",))}
 del A, B, F, X
-sizes, ceil, spd, gen, rhs = cs.path_stacks(seed)
-szc = torch.tensor(sizes, dtype=torch.int32, device="cuda")
-S = torch.as_tensor(gen, device="cuda")
-R = torch.as_tensor(rhs, device="cuda")
-x = drivers.ragged_dispatch("gesv", S, szc, R, device="cuda")
-a64 = S.double()
-r = torch.linalg.norm(a64 @ x.double() - R.double()) / (
-    torch.linalg.norm(a64) * torch.linalg.norm(x.double()))
-flush = {"ms": cs.cuda_ms(lambda: drivers.ragged_dispatch(
-    "gesv", S, szc, R, device="cuda"), 10), "backward_error": float(r)}
-mats = [np.ascontiguousarray(gen[i, :n, :n]) for i, n in enumerate(sizes)]
-rhss = [np.ascontiguousarray(rhs[i, :n]) for i, n in enumerate(sizes)]
-cs.serve_run("gesv", mats, rhss, "ragged")
-_, rec, _ = cs.serve_run("gesv", mats, rhss, "ragged")
-m = cold["gesv_mixed"]
-print("SOLVES " + json.dumps({
-    "cold_ok": cold["ok"], "cold_wall_s": m["wall_s"],
-    "cold_iters": m["iters"], "cold_backward_error": m["backward_error"],
-    "cold_x_rel_diff_f32": m["x_rel_diff_f32"],
-    "cold_lu_panel_launches": m["launches"]["lu_panel"],
-    "cold_gesv_f32_wall_s": m["gesv_f32_wall_s"],
-    "cold_gmres_wall_s": cold["gesv_mixed_gmres"]["wall_s"],
-    "cold_pivots_digest": digest,
-    "cold_profile": {"wall_s": prof["wall_s"],
-                     "busy_s": prof["device_busy_s"],
-                     "idle_share": prof["idle_share"],
-                     "lu_panel_ms": panel_ms,
-                     "lu_panel_share": panel_ms / 1e3
-                     / prof["device_busy_s"],
-                     "top": prof["top"][:8]},
-    "ragged_gesv_flush": flush, "gesv_queue_flush": rec}))
+gen = torch.Generator(device="cuda").manual_seed(seed)
+g = torch.randn((cs.N_EIG, cs.N_EIG), generator=gen, device="cuda")
+E = st.HermitianMatrix(st.Uplo.Lower, (g + g.T) / 2, mb=cs.MB_EIG)
+del g
+cs.route_chain("steqr2", torch.float32, cs.N_EIG)
+eopts = {st.Option.MethodEig: st.MethodEig.QRIteration}
+st.heev(E, eopts)
+pk.reset_launch_counts()
+wall, (w, V) = cs.wall_s(lambda: st.heev(E, eopts))
+launches = pk.launch_counts()
+prof = cs.profile_call(lambda: st.heev(E, eopts), top=400)
+passes = launches["givens_chain_apply"]
+out["heev_qr_iteration"] = {
+    "wall_s": wall, "passes": passes,
+    "sweep_launches": launches["steqr_sweep"],
+    "w_digest": digest(w), "v_digest": digest(V.to_dense()),
+    "profile": {"wall_s": prof["wall_s"], "busy_s": prof["device_busy_s"],
+                "idle_share": prof["idle_share"], "top": prof["top"][:6]},
+    "sweep": share(prof, ("steqr_sweep",)),
+    "chain": share(prof, ("givens_chain",))}
+print("SOLVES " + json.dumps(out))
 """
 
 
@@ -314,12 +307,19 @@ def phase_solves(trees, seed):
             continue
         rec = json.loads(line[-1][len("SOLVES "):])
         rec["tree"] = who
-        ok &= rec["cold_ok"] and rec["cold_lu_panel_launches"] == 16 \
-            and rec["ragged_gesv_flush"]["backward_error"] <= 1e-6
+        h = rec["heev_qr_iteration"]
+        # the parent reads the count after every pass and once before;
+        # the change once a launch
+        h["host_reads"] = h["passes"] + 1 if who == "parent" \
+            else h["sweep_launches"]
+        ok &= rec["gesv_mixed"]["backward_error"] <= 1e-6 and h["passes"] > 0
         runs.append(rec)
-    digests = {r.get("cold_pivots_digest") for r in runs}
-    return {"phase": "solves", "ok": bool(ok and len(digests) == 1),
-            "cold_pivots_equal": len(digests) == 1, "runs": runs}
+    same = {k: len({r.get(part, {}).get(k) for r in runs}) == 1
+            for part, k in (("gesv_mixed", "pivots_digest"),
+                            ("heev_qr_iteration", "w_digest"),
+                            ("heev_qr_iteration", "v_digest"))}
+    return {"phase": "solves", "ok": bool(ok and all(same.values())),
+            "equal_between_trees": same, "runs": runs}
 
 
 def main():

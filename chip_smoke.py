@@ -15,7 +15,13 @@ script exit non-zero without the final result line:
               version, one PyTorch library call computing the same
               function (timed only; the port never calls it) and the
               least time the card could take:
-                kernel.compose_swaps  the swap composition, bitwise;
+                kernel.compose_swaps  the swap composition, bitwise, over
+                                      16384 rows: LU sequences of 512,
+                                      256, 128, 64 and 32 swaps, one
+                                      of targets below their steps and
+                                      one outside the rows, also
+                                      replayed from a CUDA graph, with
+                                      a latency floor;
                 kernel.lu_panel       the rank-1 panel, bitwise (packed
                                       LU and pivots): adversarial suites
                                       at 256 x 32 and 512 x 256, then
@@ -78,7 +84,13 @@ script exit non-zero without the final result line:
                                       passes (steqr_sweep, bdsqr_sweep),
                                       bitwise in d, e, the rotations and
                                       the count over 3 passes at
-                                      n = 2048 and 512;
+                                      n = 2048 and 512; the multi-pass
+                                      steqr_sweeps bitwise against its
+                                      plain twin over several launches
+                                      (a stop at the cap, one at a
+                                      count of 0); replayed from a CUDA
+                                      graph, with the sweep's bitwise
+                                      floor;
               chol_panel and trtri_lower have no driver call site (as
               in the reference): their launches are counted over a run
               of their public entries on the random cases;
@@ -142,8 +154,10 @@ script exit non-zero without the final result line:
  12. heev     n = 2048, A = (G + G^T)/2 from --seed made on the card,
               tiles 256: Auto (the library eigensolver) as the reference
               values; MethodEig.QRIteration with ('steqr2', 'chain')
-              routed to the chain kernel (he2hb -> hb2st -> steqr2, one
-              steqr_sweep and one givens_chain_apply launch a pass);
+              routed to the chain kernel (he2hb -> hb2st -> steqr2: the
+              passes in steqr_sweeps launches of up to 32, one host read
+              a launch, one givens_chain_apply launch a pass; passes
+              and launches counted apart);
               then he2hb and hb2st once, timed, and on that tridiagonal
               steqr2 cold (dense compose) and stedc. Residual,
               orthogonality and values against Auto within EIG_LIMIT
@@ -162,8 +176,9 @@ script exit non-zero without the final result line:
               memset intervals of the trace), idle share, the heaviest
               kernels by device time and the shares of the trailing
               update (rank_update's kernels), of the LU base case, of
-              the rank-1 panel's trailing-column updates, of qr_panel
-              and of ragged_trsm;
+              the rank-1 panel's trailing-column updates, of qr_panel,
+              of ragged_trsm, of compose_swaps and of the tridiagonal
+              sweeps, and the LU base case's mean bound a segment;
  15. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
@@ -190,6 +205,7 @@ import slate_tpu_torch as st
 from slate_tpu_torch import batch
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
+from slate_tpu_torch.linalg import eig as teig
 from slate_tpu_torch.linalg import qr as tqr
 from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
                                      panel_cases, permuted_boosted_system,
@@ -379,7 +395,8 @@ def entry(name, dtype, source, replaces, path, s, worst):
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"],
             **{k: s[k] for k in ("graph_ms", "library_graph_ms",
-                                 "latency_bound_ms") if s.get(k) is not None}}
+                                 "latency_bound_ms", "bitwise_floor_ms")
+               if s.get(k) is not None}}
 
 
 def phase_device():
@@ -403,29 +420,76 @@ def phase_build():
             "libs": {k: v for k, v in _build.build_log.items()}}
 
 
-def phase_compose_swaps(rng, results):
-    """m = 16384, 512 random swaps: bitwise equal to the plain
-    version."""
-    m, w = N, 512
-    piv = torch.as_tensor(np.array([j + rng.integers(0, m - j)
-                                    for j in range(w)], np.int32),
-                          device="cuda")
+#: the LU panels' swap compositions over N rows: gesv's 512-wide
+#: panels, then the recursive panel's split sizes
+SWAP_WIDTHS = (512, 256, 128, 64, 32)
+
+
+def compose_latency_ms(w):
+    """The swap composition's latency floor: the swaps read back through
+    L2 (one round trip, EXCHANGE_CYCLES) and ceil(log2 w) dependent
+    combining steps (a link of the forest each) before the write."""
+    return latency_ms(1, EXCHANGE_CYCLES) + latency_ms(
+        int(np.ceil(np.log2(max(w, 2)))), DEP_OP_CYCLES)
+
+
+def lu_swaps(rng, m, w):
+    """An LU swap sequence: piv[j] uniform in [j, m)."""
+    return np.array([j + rng.integers(0, m - j) for j in range(w)],
+                    np.int32)
+
+
+def compose_row(piv, m, plain_reps=5):
+    """One compose_swaps shape: bitwise against the plain version, its
+    times back to back and replayed from a CUDA graph, the plain
+    version's, the bound (the swaps read, the permutation written) and
+    the latency floor."""
     perm = pk.lu_pivots_to_permutation(piv, m)
     ref = pk.compose_swaps_plain(piv, m)
     torch.cuda.synchronize()
-    same = torch.equal(perm, ref)
-    ms = cuda_ms(lambda: pk.lu_pivots_to_permutation(piv, m), 50)
-    plain_ms = cuda_ms(lambda: pk.compose_swaps_plain(piv, m), 5)
-    b_ms, b_by = bound_ms(0.0, 4.0 * w + 8.0 * m)
-    s = {"shape": "%d swaps over %d" % (w, m), "ms": ms,
-         "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-         "bound_by": b_by}
+    B = piv.shape[0] if piv.dim() == 2 else 1
+    w = piv.shape[-1]
+    run = functools.partial(pk.lu_pivots_to_permutation, piv, m)
+    b_ms, b_by = bound_ms(0.0, B * (4.0 * w + 8.0 * m))
+    return {"shape": ("%d x " % B if piv.dim() == 2 else "")
+            + "%d swaps over %d" % (w, m),
+            "bitwise": bool(torch.equal(perm, ref)),
+            "ms": cuda_ms(run, 50), "graph_ms": graph_ms(run, 50),
+            "plain_ms": cuda_ms(lambda: pk.compose_swaps_plain(piv, m),
+                                plain_reps),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "latency_bound_ms": compose_latency_ms(w)}
+
+
+def phase_compose_swaps(rng, seed, results):
+    """The swap composition over m = 16384 rows, bitwise against the
+    plain version: LU sequences of gesv's 512 swaps and of the recursive
+    panel's split sizes (the kernel's sorted path), then 512 targets
+    below their steps (not an LU sequence) and 512 outside [0, m) (its
+    in-order walk, XLA's semantics). No PyTorch call composes swaps
+    into a permutation vector (torch.lu_unpack builds the m x m
+    matrix), so library_ms is null. The kernel phases after this one
+    draw their panels from `rng` too: it gives the 512 swaps' draws, as
+    it did when that was the phase's only case, and the other cases
+    come from a generator of their own (from `seed`)."""
+    m = N
+    out = {"phase": "kernel.compose_swaps", "ok": True}
+    own = np.random.default_rng(seed + 1)
+    cases = [("lu.512", lu_swaps(rng, m, 512))]
+    cases += [("lu.%d" % w, lu_swaps(own, m, w)) for w in SWAP_WIDTHS[1:]]
+    cases += [("any.512", own.integers(0, m, 512).astype(np.int32)),
+              ("out_of_range.512",
+               own.integers(-2 * m, 2 * m, 512).astype(np.int32))]
+    for label, p in cases:
+        s = compose_row(torch.as_tensor(p, device="cuda"), m)
+        out[label] = s
+        out["ok"] &= s["bitwise"]
+    s = out["lu.512"]
     results["compose_swaps"] = entry(
         "compose_swaps", "int32", "compose_swaps.cu",
         "slate_tpu/linalg/lu.py:63 (XLA lu_pivots_to_permutation)",
-        "gesv_mixed", s, 0.0 if same else None)
-    return {"phase": "kernel.compose_swaps", "ok": bool(same),
-            "bitwise": same, **s}
+        "gesv_mixed", s, 0.0 if s["bitwise"] else None)
+    return out
 
 
 def adversarial(dtype, run, plain, shape=(256, 32, 8), bitwise=False):
@@ -1324,27 +1388,18 @@ def phase_ragged_potrf(seed, results):
     return out
 
 
-def compose_swaps_stack(piv, m, results):
-    """The batched compose_swaps (one launch for the stack, one block
-    per sequence) on the ragged gesv's own swap targets: bitwise equal
-    to the plain version, timed, and its row of the kernels line."""
-    perm = pk.lu_pivots_to_permutation(piv, m)
-    ref = pk.compose_swaps_plain(piv, m)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(perm, ref))
-    B, w = piv.shape
-    ms = cuda_ms(lambda: pk.lu_pivots_to_permutation(piv, m), 50)
-    plain_ms = cuda_ms(lambda: pk.compose_swaps_plain(piv, m), 3)
-    b_ms, b_by = bound_ms(0.0, B * (4.0 * w + 8.0 * m))
-    s = {"shape": "%d sequences of %d swaps over %d" % (B, w, m),
-         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-         "bound_ms": b_ms, "bound_by": b_by}
-    results["compose_swaps.batched"] = entry(
+def compose_swaps_stack(piv, m, results, suffix=""):
+    """The batched compose_swaps (one launch for the stack, one sorting
+    block a sequence) on the ragged gesv's own swap targets: bitwise
+    equal to the plain version, timed, and its row of the kernels
+    line (key suffix `suffix`)."""
+    s = compose_row(piv, m, plain_reps=3)
+    results["compose_swaps.batched" + suffix] = entry(
         "compose_swaps", "int32", "compose_swaps.cu",
         "slate_tpu/batch/drivers.py:389 (XLA lu_pivots_to_permutation "
         "under vmap)", "batch.serve (ragged gesv)", s,
-        0.0 if same else None)
-    return dict(s, bitwise=same, ok=same)
+        0.0 if s["bitwise"] else None)
+    return dict(s, ok=s["bitwise"])
 
 
 def ragged_lu_latency_ms(s_max, cols=None):
@@ -1386,9 +1441,9 @@ def phase_ragged_getrf(seed, results):
     ragged gesv stacks them: pivots and pads bitwise, values against the
     plain version on four elements, times (back to back and replayed
     from a CUDA graph), the latency floor, and the library LU of the
-    identity-padded stack; the f32 first flush's (64, 608) swap targets
-    then go through the batched compose_swaps, as the ragged gesv sends
-    them."""
+    identity-padded stack; each f32 flush's swap targets ((64, 608), then
+    (64, 1024)) then go through the batched compose_swaps, as the ragged
+    gesv sends them."""
     ok, out = True, {"phase": "kernel.ragged_getrf"}
     cases = ragged_cases(np.random.default_rng(32))
     wide = ragged_getrf_wide_case(np.random.default_rng(33))
@@ -1439,10 +1494,10 @@ def phase_ragged_getrf(seed, results):
                 key = "ragged_getrf." + dname
                 results[key if label == "first" else key + "." + str(ceil)] \
                     = row
-                if label == "first":
-                    out["compose_swaps"] = compose_swaps_stack(kpv, ceil,
-                                                               results)
-                    ok &= out["compose_swaps"]["ok"]
+                out["compose_swaps." + label] = compose_swaps_stack(
+                    kpv, ceil, results,
+                    "" if label == "first" else "." + str(ceil))
+                ok &= out["compose_swaps." + label]["ok"]
             out[dname][label] = dict(s, pivots_bitwise=p_piv, err=p_err,
                                      pad_bitwise=p_pad, ok=p_ok and p_piv)
             del a, kl
@@ -1829,11 +1884,35 @@ def sweep_bound(steps, n, nrot):
                     * (n - 1) + 4)
 
 
+def sweep_floor_ms(d, e):
+    """The tridiagonal sweep's bitwise floor on (d, e): the chase's
+    dependent chain with the rounding its contract fixes (f64 hypot,
+    IEEE divides, one rounding an operation), measured on one warp in
+    step by the library's steqr_chain_cycles (clock64 over the n-1
+    steps, no stores), as time at the boost clock; and the cycles a
+    step."""
+    lib = _build.load("qr_sweep")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for _ in range(2):                       # the second call is warm
+        _build.check(lib.steqr_chain_cycles(
+            d.data_ptr(), e.data_ptr(), d.shape[0], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "steqr_chain_cycles")
+        torch.cuda.synchronize()
+    per_step = int(out[0]) / (d.shape[0] - 1)
+    return latency_ms(d.shape[0] - 1, per_step), per_step
+
+
 def phase_qr_sweep(rng, results):
     """steqr_sweep and bdsqr_sweep against their plain versions,
     bitwise in every output, over 3 passes from a random n = 2048
     tridiagonal and a random 512 bidiagonal (each pass fed the kernel's
-    previous output); times of the first pass."""
+    previous output); the multi-pass entry steqr_sweeps against its
+    plain twin, bitwise (d, e, every pass's rotations, passes run and
+    count), over 3 launches of 4 passes at n = 2048 and, on a 64 x 64
+    tridiagonal, launches of STEQR_PASSES_PER_LAUNCH until one stops at
+    a count of 0; times of the first pass, back to back and replayed
+    from a CUDA graph, of a full multi-pass launch a pass, with the
+    4-operation latency bound and the bitwise floor (sweep_floor_ms)."""
     out = {"phase": "kernel.qr_sweep", "ok": True}
     for name, run, plain, n, path, line in (
             ("steqr_sweep", pk.steqr_sweep, pk.steqr_sweep_plain, N_EIG,
@@ -1855,17 +1934,58 @@ def phase_qr_sweep(rng, results):
             d, e = k[0], k[1]
         nrot = len(k) - 3
         b_ms, b_by = sweep_bound(n - 1, n, nrot)
+        one = functools.partial(run, d0, e0)
         s = {"shape": "n = %d, one pass" % n,
-             "ms": cuda_ms(lambda: run(d0, e0), 20),
+             "ms": cuda_ms(one, 20), "graph_ms": graph_ms(one, 20),
              "plain_ms": cuda_ms(lambda: plain(d0, e0), 2),
              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
              # the chase: n-1 dependent steps, each at least four
              # dependent f32 operations on the bulge
              "latency_bound_ms": latency_ms(n - 1, 4 * DEP_OP_CYCLES)}
+        if name == "steqr_sweep":
+            s["bitwise_floor_ms"], s["floor_cycles_per_step"] = \
+                sweep_floor_ms(d0, e0)
+            s["multi_pass"] = steqr_multi_pass(d0, e0)
+            out["ok"] &= s["multi_pass"]["ok"]
         out[name] = {**s, "passes_bitwise": passes}
         results[name] = entry(name, "float32", "qr_sweep.cu", line, path,
                               s, 0.0 if all(passes) else None)
     return out
+
+
+def steqr_multi_pass(d0, e0):
+    """steqr_sweeps against steqr_sweeps_plain, bitwise, over 3 chained
+    launches of 4 passes from (d0, e0), then on a random 64 x 64
+    tridiagonal launches of STEQR_PASSES_PER_LAUNCH until one stops at a
+    count of 0 (and one more, which runs no pass); the graph time of a
+    launch of STEQR_PASSES_PER_LAUNCH passes from (d0, e0), a pass."""
+    def held(d, e, k):
+        got = pk.steqr_sweeps(d, e, k)
+        ref = pk.steqr_sweeps_plain(d, e, k)
+        torch.cuda.synchronize()
+        return got, all(torch.equal(a, b) for a, b in zip(got, ref))
+
+    launches, d, e = [], d0, e0
+    for _ in range(3):
+        got, same = held(d, e, 4)
+        launches.append({"ran": got[4].tolist(), "bitwise": same})
+        d, e = got[0], got[1]
+    d, e = tridiag(np.random.default_rng(64), 64)
+    for _ in range(12):
+        got, same = held(d, e, pk.STEQR_PASSES_PER_LAUNCH)
+        launches.append({"ran": got[4].tolist(), "bitwise": same})
+        d, e = got[0], got[1]
+        if got[4][0] == 0:
+            break
+    k = pk.STEQR_PASSES_PER_LAUNCH
+    ran = pk.steqr_sweeps(d0, e0, k)[4].tolist()
+    g_ms = graph_ms(lambda: pk.steqr_sweeps(d0, e0, k), 3)
+    ok = all(x["bitwise"] for x in launches) \
+        and launches[-1]["ran"] == [0, 0] \
+        and any(x["ran"][0] > 0 and x["ran"][1] == 0 for x in launches)
+    return {"ok": bool(ok), "launches": launches,
+            "passes_per_launch": k, "graph_ms_a_launch": g_ms,
+            "graph_ms_a_pass": g_ms / max(ran[0], 1), "ran": ran}
 
 
 def route_chain(op, dtype, n):
@@ -1898,8 +2018,10 @@ def phase_heev(seed, results, system):
     """heev at n = 2048 on A = (G + G^T)/2 made on the card from --seed,
     tiles 256. (c) Auto (the library eigensolver) gives the reference
     values. (a) MethodEig.QRIteration with ('steqr2', 'chain') routed to
-    the chain kernel: he2hb -> hb2st -> steqr2, one steqr_sweep and one
-    givens_chain_apply launch a pass. (b) he2hb and hb2st once, timed,
+    the chain kernel: he2hb -> hb2st -> steqr2, the passes in
+    steqr_sweeps launches (up to STEQR_PASSES_PER_LAUNCH each, one host
+    read a launch) and one givens_chain_apply launch a pass, passes
+    counted apart from launches. (b) he2hb and hb2st once, timed,
     then on that tridiagonal and its back-transform steqr2 cold (the
     dense compose, sweeps still on the card) and stedc. The library
     route within EIG_LIMIT, the staged ones within STAGED_EIG_LIMIT
@@ -1922,13 +2044,18 @@ def phase_heev(seed, results, system):
     opts = {st.Option.MethodEig: st.MethodEig.QRIteration}
     torch.cuda.synchronize()
     pk.reset_launch_counts()
+    teig.steqr2_qr.passes = 0
     wall_a, (w_a, V_a) = wall_s(lambda: st.heev(A, opts))
     launches = pk.launch_counts()
     set_launches(results, "heev", launches)
     ok, chk = eig_checks(a64, w_a, V_a, w_ref, anorm2, STAGED_EIG_LIMIT)
-    passes = launches["steqr_sweep"]
-    ok &= passes > 0 and launches["givens_chain_apply"] == passes
+    # passes counted by the loop, apart from the sweep launches (each
+    # runs up to STEQR_PASSES_PER_LAUNCH passes; one host read each)
+    passes, sweeps = teig.steqr2_qr.passes, launches["steqr_sweep"]
+    ok &= passes > 0 and launches["givens_chain_apply"] == passes \
+        and -(-passes // pk.STEQR_PASSES_PER_LAUNCH) <= sweeps <= passes + 1
     out["qr_iteration"] = {"wall_s": wall_a, "passes": passes,
+                           "sweep_launches": sweeps, "host_reads": sweeps,
                            "launches": {k: v for k, v in launches.items()
                                         if v}, **chk}
     out["ok"] &= ok
@@ -1938,6 +2065,7 @@ def phase_heev(seed, results, system):
     stages["hb2st"], tri = wall_s(lambda: st.hb2st(Band))
     Q = st.unmtr_he2hb(Q1, tri.Q)
     pk.reset_launch_counts()
+    teig.steqr2_qr.passes = 0
     stages["steqr2_cold"], (w_b, V_b) = wall_s(
         lambda: st.steqr2(tri.d, tri.e, Q))
     cold = pk.launch_counts()
@@ -1948,7 +2076,8 @@ def phase_heev(seed, results, system):
     ok_d, chk_d = eig_checks(a64, w_d, V_d, w_ref, anorm2,
                              STAGED_EIG_LIMIT)
     out["staged"] = {"stage_wall_s": stages, "band_kd": MB_EIG,
-                     "steqr2_cold": {"passes": cold["steqr_sweep"],
+                     "steqr2_cold": {"passes": teig.steqr2_qr.passes,
+                                     "sweep_launches": cold["steqr_sweep"],
                                      **chk_s},
                      "stedc": chk_d}
     out["ok"] &= ok_s and ok_d
@@ -2010,7 +2139,9 @@ WATCH = {"rank_update": ("rank_update_", "transpose_bf16"),
          "lu_base": ("lu_base_",), "lu_block": ("lu_block_kernel",),
          "lu_trail": ("lu_trail_kernel",),
          "qr_panel": ("qr_panel_kernel",),
-         "ragged_trsm": ("ragged_trsm_kernel",)}
+         "ragged_trsm": ("ragged_trsm_kernel",),
+         "compose_swaps": ("compose_swaps_kernel",),
+         "steqr_sweep": ("steqr_sweep",)}
 
 
 def profile_call(fn, top=8):
@@ -2056,6 +2187,19 @@ def profile_call(fn, top=8):
                     for k, (ms, c) in heavy]}
 
 
+def lu_base_bound_ms(dtype):
+    """The LU base case's bound a segment (32 columns, the frozen ib),
+    over gesv's 512 of them at n = N, nb = NB (panel k at height
+    N - NB k, its segment j at N - NB k - 32 j): the mean segment read
+    and written once, or its operations at the f32 rate."""
+    ib = pk.LU_REC_IB
+    hs = [N - NB * k - ib * j for k in range(N // NB)
+          for j in range(NB // ib)]
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return bound_ms(sum(panel_flops(h, ib) for h in hs) / len(hs),
+                    2.0 * esize * ib * sum(hs) / len(hs))
+
+
 def phase_profile(system):
     """Where the time of the main paths goes: gesv on both routes (f32
     recursive panels cached), gesv_mixed (recursive panels cached for
@@ -2067,7 +2211,9 @@ def phase_profile(system):
     A, B, opts = system["A"], system["B"], system["opts"]
     fresh_tune_cache([torch.float32])
     out = {"phase": "profile", "ok": True,
-           "pallas_rec": profile_call(lambda: st.gesv(A, B, opts))}
+           "pallas_rec": profile_call(lambda: st.gesv(A, B, opts)),
+           "lu_base_bound_ms": {dn: lu_base_bound_ms(dt)
+                                for dn, dt in DTYPES}}
     with tselect.disabled():
         out["cold"] = profile_call(lambda: st.gesv(A, B, opts))
     fresh_tune_cache([torch.float32, torch.bfloat16])
@@ -2110,7 +2256,7 @@ def main():
     phases = (
         ("device", phase_device), ("build", phase_build),
         ("kernel.compose_swaps",
-         lambda: phase_compose_swaps(rng, results)),
+         lambda: phase_compose_swaps(rng, args.seed, results)),
         ("kernel.lu_panel", lambda: phase_lu_panel(rng, results)),
         ("kernel.lu_panel_rec", lambda: phase_panel_rec(rng, results)),
         ("kernel.rank_update", lambda: phase_rank_update(rng, results)),

@@ -6,11 +6,12 @@ back-transforms unmtr_he2hb / unmtr_hb2st.
 
 Auto takes the library eigensolver (``torch.linalg.eigh``), as the
 reference takes XLA's off the TPU. The tridiagonal QR iteration
-(``steqr2_qr``) runs each pass as one ``steqr_sweep`` launch
-(ops/kernels.py: clamp, block search, Wilkinson shift and bulge chase
-on the card; the host reads one count a pass, where the reference's
-while_loop evaluates its condition) and accumulates the pass's rotation
-chain into Z: by the dense compose (svd._givens_chain_matrix and one
+(``steqr2_qr``) runs its passes in ``steqr_sweeps`` launches of up to
+``STEQR_PASSES_PER_LAUNCH`` passes each (ops/kernels.py: clamp, block
+search, Wilkinson shift and bulge chase on the card, stopping where the
+reference's while_loop stops; the host reads the passes run and the
+count once a launch) and accumulates each pass's rotation chain into Z,
+in order: by the dense compose (svd._givens_chain_matrix and one
 product) on a cold tune cache, or, when the cache routes
 ``('steqr2', 'chain') = 'pallas_rec'``, by the ``givens_chain_apply``
 kernel.
@@ -345,9 +346,13 @@ def steqr2_qr(d: torch.Tensor, e: torch.Tensor,
     """Symmetric tridiagonal eigensolver by shifted implicit QR
     ITERATION (reference src/dsteqr2.f driven by src/steqr2.cc): while
     an off-diagonal is above tolerance and the pass count is below
-    maxit_factor * n, one pass (ops/kernels.steqr_sweep: clamp, block
-    [ll, m], Wilkinson shift, chase), then Z <- Z G with G the pass's
-    composed rotation chain.
+    maxit_factor * n, one pass (clamp, block [ll, m], Wilkinson shift,
+    chase), then Z <- Z G with G the pass's composed rotation chain.
+    The passes run in ops/kernels.steqr_sweeps launches of up to
+    STEQR_PASSES_PER_LAUNCH passes, each given what is left of the cap;
+    the chains are applied in pass order after each launch, so w, Z
+    and info are bitwise what one launch a pass gives.
+    ``steqr2_qr.passes`` counts the passes run.
 
     z0: optional initial transform (rows, n) the passes accumulate onto
     (the identity by default), e.g. the caller's back-transform Q.
@@ -358,25 +363,34 @@ def steqr2_qr(d: torch.Tensor, e: torch.Tensor,
     steqr INFO; a 0-d int32 tensor)."""
     n = d.shape[0]
     dt, dev = d.dtype, d.device
-    eps = torch.finfo(dt).eps
     if z0 is None:
         Z = torch.eye(n, dtype=dt, device=dev)
     else:
         Z = z0.to(torch.promote_types(z0.dtype, dt))
     apply_chain = _select_chain_apply("steqr2", Z.shape[0], n, dt, dev)
-    cnt = pk.unconverged(d, e, eps)
-    it = 0
-    while int(cnt) > 0 and it < maxit_factor * n:
-        d, e, cs, sn, cnt = pk.steqr_sweep(d, e)
-        # the sweep computes T' = G^T T G: the eigenvectors accumulate
-        # on the right, Z <- Z G
-        if apply_chain is not None:
-            Z = apply_chain(Z, cs, sn)
-        else:
-            Z = Z @ _givens_chain_matrix(cs, sn, n, dt).to(Z.dtype)
-        it += 1
+    cap, it, count = maxit_factor * n, 0, 0
+    while n > 1:
+        d, e, cs, sn, ran = pk.steqr_sweeps(
+            d, e, min(pk.STEQR_PASSES_PER_LAUNCH, cap - it))
+        passes, count = ran.tolist()        # the launch's one host read
+        for q in range(passes):
+            # the sweep computes T' = G^T T G: the eigenvectors
+            # accumulate on the right, Z <- Z G
+            if apply_chain is not None:
+                Z = apply_chain(Z, cs[q], sn[q])
+            else:
+                Z = Z @ _givens_chain_matrix(cs[q], sn[q], n,
+                                             dt).to(Z.dtype)
+        it += passes
+        steqr2_qr.passes += passes
+        if count == 0 or it >= cap:
+            break
     order = torch.argsort(d, stable=True)
-    return d[order], Z[:, order], cnt.to(torch.int32)
+    return d[order], Z[:, order], torch.tensor(count, dtype=torch.int32,
+                                              device=dev)
+
+
+steqr2_qr.passes = 0
 
 
 @instrument_driver("steqr2")

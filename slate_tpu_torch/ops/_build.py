@@ -88,6 +88,8 @@ LIBS = {
     "qr_sweep": ("qr_sweep.cu", {
         "slate_set_device": [_I],
         "steqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+        "steqr_sweeps": [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+        "steqr_chain_cycles": [_P, _P, _I, _P, _P],
         "bdsqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     }),
 }

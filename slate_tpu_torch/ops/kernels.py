@@ -13,7 +13,9 @@ element of a (B, N, N) stack bounded by its own order from a device
 ``givens_chain_apply`` (the QR iterations' transform accumulation,
 Z @ G streamed along each row), and the QR passes ``steqr_sweep`` /
 ``bdsqr_sweep`` (the port of the XLA scans the reference runs once a
-pass in eig.steqr2_qr and svd.bdsqr_qr).
+pass in eig.steqr2_qr and svd.bdsqr_qr), with ``steqr_sweeps``, up to a
+given number of tridiagonal passes in one launch of the same kernel
+(the reference runs its passes in a while_loop on the device).
 
 Every kernel here has three parts side by side:
 
@@ -23,10 +25,11 @@ Every kernel here has three parts side by side:
     ``_qr_panel_launch``, ``_chol_panel_launch``,
     ``_trtri_lower_launch``, ``_ragged_potrf_launch``,
     ``_ragged_getrf_launch``, ``_ragged_trsm_launch``,
-    ``_givens_chain_launch``, ``steqr_sweep``, ``bdsqr_sweep``) that
-    launches
-    the kernel for a CUDA tensor and adds one to its ``launches`` count
-    there, and nowhere else; it raises on what the kernel does not
+    ``_givens_chain_launch``, ``steqr_sweep`` / ``steqr_sweeps``,
+    ``bdsqr_sweep``) that launches the kernel for a CUDA tensor and
+    adds one to its ``launches`` count there, and nowhere else (both
+    steqr entries count on ``steqr_sweep``'s, their kernel); it raises
+    on what the kernel does not
     take. There is no fall back: for a tensor on the CPU, and only
     then, it computes the kernel's plain version instead;
   * the plain PyTorch version (``panel_rec_plain``,
@@ -34,9 +37,12 @@ Every kernel here has three parts side by side:
     ``qr_panel_plain``, ``chol_panel_plain``, ``trtri_lower_plain``,
     ``ragged_potrf_plain``, ``ragged_getrf_plain``,
     ``ragged_trsm_plain``, ``givens_chain_apply_plain``,
-    ``steqr_sweep_plain``, ``bdsqr_sweep_plain``; the sweeps' plain
+    ``steqr_sweep_plain`` / ``steqr_sweeps_plain``,
+    ``bdsqr_sweep_plain``; the sweeps' plain
     versions walk the recurrence on the host in numpy scalars of the
-    tensor's type, as ``compose_swaps_plain`` walks its swaps),
+    tensor's type, as ``compose_swaps_plain`` walks its swaps;
+    ``compose_swaps_sorted_plain`` is the kernel's own composition on
+    the host, for the tests),
     the same function with the same recursion, pivot tie-break and
     rounding, which the CPU tests hold against the JAX package and
     ``chip_smoke.py`` holds against the kernel on the card
@@ -125,15 +131,76 @@ def _on_cuda(device) -> bool:
 
 # -- permutations ----------------------------------------------------------
 
+def _check_swaps(piv: torch.Tensor, m: int) -> None:
+    """XLA's lu_pivots_to_permutation raises for more swaps than rows;
+    so does the port, on every route."""
+    if piv.shape[-1] > m:
+        raise ValueError("%d swaps over %d rows: the permutation size has "
+                         "to be at least the number of swaps"
+                         % (piv.shape[-1], m))
+
+
+def _walk_swaps(q: np.ndarray, row) -> None:
+    """The swaps of one sequence applied to q in order, as XLA's loop
+    applies them: a negative target counts from the end; a target still
+    outside the rows reads the nearest row and is not written."""
+    m = q.shape[0]
+    for j, t in enumerate(row):
+        t = t + m if t < 0 else t
+        x = q[j]
+        q[j] = q[min(max(t, 0), m - 1)]
+        if 0 <= t < m:
+            q[t] = x
+
+
 def compose_swaps_plain(piv: torch.Tensor, m: int) -> torch.Tensor:
     """Plain version: the swaps composed on the host (numpy loop), per
-    row of a (B, w) stack; int64 on piv's device, (m,) or (B, m)."""
-    p = piv.detach().cpu().numpy().reshape(-1, piv.shape[-1])
+    row of a (B, w) stack, with XLA's semantics for any target
+    (``_walk_swaps``); int64 on piv's device, (m,) or (B, m)."""
+    _check_swaps(piv, m)
+    p = piv.detach().cpu().numpy().reshape(
+        int(np.prod(piv.shape[:-1])), piv.shape[-1])
     perm = np.tile(np.arange(m), (p.shape[0], 1))
     for b, row in enumerate(p.tolist()):
-        q = perm[b]
-        for j, t in enumerate(row):
-            q[j], q[t] = q[t], q[j]
+        _walk_swaps(perm[b], row)
+    return torch.as_tensor(perm.reshape(*piv.shape[:-1], m),
+                           device=piv.device)
+
+
+def compose_swaps_sorted_plain(piv: torch.Tensor, m: int) -> torch.Tensor:
+    """The kernel's composition on the host, to test its algorithm
+    against XLA's: for an LU sequence (piv[j] in [j, m)) the (target,
+    step) pairs sorted, each step linked to the last earlier swap with
+    its target and to the last earlier swap that targeted its own row,
+    the links resolved by pointer jumping; any other sequence walked in
+    order (``_walk_swaps``). The same result as compose_swaps_plain."""
+    _check_swaps(piv, m)
+    w = piv.shape[-1]
+    rows = piv.detach().cpu().numpy().reshape(
+        int(np.prod(piv.shape[:-1])), w).astype(np.int64)
+    perm = np.tile(np.arange(m), (rows.shape[0], 1))
+    steps = np.arange(w)
+    for b, t in enumerate(rows if w else ()):
+        if not (np.all(t >= steps) and np.all(t < m)):
+            _walk_swaps(perm[b], t.tolist())
+            continue
+        order = np.lexsort((steps, t))
+        ts, js = t[order], steps[order]
+        same = np.r_[False, ts[1:] == ts[:-1]]
+        last = np.r_[ts[1:] != ts[:-1], True]
+        prev = np.where(same, np.r_[-1, js[:-1]], -1)
+        # r[x]: the last swap before step x that targeted row x
+        r = np.full(w, -1)
+        own = js == ts
+        r[ts[own]] = prev[own]
+        lst = (ts < w) & ~own & last
+        r[ts[lst]] = js[lst]
+        r = np.where(r < 0, steps, r)
+        while not np.array_equal(r[r], r):
+            r = r[r]
+        perm[b, js] = np.where(same, r[prev], ts)
+        fin = (ts >= w) & last
+        perm[b, ts[fin]] = r[js[fin]]
     return torch.as_tensor(perm.reshape(*piv.shape[:-1], m),
                            device=piv.device)
 
@@ -141,13 +208,15 @@ def compose_swaps_plain(piv: torch.Tensor, m: int) -> torch.Tensor:
 def lu_pivots_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
     """Compose the swap sequence (j <-> piv[j], in order) into one
     permutation of range(m), int64 on piv's device: the port of XLA's
-    ``lu_pivots_to_permutation``. ``piv`` is (w,) or a (B, w) stack,
-    each row composed on its own ((B, m) out). A CUDA tensor goes
-    through the ``compose_swaps`` kernel (one launch for the whole
-    stack, no host synchronisation, counted); a CPU tensor through the
-    plain version."""
+    ``lu_pivots_to_permutation`` (which raises for more swaps than
+    rows, as this does). ``piv`` is (w,) or a (B, w) stack, each row
+    composed on its own ((B, m) out). A CUDA tensor goes through the
+    ``compose_swaps`` kernel (one launch for the whole stack, no host
+    synchronisation, counted); a CPU tensor through the plain
+    version."""
     if piv.device.type != "cuda":
         return compose_swaps_plain(piv, m)
+    _check_swaps(piv, m)
     if piv.dim() not in (1, 2):
         raise ValueError("compose_swaps kernel takes a (w,) or (B, w) "
                          "pivot stack, got %s" % (tuple(piv.shape),))
@@ -157,7 +226,7 @@ def lu_pivots_to_permutation(piv: torch.Tensor, m: int) -> torch.Tensor:
     batch = piv.shape[0] if piv.dim() == 2 else 1
     perm = torch.empty(*piv.shape[:-1], m, dtype=torch.int64,
                        device=piv.device)
-    if batch > 0:
+    if batch > 0 and m > 0:
         _build.check(lib.compose_swaps(piv.data_ptr(), batch,
                                        piv.shape[-1], m, perm.data_ptr(),
                                        _stream(piv)), "compose_swaps")
@@ -1573,6 +1642,11 @@ def givens_chain_apply(Z: torch.Tensor, cs: torch.Tensor, sn: torch.Tensor,
 #: longest tridiagonal or bidiagonal a sweep kernel takes: d and e live
 #: in its shared memory (8 n bytes)
 QR_SWEEP_MAX_N = 16384
+#: passes one steqr_sweeps launch runs at most in eig.steqr2_qr: the
+#: host reads the passes run and the count once a launch, so 1/32 of
+#: the reads a pass; the rotation rows cost 8 (n-1) bytes a pass
+#: (0.5 MB at n = 2048)
+STEQR_PASSES_PER_LAUNCH = 32
 
 
 def _np_type(dtype) -> type:
@@ -1767,10 +1841,35 @@ def bdsqr_sweep_plain(d: torch.Tensor, e: torch.Tensor):
         torch.tensor(count, dtype=torch.int32, device=dev),)
 
 
-def _sweep_setup(name: str, d: torch.Tensor, e: torch.Tensor, nrot: int):
-    """What both sweep kernels take: the library on d's device,
+def steqr_sweeps_plain(d: torch.Tensor, e: torch.Tensor, max_passes: int):
+    """Plain version of up to `max_passes` passes in one call (the
+    multi-pass entry): steqr_sweep_plain while the count of
+    off-diagonals above tolerance is not 0, the reference's while_loop
+    with the caller's cap. Returns (d, e, cs, sn, ran) on d's device:
+    the rotations (max_passes, n-1), identity past the passes run, and
+    ran = [passes run, count after them (of the input if none ran)],
+    int32."""
+    dev, dt = d.device, d.dtype
+    t = _np_type(dt)
+    cs = torch.ones((max_passes, d.shape[0] - 1), dtype=dt, device=dev)
+    sn = torch.zeros_like(cs)
+    with np.errstate(all="ignore"):
+        count = int(_clamp_np(_host(d), _host(e), t(_eps(dt)))[1].sum())
+    d, e, p = d.clone(), e.clone(), 0
+    while count > 0 and p < max_passes:
+        d, e, cs[p], sn[p], cnt = steqr_sweep_plain(d, e)
+        count, p = int(cnt), p + 1
+    return d, e, cs, sn, torch.tensor([p, count], dtype=torch.int32,
+                                      device=dev)
+
+
+def _sweep_setup(name: str, d: torch.Tensor, e: torch.Tensor, nrot: int,
+                 rows: Optional[int] = None):
+    """What the sweep kernels take: the library on d's device,
     contiguous f32 inputs, fresh d / e outputs, `nrot` rotation vectors
-    and the count. Raises on what the kernels do not take."""
+    ((rows, n-1) each for the multi-pass entry) and the count (two ints
+    for the multi-pass entry: passes, count). Raises on what the kernels
+    do not take."""
     n = d.shape[0]
     if d.dtype != torch.float32 or e.dtype != torch.float32 \
             or tuple(e.shape) != (n - 1,) or not 2 <= n <= QR_SWEEP_MAX_N:
@@ -1778,12 +1877,17 @@ def _sweep_setup(name: str, d: torch.Tensor, e: torch.Tensor, nrot: int):
                          "2 <= n <= %d, got %s %s and %s %s"
                          % (name, QR_SWEEP_MAX_N, tuple(d.shape), d.dtype,
                             tuple(e.shape), e.dtype))
+    if rows is not None and rows < 0:
+        raise ValueError("%s: max_passes must be >= 0, got %d"
+                         % (name, rows))
     lib = _build.load("qr_sweep")
     _build.set_device(lib, "qr_sweep", d.get_device())
     d, e = d.contiguous(), e.contiguous()
-    rots = [torch.empty(n - 1, dtype=torch.float32, device=d.device)
+    shape = (n - 1,) if rows is None else (rows, n - 1)
+    rots = [torch.empty(shape, dtype=torch.float32, device=d.device)
             for _ in range(nrot)]
-    cnt = torch.empty((), dtype=torch.int32, device=d.device)
+    cnt = torch.empty(() if rows is None else (2,), dtype=torch.int32,
+                      device=d.device)
     return lib, d, e, torch.empty_like(d), torch.empty_like(e), rots, cnt
 
 
@@ -1806,6 +1910,27 @@ def steqr_sweep(d: torch.Tensor, e: torch.Tensor):
 
 
 steqr_sweep.launches = 0
+
+
+def steqr_sweeps(d: torch.Tensor, e: torch.Tensor, max_passes: int):
+    """Up to `max_passes` passes of the tridiagonal QR iteration in one
+    launch, stopping at a count of 0 (steqr_sweeps_plain's contract):
+    the ``steqr_sweep`` kernel for a CUDA tensor, d and e kept on the
+    card between passes, nothing read back to the host (the caller
+    reads ``ran`` once); counted as one ``steqr_sweep`` launch, the
+    kernel it runs. The plain version for a CPU tensor."""
+    if d.device.type != "cuda":
+        return steqr_sweeps_plain(d, e, max_passes)
+    lib, d, e, dout, eout, (cs, sn), ran = _sweep_setup(
+        "steqr_sweeps", d, e, 2, max_passes)
+    _build.check(lib.steqr_sweeps(d.data_ptr(), e.data_ptr(), d.shape[0],
+                                  _eps(torch.float32), max_passes,
+                                  dout.data_ptr(), eout.data_ptr(),
+                                  cs.data_ptr(), sn.data_ptr(),
+                                  ran.data_ptr(), _stream(d)),
+                 "steqr_sweeps")
+    steqr_sweep.launches += 1
+    return dout, eout, cs, sn, ran
 
 
 def bdsqr_sweep(d: torch.Tensor, e: torch.Tensor):

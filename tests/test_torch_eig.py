@@ -256,6 +256,77 @@ def test_steqr2_qr_matches_jax(rng, n):
     np.testing.assert_allclose(z @ np.diag(_np(w)) @ z.T, T, atol=1e-11)
 
 
+def _one_pass_loop(d, e, maxit_factor=30, route=None):
+    """steqr2_qr as one steqr_sweep pass a loop iteration, the count
+    read after each: the loop the multi-pass launches replace."""
+    n = d.shape[0]
+    Z = torch.eye(n, dtype=d.dtype)
+    cnt, it = pk.unconverged(d, e, torch.finfo(d.dtype).eps), 0
+    while int(cnt) > 0 and it < maxit_factor * n:
+        d, e, cs, sn, cnt = pk.steqr_sweep(d, e)
+        Z = route(Z, cs, sn) if route else Z @ teig._givens_chain_matrix(
+            cs, sn, n, d.dtype)
+        it += 1
+    order = torch.argsort(d, stable=True)
+    return d[order], Z[:, order], cnt, it
+
+
+@pytest.mark.parametrize("n,dtype,passes_per_launch", [
+    (16, torch.float64, 32), (48, torch.float64, 32),
+    (48, torch.float64, 5), (48, torch.float32, 32)])
+def test_steqr2_qr_multi_pass_equals_one_pass_loop(rng, n, dtype,
+                                                   passes_per_launch,
+                                                   monkeypatch):
+    """The passes in multi-pass launches (every launch's chains applied
+    in pass order after it) give w, Z and info bitwise the one-pass
+    loop's, and steqr2_qr.passes counts that loop's passes."""
+    monkeypatch.setattr(pk, "STEQR_PASSES_PER_LAUNCH", passes_per_launch)
+    d = torch.as_tensor(rng.standard_normal(n)).to(dtype)
+    e = torch.as_tensor(rng.standard_normal(n - 1)).to(dtype)
+    w0, Z0, info0, it = _one_pass_loop(d, e)
+    teig.steqr2_qr.passes = 0
+    w, Z, info = teig.steqr2_qr(d, e)
+    assert torch.equal(w, w0) and torch.equal(Z, Z0)
+    assert int(info) == int(info0) == 0 and info.dtype == torch.int32
+    assert teig.steqr2_qr.passes == it > passes_per_launch
+
+
+@pytest.mark.parametrize("maxit_factor,passes_per_launch", [
+    (30, 32), (30, 7), (1, 32), (1, 5), (0, 32)])
+def test_steqr2_qr_launch_sizes(rng, maxit_factor, passes_per_launch,
+                                monkeypatch):
+    """Each launch is given min(STEQR_PASSES_PER_LAUNCH, what is left of
+    the cap maxit_factor * n); the loop stops after a launch that ends
+    at a count of 0 or at the cap, where info is the count left (the
+    one-pass loop's). n = 24: ~40 passes, so a factor of 1 (24 passes)
+    stops at the cap."""
+    monkeypatch.setattr(pk, "STEQR_PASSES_PER_LAUNCH", passes_per_launch)
+    n = 24
+    d = torch.as_tensor(rng.standard_normal(n))
+    e = torch.as_tensor(rng.standard_normal(n - 1))
+    asked, ran = [], []
+    real = pk.steqr_sweeps
+
+    def spy(d, e, k):
+        out = real(d, e, k)
+        asked.append(k)
+        ran.append(out[4].tolist())
+        return out
+
+    monkeypatch.setattr(pk, "steqr_sweeps", spy)
+    w, Z, info = teig.steqr2_qr(d, e, maxit_factor=maxit_factor)
+    w0, Z0, info0, it = _one_pass_loop(d, e, maxit_factor)
+    assert torch.equal(w, w0) and torch.equal(Z, Z0)
+    assert int(info) == int(info0)
+    cap, done = maxit_factor * n, 0
+    for k, (p, count) in zip(asked, ran):
+        assert k == min(passes_per_launch, cap - done)
+        assert p == k or count == 0
+        done += p
+    assert done == it and ran[-1][1] == int(info)
+    assert (int(info) > 0) == (done == cap)
+
+
 def test_steqr2_clustered_deflation(rng):
     """Clustered eigenvalues (deflation stress, the reference test's
     case): the same spectrum as numpy and the JAX package, a

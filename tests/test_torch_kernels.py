@@ -206,6 +206,96 @@ def test_pivots_to_permutation_matches_xla():
             pk.compose_swaps_plain(torch.as_tensor(piv), m).numpy(), ref)
 
 
+from hypothesis import HealthCheck, given, settings  # noqa: E402
+from hypothesis import strategies as hst  # noqa: E402
+
+#: the swap sequences the kernel's composition is held to XLA's over:
+#: LU sequences (piv[j] in [j, m), the kernel's sorted path), with the
+#: ragged pad's identity tail, any targets in range, targets outside
+#: [-2m, 2m), (B, w) stacks mixing them, more swaps than rows (XLA
+#: raises), and no swaps
+SWAP_KINDS = ("lu", "lu_pads", "any", "out_of_range", "stack", "w_over_m",
+              "empty")
+
+
+@hst.composite
+def swap_case(draw, kind):
+    m = draw(hst.integers(1, 40))
+    if kind == "empty":
+        return np.zeros(0, np.int32), draw(hst.integers(0, 40))
+    if kind == "w_over_m":
+        w = draw(hst.integers(m + 1, m + 8))
+        return np.asarray(draw(hst.lists(hst.integers(0, m - 1), min_size=w,
+                                         max_size=w)), np.int32), m
+    w = draw(hst.integers(1, m))
+
+    def row(k):
+        if k == "lu":
+            return [j + draw(hst.integers(0, m - 1 - j)) for j in range(w)]
+        if k == "lu_pads":
+            live = draw(hst.integers(0, w))
+            return [j + draw(hst.integers(0, m - 1 - j)) if j < live else j
+                    for j in range(w)]
+        if k == "any":
+            return draw(hst.lists(hst.integers(0, m - 1), min_size=w,
+                                  max_size=w))
+        return draw(hst.lists(hst.integers(-2 * m, 2 * m - 1), min_size=w,
+                              max_size=w))
+
+    if kind == "stack":
+        b = draw(hst.integers(1, 4))
+        rows = [row(draw(hst.sampled_from(SWAP_KINDS[:4]))) for _ in range(b)]
+        return np.asarray(rows, np.int32).reshape(b, w), m
+    return np.asarray(row(kind), np.int32), m
+
+
+@pytest.mark.parametrize("kind", SWAP_KINDS)
+def test_compose_swaps_matches_xla(kind):
+    """The plain walk, the kernel's sorted composition on the host and
+    the CPU wrapper against XLA's lu_pivots_to_permutation (the
+    reference's swap composition), bitwise; more swaps than rows raise
+    in all of them."""
+    fns = (pk.compose_swaps_plain, pk.compose_swaps_sorted_plain,
+           pk.lu_pivots_to_permutation)
+
+    @settings(max_examples=30, deadline=None, derandomize=True,
+              database=None, suppress_health_check=list(HealthCheck))
+    @given(swap_case(kind))
+    def check(case):
+        p, m = case
+        if p.shape[-1] > m:
+            with pytest.raises(ValueError):
+                jax.lax.linalg.lu_pivots_to_permutation(jnp.asarray(p), m)
+            for fn in fns:
+                with pytest.raises(ValueError):
+                    fn(torch.as_tensor(p), m)
+            return
+        ref = np.asarray(jax.lax.linalg.lu_pivots_to_permutation(
+            jnp.asarray(p), m))
+        for fn in fns:
+            out = fn(torch.as_tensor(p), m)
+            assert out.dtype == torch.int64
+            assert np.array_equal(out.numpy(), ref), fn.__name__
+
+    check()
+
+
+@pytest.mark.parametrize("m,w", [(16384, 512), (16384, 32), (16384, 16384),
+                                 (608, 608)])
+def test_compose_swaps_sorted_path_shapes(m, w):
+    """The sorted composition at the paths' sizes (gesv's 512 swaps and
+    the recursive panel's smallest split over 16384 rows, getrs' whole
+    pivot vector, a ragged element) and on long chains of earlier swaps
+    (each step targets the next row: one chain through every step)
+    equals the walk."""
+    rng = np.random.default_rng(w)
+    for piv in (np.array([j + rng.integers(0, m - j) for j in range(w)]),
+                np.minimum(np.arange(w) + 1, m - 1)):
+        t = torch.as_tensor(piv.astype(np.int32))
+        assert torch.equal(pk.compose_swaps_sorted_plain(t, m),
+                           pk.compose_swaps_plain(t, m))
+
+
 # -- gates, constants, counters -------------------------------------------
 
 def test_gate_constants_match_jax():
@@ -1113,3 +1203,67 @@ def test_bdsqr_sweep_plain_matches_reference_scan(rng, kind):
                                              ll, m, shift)
     for x, ref in zip(got[:6], (jd, je) + tuple(rots)):
         np.testing.assert_allclose(x.numpy(), np.asarray(ref), atol=1e-13)
+
+
+def _sweeps_case(rng, kind, dtype):
+    """(d, e, max_passes) of a multi-pass call: the whole matrix active
+    or a block inside split-off parts, stopped by the cap; converged on
+    input (no pass); converging inside the call (a count of 0 before the
+    cap); no pass allowed."""
+    if kind in ("full", "block"):
+        d, e = _tri_case(rng, kind, 40)
+        k = 3
+    elif kind == "converged":
+        d, e = rng.standard_normal(12), 1e-30 * rng.standard_normal(11)
+        k = 4
+    elif kind == "stop_at_zero":
+        d, e = rng.standard_normal(6), rng.standard_normal(5)
+        k = 64
+    else:
+        d, e = _tri_case(rng, "full", 12)
+        k = 0
+    return (torch.as_tensor(d.astype(dtype)), torch.as_tensor(e.astype(dtype)),
+            k)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("kind", ["full", "block", "converged",
+                                  "stop_at_zero", "no_pass"])
+def test_steqr_sweeps_plain_equals_one_pass_calls(rng, kind, dtype):
+    """The multi-pass entry's plain version IS steqr_sweep_plain called
+    while the count is above 0, at most max_passes times: d, e, each
+    pass's rotation row, the passes run and the count bitwise; rows
+    past the passes run are identity."""
+    d, e, k = _sweeps_case(rng, kind, dtype)
+    got = pk.steqr_sweeps(d, e, k)
+    n = d.shape[0]
+    eps = torch.finfo(d.dtype).eps
+    count, p = int(pk.unconverged(d, e, eps)), 0
+    assert got[2].shape == got[3].shape == (k, n - 1)
+    while count > 0 and p < k:
+        d, e, c, s, cnt = pk.steqr_sweep_plain(d, e)
+        assert torch.equal(got[2][p], c) and torch.equal(got[3][p], s)
+        count, p = int(cnt), p + 1
+    assert torch.equal(got[0], d) and torch.equal(got[1], e)
+    assert got[4].tolist() == [p, count]
+    assert torch.equal(got[2][p:], torch.ones_like(got[2][p:]))
+    assert torch.equal(got[3][p:], torch.zeros_like(got[3][p:]))
+    assert {"converged": p == 0 and count == 0,
+            "stop_at_zero": 0 < p < k and count == 0,
+            "no_pass": p == 0 and count > 0}.get(kind, p == k and count > 0)
+
+
+def test_sweep_c_signatures():
+    """The one-pass entry keeps its C signature; the multi-pass entry
+    takes the pass cap after eps and returns (passes, count) in one
+    int pair; the floor measurement takes (d, e, n) and two int64."""
+    import ctypes
+    from slate_tpu_torch.ops import _build
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entries = _build.LIBS["qr_sweep"][1]
+    assert entries["steqr_sweep"] == [P, P, I, F, P, P, P, P, P, P]
+    assert entries["steqr_sweeps"] == [P, P, I, F, I, P, P, P, P, P, P]
+    assert entries["bdsqr_sweep"] == [P, P, I, F, P, P, P, P, P, P, P, P]
+    assert entries["steqr_chain_cycles"] == [P, P, I, P, P]
+    assert _build.LIBS["compose_swaps"][1]["compose_swaps"] == \
+        [P, I, I, I, P, P]
