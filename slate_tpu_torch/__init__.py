@@ -3,16 +3,21 @@
 A second package beside the JAX one (``slate_tpu/``, the reference),
 ported slice by slice for one NVIDIA H100. Module paths mirror the JAX
 package; each module's docstring names its counterpart. Ported so far,
-on one device: the dense partial-pivot LU solve (getrf / getrs / gesv)
-and its mixed-precision solves (gesv_mixed, gesv_mixed_gmres: a bf16
-factor refined to f32 accuracy); the Cholesky family (potrf / potrs /
+on one device: the dense LU solve (getrf / getrs / gesv with partial
+pivoting, getrf_tntpiv with tournament pivoting, getrf_nopiv /
+gesv_nopiv, getri / getriOOP, the butterfly gesv_rbt) and its
+mixed-precision solves (gesv_mixed, gesv_mixed_gmres: a bf16 factor
+refined to f32 accuracy); the norms, condition estimators (gecondest /
+pocondest / trcondest) and elementwise aux drivers; the Cholesky family (potrf / potrs /
 posv, trtri / trtrm / potri, posv_mixed, posv_mixed_gmres); QR and
 least squares (geqrf / unmqr, gelqf / unmlq, cholqr, gels over QR,
 CholQR and TSQR); the BLAS-3 drivers they use; the batch layer
 (``batch/``: batched drivers, the coalescing queue, bucket and ragged
 strategies); the Hermitian eigensolvers (heev, hegv, the staged he2hb /
 hb2st / steqr2 / stedc / sterf) and the SVD (svd, the staged ge2tb /
-tb2bd / bdsqr); and the hand-written kernels (``ops/kernels.py``).
+tb2bd / bdsqr); the hand-written kernels (``ops/kernels.py``); and the
+autotuner (``tune.autotune``), which measures the routes to those
+kernels on the card and persists the winners.
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -31,7 +36,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .core import (Diag, DimensionError, HermitianBandMatrix,  # noqa: E402,F401
-                   HermitianMatrix, Matrix, MatrixType,
+                   HermitianMatrix, Matrix, MatrixType, Norm, NormScope,
                    MethodBatchStrategy, MethodCholQR, MethodEig,
                    MethodFactor, MethodGels, MethodLU, MethodLUPanel,
                    MethodSVD, Op, Option, Side, SlateError,
@@ -39,17 +44,23 @@ from .core import (Diag, DimensionError, HermitianBandMatrix,  # noqa: E402,F401
 from .interop import from_jax_state  # noqa: E402,F401
 from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
                      LQFactors, LUFactors, QRFactors, SVDResult,
-                     TridiagResult, apply_pivots, bdsqr, cholqr,
-                     eig_vals, ge2tb, gelqf, gemm, geqrf, gels,
-                     gels_cholqr, gels_qr, gels_tsqr, gesv, gesv_mixed,
-                     gesv_mixed_gmres, gesvd, getrf, getrs, hb2st, he2hb,
-                     heev, hegst, hegv, hemm, her2k, herk, pbsv, pbtrf,
-                     pbtrs, posv, posv_mixed, posv_mixed_gmres, potrf,
-                     potri, potrs, stedc, stedc_deflate, stedc_merge,
-                     stedc_rotate, stedc_secular, stedc_solve, stedc_sort,
+                     TridiagResult, add, apply_pivots, bdsqr, cholqr,
+                     colNorms, copy, eig_vals, gecondest, ge2tb, gelqf,
+                     gemm, gemmA, gemmC, geqrf, gels, gels_cholqr,
+                     gels_qr, gels_tsqr, gesv, gesv_mixed,
+                     gesv_mixed_gmres, gesv_nopiv, gesv_rbt, gesvd,
+                     getrf, getrf_nopiv, getrf_tntpiv, getri, getriOOP,
+                     getrs, hb2st, he2hb, heev, hegst, hegv, hemm, her2k,
+                     herk, norm, pbsv, pbtrf, pbtrs, pocondest, posv,
+                     posv_mixed, posv_mixed_gmres, potrf, potri, potrs,
+                     qr_multiply_by_q, redistribute, scale,
+                     scale_row_col, set, set_entries, stedc,
+                     stedc_deflate, stedc_merge, stedc_rotate,
+                     stedc_secular, stedc_solve, stedc_sort,
                      stedc_z_vector, steqr2, sterf, svd, svd_vals, syev,
-                     sygv, symm, syr2k, syrk, tb2bd, trmm, trsm, trtri,
-                     trtrm, unmbr_ge2tb, unmbr_tb2bd, unmlq, unmqr,
+                     sygv, symm, syr2k, syrk, tb2bd, tournament_pivot_rows,
+                     trcondest, trmm, trsm, trsmA, trsmB, trtri, trtrm,
+                     tsqr, unmbr_ge2tb, unmbr_tb2bd, unmlq, unmqr,
                      unmtr_hb2st, unmtr_he2hb)
 from .utils import Timers  # noqa: E402,F401
 from . import batch, obs, ops, tune  # noqa: E402,F401

@@ -1,6 +1,7 @@
 """Core types (counterpart of ``slate_tpu/core/``)."""
 
-from .enums import Diag, MatrixType, Op, Option, Side, Target, Uplo  # noqa: F401
+from .enums import (Diag, MatrixType, Norm, NormScope, Op,  # noqa: F401
+                    Option, Side, Target, Uplo)
 from .exceptions import (DimensionError, OptionError, SlateError,  # noqa: F401
                          slate_assert)
 from .matrix import (HermitianBandMatrix, HermitianMatrix,  # noqa: F401

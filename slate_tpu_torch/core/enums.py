@@ -51,6 +51,15 @@ class Norm(enum.Enum):
     Max = "m"
 
 
+class NormScope(enum.Enum):
+    """Reference enums.hh:115: a norm of the whole matrix, or one per
+    column or per row."""
+
+    Columns = "c"
+    Rows = "r"
+    Matrix = "m"
+
+
 class Target(enum.Enum):
     """Execution-target compatibility shim (reference enums.hh:34-40);
     accepted for API parity, one execution path per device."""

@@ -124,7 +124,11 @@ class MethodLUPanel(enum.Enum):
 
     ``Auto`` resolves via the tune cache (a MEASURED
     ``method_lu_panel`` entry per (op, size, dtype) bucket), falling
-    back to ``cold_default``."""
+    back to ``cold_default``. ``tune.autotune(ops=("lu_panel",), n=h)``
+    writes those entries: it measures every route its gate takes at
+    panel height h on the device and persists the winner, e.g.
+    ``pallas_rec``, when it beats the cold route by more than
+    ``tune.probe.WIN_MARGIN``."""
     Auto = "auto"
     Native = "native"
     Fori = "fori"

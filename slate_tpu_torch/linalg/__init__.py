@@ -1,16 +1,24 @@
 """Linear-algebra drivers (counterpart of ``slate_tpu/linalg/``): the
-dense LU, Cholesky and QR / least-squares slices and their
-mixed-precision solves, the Hermitian eigensolvers and the SVD."""
+dense LU (partial pivot, CALU, no-pivot, inverse, butterfly),
+Cholesky and QR / least-squares slices and their mixed-precision
+solves, the norms, condition estimators and elementwise aux drivers,
+the Hermitian eigensolvers and the SVD."""
 
-from .blas3 import (gemm, hemm, her2k, herk, symm, syr2k,  # noqa: F401
-                    syrk, trmm, trsm)
+from .aux import (add, copy, redistribute, scale,  # noqa: F401
+                  scale_row_col, set, set_entries)
+from .blas3 import (gemm, gemmA, gemmC, hemm, her2k, herk,  # noqa: F401
+                    symm, syr2k, syrk, trmm, trsm, trsmA, trsmB)
 from .chol import (pbsv, pbtrf, pbtrs, posv, posv_mixed,  # noqa: F401
                    posv_mixed_gmres, potrf, potri, potrs, trtri, trtrm)
 from .lu import (LUFactors, apply_pivots, gesv, gesv_mixed,  # noqa: F401
-                 gesv_mixed_gmres, getrf, getrs)
+                 gesv_mixed_gmres, gesv_nopiv, gesv_rbt, getrf,
+                 getrf_nopiv, getrf_tntpiv, getri, getriOOP, getrs)
+from .cond import gecondest, pocondest, trcondest  # noqa: F401
+from .norms import colNorms, norm  # noqa: F401
 from .qr import (LQFactors, QRFactors, cholqr, gelqf,  # noqa: F401
-                 geqrf, gels, gels_cholqr, gels_qr, gels_tsqr, unmlq,
-                 unmqr)
+                 geqrf, gels, gels_cholqr, gels_qr, gels_tsqr,
+                 qr_multiply_by_q, unmlq, unmqr)
+from .ca import tournament_pivot_rows, tsqr  # noqa: F401
 # the stedc module first: importing a submodule binds its name in this
 # package, and the name must end up bound to eig's stedc function
 from .stedc import (stedc_deflate, stedc_merge, stedc_rotate,  # noqa: F401

@@ -1,5 +1,6 @@
 """BLAS-3 drivers (counterpart of ``slate_tpu/linalg/blas3.py``):
-gemm, hemm/symm, trmm, trsm, herk/syrk and her2k/syr2k. Each driver is
+gemm (and its gemmA / gemmC names), hemm/symm, trmm, trsm (and trsmA /
+trsmB), herk/syrk and her2k/syr2k. Each driver is
 one dense op on the logical matrix (``to_dense`` applies the structure),
 written back into the output's padded tiled storage. The band routines
 (gbmm, hbmm, tbsm) wait for the band slice.
@@ -43,6 +44,17 @@ def gemm(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
     return _store(C, c)
 
 
+def gemmA(alpha, A, B, beta, C, opts=None, **kw):
+    """gemmA variant (reference src/gemmA.cc: keeps C traffic low for
+    few columns). On one device both variants are the same product."""
+    return gemm(alpha, A, B, beta, C, opts, **kw)
+
+
+def gemmC(alpha, A, B, beta, C, opts=None, **kw):
+    """gemmC variant (reference src/gemmC.cc)."""
+    return gemm(alpha, A, B, beta, C, opts, **kw)
+
+
 def _sided_mm(side: Side, alpha, A, B, beta, C) -> TiledMatrix:
     a, b, c = _logical(A), _logical(B), _logical(C)
     prod = a @ b if side is Side.Left else b @ a
@@ -83,6 +95,17 @@ def trsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
     x = trsm_dense(ra.to_dense(), alpha * b, left=(side is Side.Left),
                    lower=ra.uplo is Uplo.Lower, nb=ra.nb)
     return _store(B, x)
+
+
+def trsmA(side, alpha, A, B, opts=None):
+    """trsmA variant (reference src/trsmA.cc: broadcasts B to A's
+    ranks). On one device both variants are the same solve."""
+    return trsm(side, alpha, A, B, opts)
+
+
+def trsmB(side, alpha, A, B, opts=None):
+    """trsmB variant (reference src/trsmB.cc)."""
+    return trsm(side, alpha, A, B, opts)
 
 
 # -- rank-k / rank-2k updates ---------------------------------------------

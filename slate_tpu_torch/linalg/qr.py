@@ -354,6 +354,11 @@ def unmqr(side: Side, A: QRFactors, C: TiledMatrix, trans: bool = True,
     return _store(C, c[:cm, :cn])
 
 
+def qr_multiply_by_q(*args, **kw):
+    """Simplified-API name of unmqr (reference simplified_api.hh:638)."""
+    return unmqr(*args, **kw)
+
+
 def gelqf(A: TiledMatrix, opts: OptionsLike = None) -> LQFactors:
     """LQ factorization A = L Q (reference src/gelqf.cc), the conjugate
     dual of QR on A^H; packed with V rows above the diagonal."""

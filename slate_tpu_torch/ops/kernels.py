@@ -806,19 +806,22 @@ def qr_panel_eligible(m: int, w: int, dtype, device=None) -> bool:
     return qr_panel_reject_reason(m, w, dtype, device) is None
 
 
-def qr_panel_plain(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def qr_panel_plain(a: torch.Tensor, steps: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the Householder panel, on any device:
     (packed V\\R in a's type, taus f32), with the kernel's arithmetic
     (the reference's ``_qr_panel_pallas``): per column j the scalars in
     f32 (a zero column gives tau 0, a zero denominator is replaced by
     1), v = x / (alpha - beta) kept in f32, vta = v^T f32(panel), the
     update T(x - T((tau v) vta)), then T(v) below the diagonal and
-    T(beta) on it."""
+    T(beta) on it. `steps` stops after that many columns: the columns
+    from `steps` on are then the trailing panel as the updates left it
+    (the state the next step starts from)."""
     m, w = a.shape
     out = a.clone()
     taus = torch.zeros(w, dtype=torch.float32, device=a.device)
     one = torch.ones((), dtype=torch.float32, device=a.device)
-    for j in range(min(m, w)):
+    for j in range(min(m, w) if steps is None else steps):
         x = out[j:, j].to(torch.float32, copy=True)
         alpha = x[0]
         nrm2 = (x * x).sum()

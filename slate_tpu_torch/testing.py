@@ -123,6 +123,75 @@ def qr_panel_cases(rng, m: int, w: int) -> Dict[str, np.ndarray]:
             "huge": (g * HUGE).astype(np.float32)}
 
 
+def qr_sign_tie_panel(seed: int = 0) -> np.ndarray:
+    """The f32 (1024, 128) Gaussian panel on which two valid bf16
+    Householder factorizations part at a reflector's sign: the panel
+    that chip_smoke.py's shared stream of `seed` 0 gave its bf16 1024-row
+    qr_panel case when its swap-composition phase drew every case from
+    that stream. Regenerated from the seed by replaying the draws that
+    came first (in that phase order): the swap sequences, then the LU,
+    recursive-LU, trailing-update and QR panels. On it, the kernel and
+    qr_panel_plain on the card take opposite signs at column 101, whose
+    alpha (-0.0046 and +0.0072 against entries of rms 1.0) lies within
+    the rounding of the 101 bf16 updates before it; the kernel's step
+    from the plain version's state is bitwise the plain step there."""
+    rng = np.random.default_rng(seed)
+    n = 16384
+    for w in (512, 256, 128, 64, 32):            # LU swap sequences
+        for j in range(w):
+            rng.integers(0, n - j)
+    rng.integers(0, n, 512)                      # any targets
+    rng.integers(-2 * n, 2 * n, 512)             # targets off the rows
+    shapes = [(m, 256) for m in (4096, 2048, 1024, 256)] * 2
+    shapes += [(n, 128), (n, 512), (n, 64), (n, 512)]
+    for dims in ([(n - 256, 256, 256), (n - 128, 128, 128),
+                  (n - 293, 256, 256)],
+                 [(n - 256, 256, 256), (n - 128, 128, 128),
+                  (n - 64, 64, 64), (n - 293, 256, 256)]):
+        for m2, w1, w2 in dims:
+            shapes += [(m2, w2), (m2, w1), (w1, w2)]
+    shapes += [(m, 128) for m in (8192, 4096, 1024, 256, 8192, 4096)]
+    for shape in shapes:
+        rng.standard_normal(shape, dtype=np.float32)
+    return rng.standard_normal((1024, 128), dtype=np.float32)
+
+
+#: an alpha whose sign two valid bf16 factorizations may take either
+#: way: within 2^-4 of the column's rms entry. The trailing entries of
+#: the sign-tie panel (qr_sign_tie_panel) differ by up to 2^-5 between
+#: the kernel and the plain version before the tie (the R rows), so an
+#: alpha within twice that of zero has its sign set by rounding
+QR_SIGN_TIE = 2.0 ** -4
+
+
+def qr_sign_tie(packed_a, taus_a, packed_b, taus_b) -> int:
+    """First column t at which two Householder factorizations of one
+    (m, w) panel take opposite reflector signs on a tie: their R[t, t]
+    have opposite signs while both alphas, R[t, t] (1 - tau[t]) (tau =
+    (beta - alpha) / beta), lie within QR_SIGN_TIE of the column's rms
+    entry |R[t, t]| / sqrt(m - t) of zero. Such factors part from t on
+    and are both valid; before t the two must agree. Returns w (min(m,
+    w)) when there is none."""
+    m, w = packed_a.shape
+    k = min(m, w)
+    da = np.asarray(packed_a, np.float64)[np.arange(k), np.arange(k)]
+    db = np.asarray(packed_b, np.float64)[np.arange(k), np.arange(k)]
+    ta = np.asarray(taus_a, np.float64)[:k]
+    tb = np.asarray(taus_b, np.float64)[:k]
+    rms = np.abs(db) / np.sqrt(m - np.arange(k))
+    alpha = np.maximum(np.abs(da * (1.0 - ta)), np.abs(db * (1.0 - tb)))
+    tie = (np.sign(da) != np.sign(db)) & (alpha <= QR_SIGN_TIE * rms)
+    return int(np.argmax(tie)) if tie.any() else k
+
+
+def qr_before_tie(packed: np.ndarray, t: int) -> np.ndarray:
+    """The entries of a packed (m, w) Householder factor that its first
+    t steps write: rows above t (R) and columns left of t (V and R)."""
+    m, w = packed.shape
+    keep = (np.arange(m)[:, None] < t) | (np.arange(w)[None, :] < t)
+    return np.where(keep, np.asarray(packed, np.float64), 0.0)
+
+
 def chol_cases(rng, n: int) -> Dict[str, np.ndarray]:
     """The Cholesky block's adversarial suite (f32 (n, n), lower
     triangle read): a zero row and column ("zerocol": d = 0, divided by

@@ -1,6 +1,7 @@
 """Structured counters for the tuning layer (counterpart of
 ``slate_tpu/tune/stats.py``): how many decisions were explicit /
-cached / frozen, and how often the persistent cache hit."""
+cached / frozen, how often the persistent cache hit, and how much wall
+time probing cost (tune/probe.py)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ _decisions: Dict[Tuple[str, str, str], int] = {}
 #: persistent-cache accesses
 _cache_hits = 0
 _cache_misses = 0
+
+#: total probe wall seconds (tune/probe.py)
+_probe_seconds = 0.0
 
 
 def record_decision(op: str, param: str, source: str, value) -> None:
@@ -38,6 +42,12 @@ def record_cache(hit: bool) -> None:
             _cache_misses += 1
 
 
+def add_probe_time(seconds: float) -> None:
+    global _probe_seconds
+    with _lock:
+        _probe_seconds += seconds
+
+
 def snapshot() -> Dict[str, Any]:
     """Point-in-time copy of every counter."""
     with _lock:
@@ -51,12 +61,14 @@ def snapshot() -> Dict[str, Any]:
             "decisions_total": sum(_decisions.values()),
             "cache_hits": _cache_hits,
             "cache_misses": _cache_misses,
+            "probe_seconds": round(_probe_seconds, 3),
         }
 
 
 def reset() -> None:
-    global _cache_hits, _cache_misses
+    global _cache_hits, _cache_misses, _probe_seconds
     with _lock:
         _decisions.clear()
         _cache_hits = 0
         _cache_misses = 0
+        _probe_seconds = 0.0

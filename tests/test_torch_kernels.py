@@ -19,8 +19,10 @@ from slate_tpu.tune import cache as jcache
 from slate_tpu_torch.linalg.lu import lu_panel_fori
 from slate_tpu_torch.ops import kernels as pk
 from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
-                                     panel_cases, qr_panel_cases,
-                                     spd_system, spiked, trtri_cases)
+                                     panel_cases, qr_before_tie,
+                                     qr_panel_cases, qr_sign_tie,
+                                     qr_sign_tie_panel, spd_system, spiked,
+                                     trtri_cases)
 from slate_tpu_torch.tune import cache as tcache
 
 KINDS = ("antidiag", "boundary", "randperm", "ties", "zerocol")
@@ -870,6 +872,53 @@ def test_qr_panel_gels_subpanels_match_jax(m, dtype):
     if dtype == "float32":
         out, ref = _f32(packed), _f32(jp)
         assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_qr_panel_sign_tie_panel_matches_jax():
+    """The bf16 1024 x 128 sign-tie panel (testing.qr_sign_tie_panel,
+    regenerated from its seed): qr_panel_plain against the JAX kernel
+    through the Pallas interpreter, held as chip_smoke.py holds the
+    kernel against the plain version: normwise to a bf16 ulp (2^-8) and
+    taus to 2^-7 on what precedes their first sign tie, and both
+    factors to the residual (0.05)."""
+    a = qr_sign_tie_panel(0)
+    jp, jt = jpk.qr_panel(_to_jax(a, "bfloat16"))
+    packed, taus = pk.qr_panel(_to_torch(a, "bfloat16"))
+    out, ref = _f32(packed).astype(np.float64), _f32(jp).astype(np.float64)
+    tout, tref = _f32(taus), _f32(jt)
+    t = qr_sign_tie(out, tout, ref, tref)
+    o, r = qr_before_tie(out, t), qr_before_tie(ref, t)
+    assert np.linalg.norm(o - r) <= 2.0 ** -8 * np.linalg.norm(r)
+    assert np.abs(tout[:t] - tref[:t]).max() <= 2.0 ** -7
+    a_in = _f32(_to_torch(a, "bfloat16")).astype(np.float64)
+    assert _qr_residual(a_in, packed, taus) <= 0.05
+    assert _qr_residual(a_in, np.asarray(jp), np.asarray(jt)) <= 0.05
+
+
+def test_qr_sign_tie_finds_the_flipped_reflector():
+    """qr_sign_tie on two factorizations of a panel whose column 5 has
+    alpha exactly 0 in one copy and -2^-30 in the other (beta then takes
+    opposite signs, both valid): the tie is column 5; a factor against
+    itself has none (w), and a flip at a large alpha (-1) is no tie (the
+    values before any later tie, column 5 included, stay held)."""
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((256, 32)).astype(np.float32)
+    # columns 0-4 upper triangular with a positive diagonal: their
+    # reflectors leave column 5's top rows alone, so alpha_5 = a[5, 5]
+    a[:, :5] = np.triu(a[:, :5])
+    a[np.arange(5), np.arange(5)] = 1.0 + np.arange(5)
+    b = a.copy()
+    a[5, 5], b[5, 5] = 0.0, -2.0 ** -30
+    pa, ta = (_f32(x) for x in pk.qr_panel(_to_torch(a, "float32")))
+    pb, tb = (_f32(x) for x in pk.qr_panel(_to_torch(b, "float32")))
+    assert np.sign(pa[5, 5]) != np.sign(pb[5, 5])
+    assert qr_sign_tie(pa, ta, pb, tb) == 5
+    assert qr_sign_tie(pa, ta, pa, ta) == 32
+    c = a.copy()
+    c[5, 5] = -1.0
+    pc, tc = (_f32(x) for x in pk.qr_panel(_to_torch(c, "float32")))
+    assert np.sign(pa[5, 5]) != np.sign(pc[5, 5])
+    assert qr_sign_tie(pa, ta, pc, tc) > 5
 
 
 @pytest.mark.parametrize("kind", ["zerocol", "diag", "equal", "tiny",

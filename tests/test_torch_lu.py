@@ -207,13 +207,16 @@ def test_native_panel_pivots_match_xla(system):
 
 
 @pytest.mark.parametrize("opts,match", [
-    ({st.Option.MethodLU: st.MethodLU.CALU}, "getrf_tntpiv"),
-    ({st.Option.MethodLU: st.MethodLU.NoPiv}, "getrf_nopiv"),
+    ({st.Option.MethodLU: st.MethodLU.CALU, st.Option.Grid: object()},
+     "getrf_tntpiv"),
+    ({st.Option.MethodLU: st.MethodLU.NoPiv, st.Option.Grid: object()},
+     "getrf_nopiv"),
     ({st.Option.Grid: object()}, "grid"),
 ])
 def test_unported_branches_raise(opts, match):
-    """Branches of the reference this slice does not port raise,
-    naming what is missing, instead of taking another route."""
+    """Branches of the reference the port does not have yet (the grid
+    paths of every MethodLU route) raise, naming what is missing,
+    instead of taking another route."""
     a = np.eye(1024, dtype=np.float32)
     with pytest.raises(NotImplementedError, match=match):
         st.getrf(st.Matrix(a, mb=128, device="cpu"), opts)
@@ -438,3 +441,204 @@ def test_swap_gather_composes_the_swaps(seed, c0, ncols, m):
     assert np.array_equal(moved, rows)
     assert sorted(dst) == sorted(set(dst))
     assert all(rows[r] != r for r in dst)
+
+
+# -- the rest of LU: no-pivot, CALU, getri, the butterfly, the aliases -------
+
+N_V, NB_V = 192, 32
+
+
+def _dominant(seed, n=N_V):
+    """A diagonally dominant f32 matrix (|a_jj| > sum of the row's other
+    |a_jk|): no-pivot LU is stable on it, so both packages agree to
+    rounding."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    a[np.diag_indices(n)] = np.abs(a).sum(axis=1) + 1.0
+    return a
+
+
+def test_getrf_nopiv_and_gesv_nopiv_match_jax():
+    a = _dominant(10)
+    b = np.random.default_rng(11).standard_normal((N_V, 4)) \
+        .astype(np.float32)
+    Fj, Xj = jst.gesv_nopiv(jst.Matrix(a, mb=NB_V), jst.Matrix(b, mb=NB_V))
+    Ft, Xt = st.gesv_nopiv(st.Matrix(a, mb=NB_V, device="cpu"),
+                           st.Matrix(b, mb=NB_V, device="cpu"))
+    np.testing.assert_allclose(Ft.LU.data.numpy(), np.asarray(Fj.LU.data),
+                               rtol=1e-5, atol=1e-5)
+    assert np.array_equal(Ft.pivots.numpy(), np.asarray(Fj.pivots))
+    assert int(Ft.info) == int(Fj.info) == 0
+    np.testing.assert_allclose(Xt.to_numpy(), Xj.to_numpy(), rtol=1e-5,
+                               atol=1e-5)
+    # MethodLU.NoPiv routes getrf to the same factor
+    Fr = st.getrf(st.Matrix(a, mb=NB_V, device="cpu"),
+                  {st.Option.MethodLU: st.MethodLU.NoPiv})
+    assert torch.equal(Fr.LU.data, Ft.LU.data)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("m,w,chunk", [(256, 16, 32), (200, 8, 24),
+                                       (96, 32, 32)])
+def test_tournament_pivot_rows_match_jax(seed, m, w, chunk):
+    """An explicit chunk under the panel's height runs the bracket:
+    local LUs of every chunk, then the pairwise rounds; the selected
+    rows, in order, are the reference's."""
+    from slate_tpu.linalg import ca as jca
+    from slate_tpu_torch.linalg import ca as tca
+    p = np.random.default_rng(100 + seed).standard_normal((m, w)) \
+        .astype(np.float32)
+    ref = np.asarray(jca.tournament_pivot_rows(jnp.asarray(p), chunk=chunk))
+    out = tca.tournament_pivot_rows(torch.as_tensor(p), chunk=chunk)
+    assert np.array_equal(out.numpy(), ref)
+
+
+def test_tournament_fori_nomination_matches_jax(monkeypatch):
+    """The nomination's column-loop route (a panel route other than the
+    library LU, e.g. a measured fori entry) selects the reference's
+    rows too."""
+    from slate_tpu.linalg import ca as jca
+    from slate_tpu_torch.linalg import ca as tca
+    p = np.random.default_rng(7).standard_normal((128, 8)) \
+        .astype(np.float32)
+    blocks = p.reshape(4, 32, 8)
+    ref = np.asarray(jca._local_pivot_rows(jnp.asarray(blocks)))
+    out = tca._local_pivot_rows(torch.as_tensor(blocks))
+    assert np.array_equal(out.numpy(), ref)
+
+
+def test_getrf_tntpiv_matches_jax():
+    a, _ = permuted_boosted_system(np.random.default_rng(12), N_V, 1)
+    Fj = jst.getrf_tntpiv(jst.Matrix(a, mb=NB_V))
+    Ft = st.getrf_tntpiv(st.Matrix(a, mb=NB_V, device="cpu"))
+    assert np.array_equal(Ft.pivots.numpy(), np.asarray(Fj.pivots))
+    np.testing.assert_allclose(Ft.LU.data.numpy(), np.asarray(Fj.LU.data),
+                               rtol=1e-5, atol=1e-5)
+    Fr = st.getrf(st.Matrix(a, mb=NB_V, device="cpu"),
+                  {st.Option.MethodLU: st.MethodLU.CALU})
+    assert torch.equal(Fr.LU.data, Ft.LU.data)
+    assert torch.equal(Fr.pivots, Ft.pivots)
+
+
+def test_tnt_swap_sequence_matches_jax():
+    from slate_tpu.linalg import lu as jlu
+    rows = np.array([7, 0, 3, 9, 1], np.int32)
+    jpiv, jperm = jlu._tnt_swap_sequence(jnp.asarray(rows), 12)
+    piv, perm = tlu._tnt_swap_sequence(torch.as_tensor(rows), 12)
+    assert np.array_equal(piv.numpy(), np.asarray(jpiv))
+    assert np.array_equal(perm.numpy(), np.asarray(jperm))
+    assert np.array_equal(perm.numpy()[:5], rows)
+
+
+@pytest.mark.parametrize("sel,live,wf", [
+    ([3, 1, 2, 0], 8, 4),              # healthy: returned as is
+    ([3, 9, 2, 11], 8, 4),             # dead rows selected
+    ([3, 3, 5, 1], 8, 4),              # a row selected twice
+    ([6, 7, 0, 1, 2], 3, 3),           # a live prefix shorter than w
+])
+def test_fix_degenerate_selection_matches_jax(sel, live, wf):
+    from slate_tpu.linalg import ca as jca
+    from slate_tpu_torch.linalg import ca as tca
+    ref = jca.fix_degenerate_selection(np.array(sel), live, wf)
+    out = tca.fix_degenerate_selection(torch.tensor(sel), live, wf)
+    assert out.dtype == ref.dtype == np.int64
+    assert np.array_equal(out, ref)
+
+
+def test_fix_degenerate_selection_on_dead_rows_panel():
+    """A live-prefix panel (dead rows masked to exact zero, as the
+    out-of-core streams mask them) whose last column is zero: every
+    candidate ties at |0| there. Both tournaments select the same rows,
+    and both repairs return the same live selection."""
+    from slate_tpu.linalg import ca as jca
+    from slate_tpu_torch.linalg import ca as tca
+    p = np.random.default_rng(13).standard_normal((64, 8)) \
+        .astype(np.float32)
+    live = 40
+    p[live:] = 0.0
+    p[:, 7] = 0.0
+    jsel = np.asarray(jca.tournament_pivot_rows(jnp.asarray(p), chunk=16))
+    tsel = tca.tournament_pivot_rows(torch.as_tensor(p), chunk=16).numpy()
+    assert np.array_equal(tsel, jsel)
+    ref = jca.fix_degenerate_selection(jsel, live, 8)
+    out = tca.fix_degenerate_selection(tsel, live, 8)
+    assert np.array_equal(out, ref)
+    assert (out < live).all() and len(set(out.tolist())) == 8
+
+
+def test_getri_matches_jax():
+    a, _ = permuted_boosted_system(np.random.default_rng(14), N_V, 1)
+    Ij = jst.getri(jst.getrf(jst.Matrix(a, mb=NB_V)))
+    Ft = st.getrf(st.Matrix(a, mb=NB_V, device="cpu"))
+    It = st.getri(Ft)
+    np.testing.assert_allclose(It.to_numpy(), Ij.to_numpy(), rtol=1e-4,
+                               atol=1e-4 * np.abs(Ij.to_numpy()).max())
+    assert torch.equal(st.getriOOP(Ft).data, It.data)
+    err = np.abs(a.astype(np.float64) @ It.to_numpy() - np.eye(N_V)).max()
+    assert err <= 1e-4
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_apply_butterfly_matches_jax(transpose, depth):
+    from slate_tpu.linalg import lu as jlu
+    rng = np.random.default_rng(15)
+    n = 64
+    diags = [np.exp(rng.uniform(-0.05, 0.05, n)).astype(np.float32)
+             for _ in range(depth)]
+    x = rng.standard_normal((n, 5)).astype(np.float32)
+    ref = np.asarray(jlu._apply_butterfly([jnp.asarray(d) for d in diags],
+                                          jnp.asarray(x), transpose))
+    out = tlu._apply_butterfly(diags, torch.as_tensor(x), transpose)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+    v = tlu._apply_butterfly(diags, torch.as_tensor(x[:, 0]), transpose)
+    np.testing.assert_allclose(v.numpy(), ref[:, 0], rtol=1e-6, atol=1e-6)
+
+
+def test_gesv_rbt_solves():
+    """The butterflies come from a torch.Generator (the reference's
+    from a jax key), so the factors differ; both solutions meet the
+    backward error, and they agree with each other."""
+    a, b = permuted_boosted_system(np.random.default_rng(16), 200, 3)
+    b64 = b.astype(np.float64)
+    _, Xj = jst.gesv_rbt(jst.Matrix(a, mb=NB_V), jst.Matrix(b, mb=NB_V))
+    F, Xt = st.gesv_rbt(st.Matrix(a, mb=NB_V, device="cpu"),
+                        st.Matrix(b, mb=NB_V, device="cpu"))
+    x = Xt.to_numpy().astype(np.float64)
+    a64 = a.astype(np.float64)
+    berr = np.linalg.norm(a64 @ x - b64) / (np.linalg.norm(a64)
+                                            * np.linalg.norm(x))
+    assert berr <= 1e-5
+    assert Xt.to_numpy().shape == (200, 3)
+    np.testing.assert_allclose(x, Xj.to_numpy(), rtol=1e-4, atol=1e-4)
+    g = torch.Generator()
+    g.manual_seed(0)
+    _, Xg = st.gesv_rbt(st.Matrix(a, mb=NB_V, device="cpu"),
+                        st.Matrix(b, mb=NB_V, device="cpu"), generator=g)
+    assert torch.equal(Xg.data, Xt.data)
+
+
+def test_aliases_match_their_targets():
+    from slate_tpu_torch.linalg import blas3
+    rng = np.random.default_rng(17)
+    A = st.Matrix(rng.standard_normal((40, 24)).astype(np.float32), mb=16,
+                  device="cpu")
+    B = st.Matrix(rng.standard_normal((24, 30)).astype(np.float32), mb=16,
+                  device="cpu")
+    C = st.Matrix(rng.standard_normal((40, 30)).astype(np.float32), mb=16,
+                  device="cpu")
+    ref = blas3.gemm(1.5, A, B, 0.5, C)
+    for fn in (st.gemmA, st.gemmC):
+        assert torch.equal(fn(1.5, A, B, 0.5, C).data, ref.data)
+    T = st.TriangularMatrix(st.Uplo.Lower, _dominant(18, 40), mb=16,
+                            device="cpu")
+    R = st.Matrix(rng.standard_normal((40, 6)).astype(np.float32), mb=16,
+                  device="cpu")
+    ref = blas3.trsm(st.Side.Left, 2.0, T, R)
+    for fn in (st.trsmA, st.trsmB):
+        assert torch.equal(fn(st.Side.Left, 2.0, T, R).data, ref.data)
+    F = st.geqrf(st.Matrix(_dominant(19, 48), mb=16, device="cpu"))
+    Cq = st.Matrix(rng.standard_normal((48, 5)).astype(np.float32), mb=16,
+                   device="cpu")
+    assert torch.equal(st.qr_multiply_by_q(st.Side.Left, F, Cq).data,
+                       st.unmqr(st.Side.Left, F, Cq).data)
