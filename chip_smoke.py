@@ -130,9 +130,11 @@ script exit non-zero without the final result line:
               the probed cache: backward error <= 1e-6, the LU panel
               kernels launched exactly as the persisted routes predict,
               pallas_rec measured wherever its gate takes the probe's
-              panel, gesv's pivots bitwise phase 4's where every bucket
-              chose pallas_rec; walls beside phases 4 and 6's (cold and
-              hand-written cache) and one cold gesv_mixed call;
+              panel (a cached kernel route its gate rejects takes the
+              panel's cold route), gesv's pivots bitwise phase 4's
+              where every bucket chose pallas_rec; walls beside phases
+              4 and 6's (cold and hand-written cache) and one cold
+              gesv_mixed call;
   8. lu.variants  the rest of LU at n = 4096 f32, tiles 256, cold:
               gesv_nopiv on a diagonally dominant matrix,
               getrf_tntpiv + getrs (pivot growth printed), gesv_rbt,
@@ -141,26 +143,57 @@ script exit non-zero without the final result line:
               RBT_PERMUTED_LIMIT; on G + 0.1 n I, 1e-6), ||A A^-1 - I||_F /
               (||A||_F ||A^-1||_F) <= 1e-6, and the condition estimate
               within a factor of 3 of the one from getri;
-  9. posv     f32 posv at n = 16384, 64 right-hand sides, tiles 512, on
+  9. band     the band solvers at n = 16384, 64 right-hand sides,
+              tiles 512, f32 panels routed to the recursive kernel:
+              pbsv (kd = 512) on testing.band_spd_system (backward
+              error <= 1e-6, X within 1e-5 of posv's, no hand kernel);
+              gbsv (kl = ku = 512) on testing.band_general_system, its
+              rows permuted within groups of 256 (backward error
+              <= 1e-6, X within 1e-3 of gesv's, kappa_1 <= 1e5, a row
+              swap in every block step, one lu_panel_rec and two
+              compose_swaps launches a step), gbtrs (Op.Trans) and tbsm with
+              the band factors (<= 1e-6); gbmm and hbmm against
+              torch.matmul (1e-6), each timed beside that product and
+              the dense route (gemm / hemm) on the same matrix;
+ 10. indefinite  Aasen's hesv at n = 16384 on
+              testing.indefinite_system: f32 with the recursive panels
+              (lu_panel_rec, _rank_update and compose_swaps launched
+              exactly as hetrf's and T's gbsv's panels and their splits
+              predict, every panel of one more hesv held against the
+              plain version, sysv bitwise hesv, T
+              banded, L unit lower, the factor residual and backward
+              error within 4x of the cold route's: the reference's f32
+              accuracy, ROADMAP queue 3), then f64 (factor residual and
+              backward error <= 1e-6, X within 1e-5 of gesv's); the
+              Parlett-Reid path at n = 1000 (f64 <= 1e-6, f32 printed)
+              and info > 0 on a zero matrix;
+ 11. api      lapack_compat, numpy in and out, at n = 2048 on f64 input:
+              solve (gen, pos, sym), cholesky, lu_factor / lu_solve,
+              solve_triangular, lstsq, inv (backward error <= 1e-6 on
+              the host), eigh and svdvals (EIG_LIMIT of scipy); then
+              stacked f32 (64, 256, 256) solve and cholesky under the
+              bucket and the ragged strategy (ragged equal to bucket to
+              1e-5, the three ragged kernels launched);
+ 12. posv     f32 posv at n = 16384, 64 right-hand sides, tiles 512, on
               S = G G^T / n + I made on the card from --seed: the Fused
               route (one library Cholesky) and MethodFactor.Tiled (the
               pipelined blocked loop); backward error <= 1e-6 on both,
               X equal between them to 1e-5, no hand kernel launched;
- 10. posv_mixed  the same system with a bf16 factor: converged,
-              backward error <= 1e-6, X within 1e-5 of phase 9's;
- 11. gels     f32 least squares: the square system of phase 4 through
+ 13. posv_mixed  the same system with a bf16 factor: converged,
+              backward error <= 1e-6, X within 1e-5 of phase 12's;
+ 14. gels     f32 least squares: the square system of phase 4 through
               the QR route (the geqrf carry form, nb 1024, library
               panels, no qr_panel launch): backward error <= 1e-6, X
               within 1e-4 of phase 4's; and a tall Gaussian 65536 x
               2048 with 64 right-hand sides through Auto (CholQR) and
               MethodGels.QR: ||A^T (A X - B)|| / (||A|| ||A X - B||)
               <= 1e-4 on both, their X equal to 1e-4;
- 12. gels_bf16  bf16 gels on the permuted boosted system at n = 8192,
+ 15. gels_bf16  bf16 gels on the permuted boosted system at n = 8192,
               64 right-hand sides, tiles 512: the carry form, nb 512,
               every 128-wide sub-panel through the qr_panel kernel
               (exactly 64 launches); X within GELS_BF16_LIMIT of the
               f32 gels;
- 13. batch.serve  the batch layer's serving path, on the reference's
+ 16. batch.serve  the batch layer's serving path, on the reference's
               stream (bench.py --serve: 256 f32 SPD requests
               x x^T / n + 4 I, n lognormal around 180, clipped to
               [64, 1024], seed 0): potrf through
@@ -177,7 +210,7 @@ script exit non-zero without the final result line:
               coalesced results to 1e-5; whether a flush of batch 1
               equals the coalesced flush bitwise is reported, not
               checked;
- 14. heev     n = 2048, A = (G + G^T)/2 from --seed made on the card,
+ 17. heev     n = 2048, A = (G + G^T)/2 from --seed made on the card,
               tiles 256: Auto (the library eigensolver) as the reference
               values; MethodEig.QRIteration with ('steqr2', 'chain')
               routed to the chain kernel (he2hb -> hb2st -> steqr2: the
@@ -188,13 +221,13 @@ script exit non-zero without the final result line:
               steqr2 cold (dense compose) and stedc. Residual,
               orthogonality and values against Auto within EIG_LIMIT
               (Auto) or STAGED_EIG_LIMIT (the staged routes);
- 15. svd      512 x 512 Gaussian, tiles 64: Auto (the library SVD) and
+ 18. svd      512 x 512 Gaussian, tiles 64: Auto (the library SVD) and
               MethodSVD.QRIteration with ('bdsqr', 'chain') routed to
               the chain kernel (ge2tb -> tb2bd -> bdsqr_qr, two chain
               launches a pass); reconstruction and values within
               EIG_LIMIT;
- 16. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
-              n = 4096, posv on both routes, the
+ 19. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+              n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               the heev and
               svd QR iterations, once more under torch.profiler: host
@@ -205,7 +238,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 17. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 20. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -216,6 +249,7 @@ rate. Needs a CUDA card: without one it exits 2 and prints no result.
 
 import argparse
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -233,8 +267,10 @@ from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 from slate_tpu_torch.linalg import eig as teig
 from slate_tpu_torch.linalg import qr as tqr
-from slate_tpu_torch.testing import (EXACT_KINDS, bf16_ulps, chol_cases,
-                                     panel_cases, permuted_boosted_system,
+from slate_tpu_torch.testing import (EXACT_KINDS, band_general_system,
+                                     band_spd_system, bf16_ulps, chol_cases,
+                                     indefinite_system, panel_cases,
+                                     permuted_boosted_system,
                                      qr_before_tie, qr_panel_cases,
                                      qr_sign_tie, qr_sign_tie_panel,
                                      ragged_cases,
@@ -1195,23 +1231,34 @@ def rec_launches(m, w, dtype):
 def expected_panel_launches(routes, dtype, n, nb):
     """The LU panel kernels' launches in one getrf of an n x n matrix at
     width nb, from the routes a tune cache holds per panel-height bucket
-    (None: no entry), by lu._lu_panel's arbitration: pallas_rec where
-    its gate takes the panel, else the cold route; pallas (the rank-1
-    kernel) where its gate takes the panel, else the column loop."""
+    (None: no entry), by lu._lu_panel's arbitration: a cached kernel
+    route where its gate takes the panel, else the panel's cold route
+    (the library LU for f32; for bf16 the rank-1 kernel where its gate
+    takes the panel, else the column loop), for a rejected ``pallas`` as
+    for a rejected ``pallas_rec``. Returns the counts and the panels by
+    the route they took."""
     counts = {"lu_panel_rec": 0, "lu_panel": 0}
+    taken = {}
     for k0 in range(0, n, nb):
         m, w = n - k0, min(nb, n - k0)
         route = routes.get(tcache.size_bucket(m))
-        if route == "pallas_rec":
-            if pk.lu_panel_rec_eligible(m, w, dtype, "cuda"):
-                counts["lu_panel_rec"] += rec_launches(m, w, dtype)
-                continue
+        if route == "pallas_rec" \
+                and not pk.lu_panel_rec_eligible(m, w, dtype, "cuda"):
+            route = None
+        if route == "pallas" \
+                and not pk.lu_panel_eligible(m, w, dtype, "cuda"):
             route = None
         if route is None:
             route = MethodLUPanel.cold_default(m, w, dtype, "cuda").value
-        if route == "pallas" and pk.lu_panel_eligible(m, w, dtype, "cuda"):
+            if route == "pallas" \
+                    and not pk.lu_panel_eligible(m, w, dtype, "cuda"):
+                route = "fori"
+        if route == "pallas_rec":
+            counts["lu_panel_rec"] += rec_launches(m, w, dtype)
+        elif route == "pallas":
             counts["lu_panel"] += 1
-    return counts
+        taken[route] = taken.get(route, 0) + 1
+    return counts, taken
 
 
 def phase_autotune(results, system):
@@ -1264,8 +1311,8 @@ def phase_autotune(results, system):
     pk.reset_launch_counts()
     wall, (F, X) = wall_s(lambda: st.gesv(A, B, opts))
     launches = pk.launch_counts()
-    want = expected_panel_launches(routes[torch.float32], torch.float32, N,
-                                   NB)
+    want, taken = expected_panel_launches(routes[torch.float32],
+                                          torch.float32, N, NB)
     e = berr(A, X, B)
     all_rec = all(v == "pallas_rec" for v in routes[torch.float32].values())
     piv_eq = bool(torch.equal(F.pivots, system["piv"]))
@@ -1276,19 +1323,21 @@ def phase_autotune(results, system):
                    "wall_s_hand_cache": system["wall"],
                    "wall_s_cold": system["wall_cold"], "backward_error": e,
                    "launches": launches, "launches_expected": want,
+                   "panel_routes_expected": taken,
                    "every_bucket_pallas_rec": all_rec,
                    "pivots_equal_hand_cache": piv_eq}
     # gesv_mixed (bf16 factor) on the probed cache
     m_ok, launches, rep = mixed_check(
         "gesv_mixed", A, B, lambda: st.gesv_mixed(A, B, opts),
         system["X"].data)
-    want = expected_panel_launches(routes[torch.bfloat16], torch.bfloat16,
-                                   N, NB)
+    want, taken = expected_panel_launches(routes[torch.bfloat16],
+                                          torch.bfloat16, N, NB)
     m_ok &= all(launches[k] == v for k, v in want.items())
     with tselect.disabled():
         wall_cold, _ = wall_s(lambda: st.gesv_mixed(A, B, opts))
     out["gesv_mixed"] = {"ok": bool(m_ok), **rep,
                          "launches_expected": want,
+                         "panel_routes_expected": taken,
                          "wall_s_hand_cache": system["mixed_wall"],
                          "wall_s_cold_one_call": wall_cold}
     ok &= g_ok and m_ok
@@ -1373,6 +1422,493 @@ def phase_lu_variants(seed):
 
 def no_hand_kernel(launches):
     return all(v == 0 for v in launches.values())
+
+
+def add_phase_launches(results, phase, counts):
+    """Record a phase's launches beside each f32 kernel row
+    ("launches_by_phase"), the main path's count ("launches") kept."""
+    for e in results.values():
+        if e["dtype"] in ("float32", "int32") and counts.get(e["name"]):
+            e.setdefault("launches_by_phase", {})[phase] = counts[e["name"]]
+
+
+def timed(fn):
+    """fn after a warm-up: (wall seconds, result, launch counts of the
+    timed call)."""
+    fn()
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    wall, out = wall_s(fn)
+    return wall, out, pk.launch_counts()
+
+
+def berr_dense(a, x, b):
+    """||A X - B||_F / (||A||_F ||X||_F) in f64 of dense tensors."""
+    a64, x64 = a.double(), x.double()
+    return float(torch.linalg.norm(a64 @ x64 - b.double())
+                 / (torch.linalg.norm(a64) * torch.linalg.norm(x64)))
+
+
+#: the band phase: kd = kl = ku = 512 at n = N, tiles NB
+KD = KL = KU = 512
+#: the general band: rows permuted within groups of BAND_GROUP rows
+#: (testing.band_general_system), over a band of half the width
+#: shifted by twice its spectral radius
+BAND_GROUP = 256
+BAND_SHIFT = 2.0 * float(np.sqrt(KL + KU - 2 * (BAND_GROUP - 1) + 1))
+KAPPA_LIMIT = 1e5
+#: the dense route beside the band and indefinite ones: phase gesv's
+#: options (panels nb wide, the recursive kernel's width)
+DENSE_OPTS = {st.Option.BlockSize: NB}
+
+
+def band_swaps(piv, n, nb):
+    """Swaps that move a row (piv[j] != j), in all and per block step."""
+    moved = (piv[:n].long() != torch.arange(n, device=piv.device))
+    per = moved[:n - n % nb].view(-1, nb).sum(dim=1)
+    return int(moved.sum()), int(per.min()), int((per > 0).sum())
+
+
+def kappa1(A, F):
+    """gecondest's estimate of the 1-norm condition number."""
+    anorm = float(A.to_dense().double().abs().sum(dim=0).max())
+    rc = float(st.gecondest(st.Norm.One, F, anorm))
+    return 1.0 / rc if rc > 0 else float("inf")
+
+
+def phase_band(seed, results, system):
+    """The band solvers at n = N, f32, tiles NB, 64 right-hand sides,
+    with f32 LU panels routed to the recursive kernel: pbsv (kd = 512)
+    on testing.band_spd_system against posv on the same matrix, no hand
+    kernel; gbsv (kl = ku = 512) on testing.band_general_system (its
+    rows permuted within groups of BAND_GROUP), one lu_panel_rec and two
+    compose_swaps launches a block step, a swap in every block step,
+    kappa_1 <= KAPPA_LIMIT, against gesv on the same matrix; gbtrs
+    (Op.Trans) and tbsm with the band factors; gbmm and hbmm against
+    torch.matmul of the dense matrix, both timed beside that product
+    and beside the dense route (gemm / hemm) on the same matrix."""
+    t0 = time.perf_counter()
+    fresh_tune_cache([torch.float32])
+    out = {"phase": "band", "n": N, "nrhs": NRHS, "tiles": NB, "kd": KD,
+           "kl": KL, "ku": KU, "seed": seed}
+    ok = True
+    # pbsv
+    a, b = band_spd_system(seed, N, KD, NRHS, "cuda")
+    A = st.HermitianBandMatrix(st.Uplo.Lower, KD, a, mb=NB)
+    AH = st.HermitianMatrix(st.Uplo.Lower, a, mb=NB)
+    B = st.Matrix(b, mb=NB)
+    wall, (L, X), launches = timed(lambda: st.pbsv(A, B))
+    wall_d, (_, Xd), _ = timed(lambda: st.posv(AH, B))
+    e = berr_dense(a, X.to_dense(), b)
+    xdiff = rel_diff(X.data, Xd.data)
+    p_ok = (e <= 1e-6 and xdiff <= 1e-5 and no_hand_kernel(launches)
+            and L.mtype is st.MatrixType.TriangularBand)
+    out["pbsv"] = {"ok": bool(p_ok), "wall_s": wall, "wall_s_posv": wall_d,
+                   "backward_error": e, "x_rel_diff_posv": xdiff,
+                   "launches": {k: v for k, v in launches.items() if v}}
+    ok &= p_ok
+    # hbmm on the same band
+    C0 = st.Matrix(torch.zeros_like(b), mb=NB)
+    C = st.hbmm(st.Side.Left, 1.0, A, B, 0.0, C0)
+    ref = a @ b
+    out["hbmm"] = {"rel_err": rel_diff(C.to_dense(), ref),
+                   "ms": cuda_ms(lambda: st.hbmm(st.Side.Left, 1.0, A, B,
+                                                 0.0, C0), 5),
+                   "hemm_ms": cuda_ms(lambda: st.hemm(
+                       st.Side.Left, 1.0, AH, B, 0.0, C0), 5),
+                   "matmul_ms": cuda_ms(lambda: a @ b, 5)}
+    ok &= out["hbmm"]["rel_err"] <= 1e-6
+    del a, b, A, AH, L, X, Xd, C, ref
+    # gbsv
+    a, b = band_general_system(seed + 1, N, KL, KU, NRHS, "cuda",
+                               shift=BAND_SHIFT, group=BAND_GROUP)
+    A = st.BandMatrix(KL, KU, a, mb=NB)
+    AD = st.Matrix(a, mb=NB)
+    B = st.Matrix(b, mb=NB)
+    wall, (F, X), launches = timed(lambda: st.gbsv(A, B))
+    add_phase_launches(results, "band", launches)
+    wall_d, (_, Xd), _ = timed(lambda: st.gesv(AD, B, DENSE_OPTS))
+    steps = N // NB
+    moved, least, with_swap = band_swaps(F.pivots, N, NB)
+    kap = kappa1(A, F)
+    e = berr_dense(a, X.to_dense(), b)
+    xdiff = rel_diff(X.data, Xd.data)
+    Xt = st.gbtrs(F, B, trans=st.Op.Trans)
+    e_t = berr_dense(a.T, Xt.to_dense(), b)
+    r = F.LU.resolve()
+    Lb = dataclasses.replace(r, mtype=st.MatrixType.TriangularBand,
+                             uplo=st.Uplo.Lower, diag=st.Diag.Unit)
+    Ub = dataclasses.replace(r, mtype=st.MatrixType.TriangularBand,
+                             uplo=st.Uplo.Upper, diag=st.Diag.NonUnit)
+    Xtb = st.tbsm(st.Side.Left, 1.0, Ub,
+                  st.tbsm(st.Side.Left, 1.0, Lb, B, pivots=F))
+    e_tb = berr_dense(a, Xtb.to_dense(), b)
+    g_ok = (e <= 1e-6 and xdiff <= 1e-3 and e_t <= 1e-6 and e_tb <= 1e-6
+            and F.band and int(F.info) == 0 and kap <= KAPPA_LIMIT
+            and with_swap == steps
+            and launches["lu_panel_rec"] == steps
+            and launches["rank_update"] == 0
+            and launches["compose_swaps"] == 2 * steps)
+    out["gbsv"] = {"ok": bool(g_ok), "wall_s": wall, "wall_s_gesv": wall_d,
+                   "shift": BAND_SHIFT, "group": BAND_GROUP,
+                   "backward_error": e, "x_rel_diff_gesv": xdiff,
+                   "swaps": moved, "least_swaps_a_step": least,
+                   "steps_with_a_swap": with_swap, "steps": steps,
+                   "kappa1": kap, "gbtrs_trans_backward_error": e_t,
+                   "tbsm_backward_error": e_tb,
+                   "launches": {k: v for k, v in launches.items() if v},
+                   "launches_expected": {"lu_panel_rec": steps,
+                                         "compose_swaps": 2 * steps}}
+    ok &= g_ok
+    # gbmm
+    C0 = st.Matrix(torch.zeros_like(b), mb=NB)
+    C = st.gbmm(1.0, A, B, 0.0, C0)
+    out["gbmm"] = {"rel_err": rel_diff(C.to_dense(), a @ b),
+                   "ms": cuda_ms(lambda: st.gbmm(1.0, A, B, 0.0, C0), 5),
+                   "gemm_ms": cuda_ms(lambda: st.gemm(1.0, AD, B, 0.0, C0),
+                                      5),
+                   "matmul_ms": cuda_ms(lambda: a @ b, 5)}
+    ok &= out["gbmm"]["rel_err"] <= 1e-6
+    system["band"] = (A, B)
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = bool(ok)
+    return out
+
+
+#: the Parlett-Reid case (n <= 2 nb at tiles NB) and the stacked api
+#: systems
+N_PR = 1000
+N_API = 2048
+API_STACK = (64, 256)
+
+
+def aasen_residual(a64, F):
+    """||P A P^T - L T L^H||_F / ||A||_F in f64 from the factors' stored
+    entries, whether T's are zero outside |i - j| < 2 nb (1 on the
+    Parlett-Reid path) and whether L's are unit lower."""
+    n = a64.shape[0]
+    p = F.pivots[:n].long()
+    L = F.L.data[:n, :n]
+    T = F.T.data[:n, :n]
+    bw = F.T.kl if F.T.mtype is st.MatrixType.GeneralBand else 1
+    band_ok = bool(torch.equal(T, torch.triu(torch.tril(T, bw), -bw)))
+    unit = bool(torch.equal(torch.diagonal(L), torch.ones_like(L[0]))
+                and torch.equal(L, torch.tril(L)))
+    L, T = L.double(), T.double()
+    r = float(torch.linalg.norm(a64[p][:, p] - L @ T @ L.T)
+              / torch.linalg.norm(a64))
+    return r, band_ok, unit
+
+
+def rec_splits(m, w, dtype):
+    """_rank_update launches of one (m, w) recursive panel: one a
+    host-level split of kernels._lu_rec_split, which also composes two
+    swap sequences."""
+    if m * w <= pk._rec_max_elems(dtype, None):
+        return 0
+    h = w // 2
+    return 1 + rec_splits(m, h, dtype) + rec_splits(m - h, h, dtype)
+
+
+def panel_launches(heights, w, dtype):
+    """Kernel launches of recursive panels (m, w) for m in `heights`,
+    each followed by one composition of its swaps (the driver's)."""
+    splits = sum(rec_splits(m, w, dtype) for m in heights)
+    return {"lu_panel_rec": sum(rec_launches(m, w, dtype) for m in heights),
+            "rank_update": splits,
+            "compose_swaps": len(heights) + 2 * splits}
+
+
+def aasen_panel_heights(n, nb):
+    """Heights of the nb-wide LU panels of one hesv at order n, tiles
+    nb: hetrf's panels (n - r0) x nb, r0 = nb, 2 nb, ... while more than
+    nb rows lie below, then the gbsv of T (bandwidth 2 nb - 1): its
+    windows ((nb + round_up(2 nb - 1, nb)) x nb), one a block step."""
+    wr = -(-(2 * nb - 1) // nb) * nb
+    return ([n - r0 for r0 in range(nb, n, nb) if n - r0 > nb]
+            + [nb + wr] * (n // nb))
+
+
+def aasen_launches(n, nb, dtype):
+    """Kernel launches of one hesv at order n, tiles nb: its panels
+    (aasen_panel_heights), and the forward sweep's swaps of T's gbsv,
+    one composition a block step."""
+    want = panel_launches(aasen_panel_heights(n, nb), nb, dtype)
+    want["compose_swaps"] += n // nb
+    return want
+
+
+#: the held panels' value tolerance, of max(1, max |a|): the
+#: adversarial suite's f32 one
+HELD_TOL = 1e-4
+#: two f32 roundings past 1
+L_MAX_SLACK = 2.0 ** -22
+
+
+def held_panel(a, kp, kpiv, pp, ppiv):
+    """One panel of held_panels: the kernel's factor residual, max |L|
+    (1 at most under partial pivoting, each multiplier a candidate over
+    the largest, and 1 + L_MAX_SLACK for a product with the pivot's
+    rounded reciprocal), and against the plain version either equal
+    pivots and values within HELD_TOL, or, from the first column j
+    where the pivots part, pivots of equal magnitude within HELD_TOL: a
+    tie at the values' rounding, which the two orders of summation
+    break apart."""
+    w = a.shape[1]
+    scale = max(1.0, float(a.abs().max()))
+    row = {"shape": list(a.shape), "residual": lu_residual(a, kp, kpiv),
+           "l_max": float(torch.tril(kp, -1)[:, :w].abs().max())
+           if w > 1 else 0.0}
+    part = (kpiv != ppiv).nonzero()
+    if len(part) == 0:
+        row["err"] = float((kp.double() - pp.double()).abs().max()) / scale
+        held = row["err"] <= HELD_TOL
+    else:
+        j = int(part[0])
+        row["first_parted"] = j
+        row["pivots_parted"] = len(part)
+        row["pivot_gap"] = abs(abs(float(kp[j, j])) - abs(float(pp[j, j]))
+                               ) / scale
+        held = row["pivot_gap"] <= HELD_TOL
+    row["ok"] = bool(held and row["residual"] <= RES_LIMIT[torch.float32]
+                     and row["l_max"] <= 1.0 + L_MAX_SLACK)
+    return row
+
+
+def held_panels(fn):
+    """fn() with every lu_panel_rec call held against
+    lu_panel_rec_plain on a copy of the same input (held_panel). Returns
+    the calls, the worst of each number and the panels whose pivots
+    part from the plain version's."""
+    real = pk.lu_panel_rec
+    rows = []
+
+    def check(a, *args, **kw):
+        a0 = a.clone()
+        got = real(a, *args, **kw)
+        if got is not None:
+            pp, ppiv = pk.lu_panel_rec_plain(a0.clone(), *args, **kw)
+            rows.append(held_panel(a0, *got, pp, ppiv))
+        return got
+
+    pk.lu_panel_rec = check
+    try:
+        fn()
+    finally:
+        pk.lu_panel_rec = real
+    parted = [r for r in rows if "first_parted" in r]
+    return {"ok": all(r["ok"] for r in rows), "calls": len(rows),
+            "heights": sorted({r["shape"][0] for r in rows}),
+            "worst_residual": max((r["residual"] for r in rows),
+                                  default=None),
+            "l_max": max((r["l_max"] for r in rows), default=None),
+            "worst_err_equal_pivots": max(
+                (r["err"] for r in rows if "err" in r), default=None),
+            "pivots_parted": [{k: r[k] for k in (
+                "shape", "first_parted", "pivots_parted", "pivot_gap",
+                "residual")} for r in parted],
+            "failed": [r for r in rows if not r["ok"]][:4]}
+
+
+def phase_indefinite(seed, results, system):
+    """Aasen's hesv at n = N, tiles NB, 64 right-hand sides on
+    testing.indefinite_system: f32 with f32 panels routed to the
+    recursive kernel (lu_panel_rec, _rank_update and compose_swaps
+    launched exactly as aasen_launches counts them; every panel of one
+    more hesv held against the plain version by held_panel, since the
+    reference's f32 accuracy (ROADMAP queue 3) leaves the solve's own
+    residual too loose to fail a wrong panel; sysv bitwise hesv; the
+    factor residual and backward error no worse than 4x the cold
+    route's on the same matrix), then f64 (library panels): the factor
+    residual, backward error <= 1e-6 and X within 1e-5 of gesv's, T
+    banded, L unit lower. Small cases: the Parlett-Reid path at
+    n = N_PR (f64, backward error <= 1e-6; f32 printed) and info > 0
+    on a zero matrix."""
+    t0 = time.perf_counter()
+    fresh_tune_cache([torch.float32])
+    out = {"phase": "indefinite", "n": N, "nrhs": NRHS, "tiles": NB,
+           "seed": seed}
+    a, b = indefinite_system(seed, N, NRHS, "cuda")
+    A = st.HermitianMatrix(st.Uplo.Lower, a, mb=NB)
+    B = st.Matrix(b, mb=NB)
+    wall, (F, X), launches = timed(lambda: st.hesv(A, B))
+    add_phase_launches(results, "indefinite", launches)
+    want = aasen_launches(N, NB, torch.float32)
+    a64 = a.double()
+    res, band_ok, unit = aasen_residual(a64, F)
+    e = berr_dense(a, X.to_dense(), b)
+    _, X2 = st.sysv(A, B)
+    held = held_panels(lambda: st.hesv(A, B))
+    held["ok"] &= held["calls"] == len(aasen_panel_heights(N, NB))
+    with tselect.disabled():
+        wall_c, (Fc, Xc), _ = timed(lambda: st.hesv(A, B))
+    res_c = aasen_residual(a64, Fc)[0]
+    e_c = berr_dense(a, Xc.to_dense(), b)
+    wall_g, (_, Xg), _ = timed(lambda: st.gesv(st.Matrix(a, mb=NB), B,
+                                               DENSE_OPTS))
+    f_ok = (all(launches[k] == v for k, v in want.items())
+            and held["ok"] and band_ok and unit and bool(torch.equal(X.data, X2.data))
+            and res <= 4 * res_c and e <= 4 * e_c
+            and bool(torch.isfinite(X.data).all()))
+    out["float32"] = {"ok": bool(f_ok), "wall_s": wall, "wall_s_cold": wall_c,
+                      "wall_s_gesv": wall_g, "factor_residual": res,
+                      "factor_residual_cold": res_c, "backward_error": e,
+                      "backward_error_cold": e_c,
+                      "backward_error_gesv": berr_dense(a, Xg.to_dense(), b),
+                      "x_rel_diff_gesv": rel_diff(X.data, Xg.data),
+                      "t_banded": band_ok, "l_unit_lower": unit,
+                      "sysv_bitwise_hesv": bool(torch.equal(X.data,
+                                                            X2.data)),
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "launches_expected": want,
+                      "panels_held_plain": held,
+                      "swaps": int((F.pivots[:N].long() != torch.arange(
+                          N, device="cuda")).sum())}
+    system["indefinite"] = (A, B)
+    del F, X, X2, Fc, Xc, Xg
+    A64 = st.HermitianMatrix(st.Uplo.Lower, a64, mb=NB)
+    B64 = st.Matrix(b.double(), mb=NB)
+    del a, A
+    wall, (F, X), launches = timed(lambda: st.hesv(A64, B64))
+    res, band_ok, unit = aasen_residual(a64, F)
+    e = berr_dense(a64, X.to_dense(), B64.to_dense())
+    wall_g, (_, Xg), _ = timed(lambda: st.gesv(st.Matrix(a64, mb=NB), B64,
+                                               DENSE_OPTS))
+    xdiff = rel_diff(X.data, Xg.data)
+    d_ok = (res <= 1e-6 and e <= 1e-6 and xdiff <= 1e-5 and band_ok
+            and unit)
+    out["float64"] = {"ok": bool(d_ok), "wall_s": wall,
+                      "wall_s_gesv": wall_g, "factor_residual": res,
+                      "backward_error": e, "x_rel_diff_gesv": xdiff,
+                      "t_banded": band_ok, "l_unit_lower": unit,
+                      "launches": {k: v for k, v in launches.items() if v}}
+    del F, X, Xg, A64, B64, a64, b
+    # the Parlett-Reid path (n <= 2 nb) and info
+    ap, bp = indefinite_system(seed + 1, N_PR, 4, "cuda", torch.float64)
+    pr = {}
+    for name, dt in (("float64", torch.float64), ("float32", torch.float32)):
+        Ap = st.HermitianMatrix(st.Uplo.Lower, ap.to(dt), mb=NB)
+        wall, (F, X), _ = timed(lambda: st.hesv(Ap, st.Matrix(bp.to(dt),
+                                                               mb=NB)))
+        pr[name] = {"wall_s": wall, "t_general": F.T.mtype.name,
+                    "backward_error": berr_dense(ap, X.to_dense(), bp)}
+    _, info = st.hetrf(st.HermitianMatrix(
+        st.Uplo.Lower, torch.zeros((N_PR, N_PR), device="cuda"), mb=NB),
+        return_info=True)
+    pr["info_zero_matrix"] = int(info)
+    s_ok = (pr["float64"]["backward_error"] <= 1e-6 and int(info) > 0
+            and pr["float64"]["t_general"] == "General")
+    out["parlett_reid"] = {"ok": bool(s_ok), "n": N_PR, **pr}
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = bool(f_ok and d_ok and s_ok)
+    return out
+
+
+def np_berr(a, x, b):
+    """berr_dense of numpy arrays, on the host."""
+    return berr_dense(*(torch.as_tensor(v) for v in (a, x, b)))
+
+
+def phase_api(seed, results):
+    """lapack_compat, numpy in and out, the work on the card: at
+    n = N_API on f64 input (numpy's default), each held by its residual
+    in f64 on the host: solve (gen, pos, sym), cholesky, lu_factor /
+    lu_solve, solve_triangular, lstsq, inv (backward error <= 1e-6),
+    eigh and svdvals (within EIG_LIMIT of scipy); the f32 sym solve
+    (Aasen in f32) printed. Then stacked f32 (64, 256, 256) solve and
+    cholesky under the bucket and the ragged strategy (a tune row
+    "batch/strategy"): ragged equal to bucket to 1e-5, the three ragged
+    kernels launched."""
+    import scipy.linalg as sla
+    t0 = time.perf_counter()
+    fresh_tune_cache()
+    lc = st.lapack_compat
+    rng = np.random.default_rng(seed)
+    n = N_API
+    g = rng.standard_normal((n, n))
+    gen = g + 2.0 * np.sqrt(n) * np.eye(n)
+    spd = g @ g.T / n + np.eye(n)
+    sym = (g + g.T) / 2 + 4.0 * np.sqrt(n) * np.diag(
+        rng.choice([-1.0, 1.0], n))
+    tri = np.tril(g) + 2.0 * np.sqrt(n) * np.eye(n)
+    b = rng.standard_normal((n, 8))
+    tall = rng.standard_normal((2 * n, n))
+    bt = rng.standard_normal((2 * n, 8))
+    out = {"phase": "api", "n": n}
+    errs = {}
+    for kind, a in (("gen", gen), ("pos", spd), ("sym", sym)):
+        wall, x = wall_s(lambda: lc.solve(a, b, assume_a=kind))
+        errs["solve." + kind] = np_berr(a, x, b)
+        out["solve." + kind + ".wall_s"] = wall
+    x32 = lc.solve(sym.astype(np.float32), b.astype(np.float32),
+                   assume_a="sym")
+    out["solve.sym.float32.backward_error"] = np_berr(sym, x32, b)
+    Lc = lc.cholesky(spd, lower=True)
+    errs["cholesky"] = float(np.linalg.norm(Lc @ Lc.T - spd)
+                             / np.linalg.norm(spd))
+    luf = lc.lu_factor(gen)
+    errs["lu_solve"] = np_berr(gen, lc.lu_solve(luf, b), b)
+    errs["lu_solve.trans"] = np_berr(gen.T, lc.lu_solve(luf, b, trans=1), b)
+    errs["solve_triangular"] = np_berr(
+        tri, lc.solve_triangular(tri, b, lower=True), b)
+    xl = lc.lstsq(tall, bt)[0]
+    r = bt - tall @ xl
+    errs["lstsq"] = float(np.linalg.norm(tall.T @ r)
+                          / (np.linalg.norm(tall) * np.linalg.norm(r)))
+    ai = lc.inv(gen)
+    errs["inv"] = float(np.linalg.norm(gen @ ai - np.eye(n))
+                        / (np.linalg.norm(gen) * np.linalg.norm(ai)))
+    h = (g + g.T) / 2
+    w = lc.eigh(h, eigvals_only=True)
+    w_ref = sla.eigh(h, eigvals_only=True)
+    eig_err = float(np.abs(w - w_ref).max() / np.abs(w_ref).max())
+    sv = lc.svdvals(g)
+    sv_err = float(np.abs(sv - sla.svdvals(g)).max() / sv.max())
+    out.update(backward_errors=errs, eigh_rel_err=eig_err,
+               svdvals_rel_err=sv_err)
+    ok = (max(errs.values()) <= 1e-6 and eig_err <= EIG_LIMIT
+          and sv_err <= EIG_LIMIT)
+    # stacked f32: bucket, then ragged
+    bsz, m = API_STACK
+    gs = rng.standard_normal((bsz, m, m)).astype(np.float32)
+    sgen = gs + np.float32(2.0 * np.sqrt(m)) * np.eye(m, dtype=np.float32)
+    sspd = (np.einsum("bij,bkj->bik", gs, gs) / m
+            + np.eye(m)).astype(np.float32)
+    sb = rng.standard_normal((bsz, m)).astype(np.float32)
+    stacked = {}
+    for strategy in ("bucket", "ragged"):
+        fresh_tune_cache()
+        if strategy == "ragged":
+            tcache.get_cache().put("batch", None, None,
+                                   {"strategy": "ragged"})
+            tcache.get_cache().save()
+        lc.solve(sgen, sb)                    # warm-up
+        pk.reset_launch_counts()
+        wall_x, xs = wall_s(lambda: lc.solve(sgen, sb))
+        wall_l, ls = wall_s(lambda: lc.cholesky(sspd, lower=True))
+        launches = pk.launch_counts()
+        stacked[strategy] = {"x": xs, "l": ls, "rep": {
+            "solve_wall_s": wall_x, "cholesky_wall_s": wall_l,
+            "launches": {k: v for k, v in launches.items() if v},
+            "solve_backward_error": max(np_berr(sgen[i], xs[i], sb[i])
+                                        for i in range(bsz))}}
+    rag, buc = stacked["ragged"], stacked["bucket"]
+    xd = float(np.linalg.norm(rag["x"] - buc["x"]) / np.linalg.norm(buc["x"]))
+    ld = float(np.linalg.norm(rag["l"] - buc["l"]) / np.linalg.norm(buc["l"]))
+    launches = rag["rep"]["launches"]
+    add_phase_launches(results, "api", launches)
+    s_ok = (xd <= 1e-5 and ld <= 1e-5
+            and all(launches.get(k, 0) > 0 for k in
+                    ("ragged_potrf", "ragged_getrf", "ragged_trsm"))
+            and rag["rep"]["solve_backward_error"] <= 1e-6)
+    out["stacked"] = {"ok": bool(s_ok), "shape": [bsz, m, m],
+                      "bucket": buc["rep"], "ragged": rag["rep"],
+                      "x_rel_diff_ragged_bucket": xd,
+                      "l_rel_diff_ragged_bucket": ld}
+    fresh_tune_cache()
+    out["seconds"] = time.perf_counter() - t0
+    out["ok"] = bool(ok and s_ok)
+    return out
 
 
 def phase_posv(seed, system):
@@ -2505,8 +3041,9 @@ def phase_profile(system):
     """Where the time of the main paths goes: gesv on both routes (f32
     recursive panels cached), gesv_mixed (recursive panels cached for
     both types), gesv_mixed cold at n = 4096 (its 16 lu_panel
-    launches), posv on both routes, the square gels, the bf16 gels
-    (its 64 qr_panel launches), and one ragged
+    launches), posv on both routes, gbsv and the f32 hesv of phases
+    band and indefinite (f32 recursive panels cached), the square gels,
+    the bf16 gels (its 64 qr_panel launches), and one ragged
     posv flush of the serving stream's first 64 requests (host stacking
     and copies included)."""
     A, B, opts = system["A"], system["B"], system["opts"]
@@ -2526,6 +3063,12 @@ def phase_profile(system):
     out["posv.fused"] = profile_call(lambda: st.posv(SA, SB))
     out["posv.tiled"] = profile_call(lambda: st.posv(
         SA, SB, {st.Option.MethodFactor: st.MethodFactor.Tiled}))
+    fresh_tune_cache([torch.float32])
+    BA, BB = system["band"]
+    out["band.gbsv"] = profile_call(lambda: st.gbsv(BA, BB))
+    IA, IB = system["indefinite"]
+    out["indefinite.hesv"] = profile_call(lambda: st.hesv(IA, IB))
+    fresh_tune_cache()
     out["gels.qr"] = profile_call(lambda: st.gels(
         A, B, {st.Option.MethodGels: st.MethodGels.QR}))
     Ab, Bb = system["gels_bf16"]
@@ -2578,6 +3121,10 @@ def main():
         ("gesv_mixed", lambda: phase_mixed(results, system)),
         ("tune.autotune", lambda: phase_autotune(results, system)),
         ("lu.variants", lambda: phase_lu_variants(args.seed)),
+        ("band", lambda: phase_band(args.seed, results, system)),
+        ("indefinite",
+         lambda: phase_indefinite(args.seed, results, system)),
+        ("api", lambda: phase_api(args.seed, results)),
         ("posv", lambda: phase_posv(args.seed, system)),
         ("posv_mixed", lambda: phase_posv_mixed(system)),
         ("gels", lambda: phase_gels(args.seed, system)),

@@ -11,7 +11,12 @@ refined to f32 accuracy); the norms, condition estimators (gecondest /
 pocondest / trcondest) and elementwise aux drivers; the Cholesky family (potrf / potrs /
 posv, trtri / trtrm / potri, posv_mixed, posv_mixed_gmres); QR and
 least squares (geqrf / unmqr, gelqf / unmlq, cholqr, gels over QR,
-CholQR and TSQR); the BLAS-3 drivers they use; the batch layer
+CholQR and TSQR); the band solvers (pbtrf / pbtrs / pbsv, gbtrf /
+gbtrs / gbsv) and band BLAS (gbmm / hbmm / tbsm); Aasen's
+symmetric-indefinite solver (hetrf / hetrs / hesv and the sy*
+aliases); the BLAS-3 drivers they use; the user surface (the
+``simplified`` names, the scipy-compatible ``api.lapack_compat``,
+``generate_matrix``, ``print_matrix``, ``core.func``); the batch layer
 (``batch/``: batched drivers, the coalescing queue, bucket and ragged
 strategies); the Hermitian eigensolvers (heev, hegv, the staged he2hb /
 hb2st / steqr2 / stedc / sterf) and the SVD (svd, the staged ge2tb /
@@ -35,34 +40,39 @@ torch.backends.cudnn.allow_tf32 = False
 # in bf16 along the way.
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-from .core import (Diag, DimensionError, HermitianBandMatrix,  # noqa: E402,F401
-                   HermitianMatrix, Matrix, MatrixType, Norm, NormScope,
-                   MethodBatchStrategy, MethodCholQR, MethodEig,
-                   MethodFactor, MethodGels, MethodLU, MethodLUPanel,
-                   MethodSVD, Op, Option, Side, SlateError,
-                   SymmetricMatrix, TiledMatrix, TriangularMatrix, Uplo)
+from .core import (BandMatrix, Diag, DimensionError,  # noqa: E402,F401
+                   GridOrder, HermitianBandMatrix, HermitianMatrix, Matrix,
+                   MatrixType, Norm, NormScope, MethodBatchStrategy,
+                   MethodCholQR, MethodEig, MethodFactor, MethodGels,
+                   MethodLU, MethodLUPanel, MethodSVD, Op, Option, Side,
+                   SlateError, SymmetricMatrix, TiledMatrix,
+                   TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix,
+                   Uplo)
 from .interop import from_jax_state  # noqa: E402,F401
 from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
-                     LQFactors, LUFactors, QRFactors, SVDResult,
-                     TridiagResult, add, apply_pivots, bdsqr, cholqr,
-                     colNorms, copy, eig_vals, gecondest, ge2tb, gelqf,
-                     gemm, gemmA, gemmC, geqrf, gels, gels_cholqr,
-                     gels_qr, gels_tsqr, gesv, gesv_mixed,
-                     gesv_mixed_gmres, gesv_nopiv, gesv_rbt, gesvd,
-                     getrf, getrf_nopiv, getrf_tntpiv, getri, getriOOP,
-                     getrs, hb2st, he2hb, heev, hegst, hegv, hemm, her2k,
-                     herk, norm, pbsv, pbtrf, pbtrs, pocondest, posv,
+                     LQFactors, LTLFactors, LUFactors, QRFactors,
+                     SVDResult, TridiagResult, add, apply_pivots, bdsqr,
+                     cholqr, colNorms, copy, eig_vals, gbmm, gbsv, gbtrf,
+                     gbtrs, gecondest, ge2tb, gelqf, gemm, gemmA, gemmC,
+                     geqrf, gels, gels_cholqr, gels_qr, gels_tsqr, gesv,
+                     gesv_mixed, gesv_mixed_gmres, gesv_nopiv, gesv_rbt,
+                     gesvd, getrf, getrf_nopiv, getrf_tntpiv, getri,
+                     getriOOP, getrs, hb2st, hbmm, he2hb, heev, hegst,
+                     hegv, hemm, her2k, herk, hesv, hetrf, hetrs, norm,
+                     pbsv, pbtrf, pbtrs, pocondest, posv,
                      posv_mixed, posv_mixed_gmres, potrf, potri, potrs,
                      qr_multiply_by_q, redistribute, scale,
                      scale_row_col, set, set_entries, stedc,
                      stedc_deflate, stedc_merge, stedc_rotate,
                      stedc_secular, stedc_solve, stedc_sort,
                      stedc_z_vector, steqr2, sterf, svd, svd_vals, syev,
-                     sygv, symm, syr2k, syrk, tb2bd, tournament_pivot_rows,
-                     trcondest, trmm, trsm, trsmA, trsmB, trtri, trtrm,
-                     tsqr, unmbr_ge2tb, unmbr_tb2bd, unmlq, unmqr,
-                     unmtr_hb2st, unmtr_he2hb)
-from .utils import Timers  # noqa: E402,F401
-from . import batch, obs, ops, tune  # noqa: E402,F401
+                     sygv, symm, syr2k, syrk, sysv, sytrf, sytrs, tb2bd,
+                     tbsm, tournament_pivot_rows, trcondest, trmm, trsm,
+                     trsmA, trsmB, trtri, trtrm, tsqr, unmbr_ge2tb,
+                     unmbr_tb2bd, unmlq, unmqr, unmtr_hb2st, unmtr_he2hb)
+from .matgen import generate_matrix  # noqa: E402,F401
+from .utils import Timers, print_matrix, sprint_matrix  # noqa: E402,F401
+from . import api, batch, matgen, obs, ops, tune  # noqa: E402,F401
+from .api import lapack_compat, simplified  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -1,11 +1,13 @@
 """Core types (counterpart of ``slate_tpu/core/``)."""
 
-from .enums import (Diag, MatrixType, Norm, NormScope, Op,  # noqa: F401
-                    Option, Side, Target, Uplo)
+from .enums import (Diag, GridOrder, MatrixType, Norm,  # noqa: F401
+                    NormScope, Op, Option, Side, Target, Uplo)
 from .exceptions import (DimensionError, OptionError, SlateError,  # noqa: F401
                          slate_assert)
-from .matrix import (HermitianBandMatrix, HermitianMatrix,  # noqa: F401
-                     Matrix, SymmetricMatrix, TriangularMatrix)
+from .matrix import (BandMatrix, HermitianBandMatrix,  # noqa: F401
+                     HermitianMatrix, Matrix, SymmetricMatrix,
+                     TrapezoidMatrix, TriangularBandMatrix,
+                     TriangularMatrix)
 from .methods import (MethodBatchStrategy, MethodCholQR,  # noqa: F401
                       MethodEig, MethodFactor, MethodGels, MethodLU,
                       MethodLUPanel, MethodSVD)

@@ -60,6 +60,13 @@ class NormScope(enum.Enum):
     Matrix = "m"
 
 
+class GridOrder(enum.Enum):
+    """Process-grid ordering (reference enums.hh:125)."""
+
+    Col = "c"
+    Row = "r"
+
+
 class Target(enum.Enum):
     """Execution-target compatibility shim (reference enums.hh:34-40);
     accepted for API parity, one execution path per device."""

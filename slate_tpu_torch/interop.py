@@ -20,6 +20,7 @@ from .core.enums import Diag, MatrixType, Op, Uplo
 from .core.exceptions import SlateError
 from .core.tiles import TiledMatrix
 from .linalg.eig import TridiagResult
+from .linalg.indefinite import LTLFactors
 from .linalg.lu import LUFactors
 from .linalg.qr import LQFactors, QRFactors
 from .linalg.svd import BidiagResult, Ge2tbResult
@@ -62,6 +63,10 @@ def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
                        mb=int(meta["mb"]), nb=int(meta["nb"]), **kw)
 
 
+def _pivots(arrays, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(np.asarray(arrays["pivots"], np.int32), device=dev)
+
+
 def _opt_matrix(arrays, meta, key, dev):
     x = arrays.get(key)
     return None if x is None else _matrix(x, meta[key], dev)
@@ -69,17 +74,21 @@ def _opt_matrix(arrays, meta, key, dev):
 
 def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
                    device: DeviceLike = None
-                   ) -> Union[TiledMatrix, LUFactors, QRFactors, LQFactors,
-                              TridiagResult, BidiagResult, Ge2tbResult]:
-    """Turn a JAX ``TiledMatrix``, ``LUFactors``, ``QRFactors`` or
-    ``LQFactors``, given as numpy, into the port's counterpart on
-    `device` (CUDA unless named):
+                   ) -> Union[TiledMatrix, LUFactors, LTLFactors,
+                              QRFactors, LQFactors, TridiagResult,
+                              BidiagResult, Ge2tbResult]:
+    """Turn a JAX ``TiledMatrix``, ``LUFactors``, ``LTLFactors``,
+    ``QRFactors`` or ``LQFactors``, given as numpy, into the port's
+    counterpart on `device` (CUDA unless named):
 
       * ``arrays={"data": A.data}`` + the matrix metadata -> TiledMatrix
         (potrf's triangular factor: its mtype and uplo in the metadata);
       * ``arrays={"LU": F.LU.data, "pivots": F.pivots[, "info": F.info]}``
-        + the metadata of ``F.LU`` -> LUFactors. Band factors
-        (``meta["band"]`` true) are not ported and raise;
+        + the metadata of ``F.LU`` -> LUFactors; ``meta["band"]`` true
+        for gbtrf's windowed band factors (``F.band``);
+      * ``arrays={"L": F.L.data, "T": F.T.data, "pivots": F.pivots}``,
+        each matrix's metadata under its own key of ``meta`` and
+        ``meta["hermitian"] = F.hermitian`` -> LTLFactors (hetrf);
       * ``arrays={"QR": F.QR.data, "taus": F.taus[, "Q": F.Q.data]}`` +
         the metadata of ``F.QR`` (with that of ``F.Q`` under
         ``meta["Q"]``) -> QRFactors;
@@ -117,14 +126,15 @@ def from_jax_state(arrays: Dict[str, np.ndarray], meta: Mapping,
         return LQFactors(_matrix(arrays["LQ"], meta, dev),
                          _tensor(arrays["taus"], dev))
     if "LU" in arrays:
-        if meta.get("band", False):
-            raise SlateError("from_jax_state: band LU factors (gbtrf) are "
-                             "not ported")
         info = arrays.get("info")
         return LUFactors(
-            _matrix(arrays["LU"], meta, dev),
-            torch.tensor(np.asarray(arrays["pivots"], np.int32),
-                         device=dev),
+            _matrix(arrays["LU"], meta, dev), _pivots(arrays, dev),
             None if info is None else torch.tensor(
-                np.asarray(info, np.int32), device=dev))
+                np.asarray(info, np.int32), device=dev),
+            band=bool(meta.get("band", False)))
+    if "T" in arrays:
+        return LTLFactors(_matrix(arrays["L"], meta["L"], dev),
+                          _matrix(arrays["T"], meta["T"], dev),
+                          _pivots(arrays, dev),
+                          bool(meta.get("hermitian", True)))
     return _matrix(arrays["data"], meta, dev)

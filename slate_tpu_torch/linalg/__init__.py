@@ -1,18 +1,23 @@
 """Linear-algebra drivers (counterpart of ``slate_tpu/linalg/``): the
 dense LU (partial pivot, CALU, no-pivot, inverse, butterfly),
 Cholesky and QR / least-squares slices and their mixed-precision
-solves, the norms, condition estimators and elementwise aux drivers,
-the Hermitian eigensolvers and the SVD."""
+solves, the band LU and Cholesky and the band BLAS, Aasen's
+symmetric-indefinite solver, the norms, condition estimators and
+elementwise aux drivers, the Hermitian eigensolvers and the SVD."""
 
 from .aux import (add, copy, redistribute, scale,  # noqa: F401
                   scale_row_col, set, set_entries)
-from .blas3 import (gemm, gemmA, gemmC, hemm, her2k, herk,  # noqa: F401
-                    symm, syr2k, syrk, trmm, trsm, trsmA, trsmB)
+from .blas3 import (gbmm, gemm, gemmA, gemmC, hbmm, hemm,  # noqa: F401
+                    her2k, herk, symm, syr2k, syrk, tbsm, trmm, trsm,
+                    trsmA, trsmB)
 from .chol import (pbsv, pbtrf, pbtrs, posv, posv_mixed,  # noqa: F401
                    posv_mixed_gmres, potrf, potri, potrs, trtri, trtrm)
-from .lu import (LUFactors, apply_pivots, gesv, gesv_mixed,  # noqa: F401
-                 gesv_mixed_gmres, gesv_nopiv, gesv_rbt, getrf,
-                 getrf_nopiv, getrf_tntpiv, getri, getriOOP, getrs)
+from .lu import (LUFactors, apply_pivots, gbsv, gbtrf,  # noqa: F401
+                 gbtrs, gesv, gesv_mixed, gesv_mixed_gmres, gesv_nopiv,
+                 gesv_rbt, getrf, getrf_nopiv, getrf_tntpiv, getri,
+                 getriOOP, getrs)
+from .indefinite import (LTLFactors, hesv, hetrf, hetrs,  # noqa: F401
+                         sysv, sytrf, sytrs)
 from .cond import gecondest, pocondest, trcondest  # noqa: F401
 from .norms import colNorms, norm  # noqa: F401
 from .qr import (LQFactors, QRFactors, cholqr, gelqf,  # noqa: F401

@@ -3,7 +3,11 @@ gemm (and its gemmA / gemmC names), hemm/symm, trmm, trsm (and trsmA /
 trsmB), herk/syrk and her2k/syr2k. Each driver is
 one dense op on the logical matrix (``to_dense`` applies the structure),
 written back into the output's padded tiled storage. The band routines
-(gbmm, hbmm, tbsm) wait for the band slice.
+gbmm / hbmm (the batched window product ``band.band_mm`` on a narrow
+band) and tbsm (the windowed band solves, with either pivot
+convention) fall back to gemm / hemm / trsm on a wide band. The
+reference's grid SUMMA route of gemm (``MethodGemm.Summa``) waits for
+the distributed slice.
 """
 
 from __future__ import annotations
@@ -55,6 +59,64 @@ def gemmC(alpha, A, B, beta, C, opts=None, **kw):
     return gemm(alpha, A, B, beta, C, opts, **kw)
 
 
+def gbmm(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
+         opts: OptionsLike = None) -> TiledMatrix:
+    """Band A times general B (reference src/gbmm.cc, slate.hh:181). A
+    narrow band runs the windowed product (``band.band_mm``: one
+    batched product over block-row windows read from the storage,
+    O(m (kl + ku + nb) p) operations, the reference's in-band tiles
+    only); a wide band, or
+    kl / ku sentinels (-1: full), take the dense gemm."""
+    from ..core.enums import Op
+    from .band import band_is_narrow, band_mm
+    m, k = A.shape
+    if B.shape[0] != k or C.shape != (m, B.shape[1]):
+        raise DimensionError(f"gbmm: {A.shape} x {B.shape} -> {C.shape}")
+    # route on metadata only (resolve materialises the transpose);
+    # transposed views swap kl / ku and mb / nb
+    if A.op is Op.NoTrans:
+        kl, ku, nbE = A.kl, A.ku, A.nb
+    else:
+        kl, ku, nbE = A.ku, A.kl, A.mb
+    if A.mtype is MatrixType.GeneralBand and kl >= 0 and ku >= 0 \
+            and band_is_narrow(min(A.shape), nbE, max(kl, ku)):
+        r = A.resolve()
+        prod = band_mm(r.data, r.kl, r.ku, B.to_dense(), r.nb,
+                       shape=(r.m, r.n))
+        return _store(C, alpha * prod + beta * _logical(C))
+    return gemm(alpha, A, B, beta, C, opts)
+
+
+def hbmm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix, beta,
+         C: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
+    """Hermitian-band A (reference src/hbmm.cc, slate.hh:217). A narrow
+    band runs the windowed product on the stored triangle's windows
+    (``band.band_windows`` mirrors them), kl = ku = kd; the Right side
+    reuses it through C = (A^H B^H)^H with A^H = A. kl / ku sentinels
+    (-1: full bandwidth) and wide bands take hemm."""
+    from ..core.enums import Op
+    from .band import band_is_narrow, band_mm
+    n = A.shape[0]
+    bm, bn = B.shape
+    if (bm if side is Side.Left else bn) != n or C.shape != B.shape:
+        raise DimensionError(
+            f"hbmm: {side} {A.shape} x {B.shape} -> {C.shape}")
+    kd = max(A.kl, A.ku)
+    nbE = A.nb if A.op is Op.NoTrans else A.mb
+    if A.mtype is MatrixType.HermitianBand and A.kl >= 0 and A.ku >= 0 \
+            and band_is_narrow(min(A.shape), nbE, kd):
+        r = A.resolve()
+        b = B.to_dense()
+        if side is Side.Right:
+            b = b.mH
+        prod = band_mm(r.data, kd, kd, b, r.nb, shape=(n, n),
+                       uplo=r.uplo)
+        if side is Side.Right:
+            prod = prod.mH
+        return _store(C, alpha * prod + beta * _logical(C))
+    return hemm(side, alpha, A, B, beta, C, opts)
+
+
 def _sided_mm(side: Side, alpha, A, B, beta, C) -> TiledMatrix:
     a, b, c = _logical(A), _logical(B), _logical(C)
     prod = a @ b if side is Side.Left else b @ a
@@ -95,6 +157,49 @@ def trsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
     x = trsm_dense(ra.to_dense(), alpha * b, left=(side is Side.Left),
                    lower=ra.uplo is Uplo.Lower, nb=ra.nb)
     return _store(B, x)
+
+
+def tbsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
+         pivots=None, opts: OptionsLike = None) -> TiledMatrix:
+    """Triangular-band solve (reference src/tbsm.cc, slate.hh:306),
+    with optional pivots from gbtrf. Narrow bands take the
+    O(n kd nrhs) windowed sweeps (``band.py``); the rest take trsm.
+
+    `pivots` is either a raw swap vector (the dense getrf convention:
+    global swaps, applied as one gather up front) or the LUFactors of
+    the windowed band gbtrf, whose block-local pivots are right only
+    interleaved with the elimination: for those the lower solve replays
+    gbtrs' forward sweep (raw ``F.pivots`` would be wrong whenever a
+    pivot crosses a block boundary), and the upper factor needs no
+    pivots."""
+    from .band import band_is_narrow, band_width_of
+    if pivots is not None and getattr(pivots, "band", False):
+        F = pivots
+        ra = A.resolve()
+        if side is Side.Left and ra.uplo is Uplo.Lower:
+            from .band import gb_forward_solve
+            rf = F.LU.resolve()
+            x = gb_forward_solve(rf.data, F.pivots, alpha * B.to_dense(),
+                                 rf.n, rf.nb, rf.kl)
+            return _store(B, x)
+        pivots = None
+    elif pivots is not None:
+        from .lu import apply_pivots
+        B = apply_pivots(pivots, B)
+    ra = A.resolve()
+    width = band_width_of(ra)
+    if side is Side.Left and ra.mtype is MatrixType.TriangularBand \
+            and band_is_narrow(ra.n, ra.nb, width):
+        from .band import band_trsm_lower, band_trsm_upper
+        b = alpha * B.to_dense()
+        a = ra.to_dense()
+        if ra.uplo is Uplo.Lower:
+            x = band_trsm_lower(a, b, ra.n, ra.nb, width,
+                                unit_diagonal=False)
+        else:
+            x = band_trsm_upper(a, b, ra.n, ra.nb, width)
+        return _store(B, x)
+    return trsm(side, alpha, A, B, opts)
 
 
 def trsmA(side, alpha, A, B, opts=None):

@@ -158,9 +158,17 @@ def chol_diag_factor(s: torch.Tensor) -> torch.Tensor:
     to the input type: one rounding where the reference's XLA expander
     rounds its bf16 intermediates (ROADMAP queue 3), the same kind of
     departure as :func:`solve_triangular`."""
+    return _chol_diag_factor_ex(s)[0]
+
+
+def _chol_diag_factor_ex(s: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`chol_diag_factor` and the library's info (0, or the
+    1-based failed pivot), per element of a stack, on the device."""
     if s.dtype in _SOLVE_DTYPES:
-        return torch.linalg.cholesky_ex(s)[0]
-    return torch.linalg.cholesky_ex(s.float())[0].to(s.dtype)
+        return torch.linalg.cholesky_ex(s)
+    lkk, bad = torch.linalg.cholesky_ex(s.float())
+    return lkk.to(s.dtype), bad
 
 
 def _chol_panel_solve(lkk: torch.Tensor, bpanel: torch.Tensor
@@ -251,11 +259,20 @@ def cholesky_blocked(a: torch.Tensor, nb: int,
     direct solve, trailing updates dense. The reference's fixed-shape
     step past CHOL_SCAN_THRESHOLD steps (``cholesky_scan``) bounds XLA's
     compile time, which eager PyTorch does not have, at the cost of a
-    full-size trailing update every step: it is not ported."""
+    full-size trailing update every step: it is not ported.
+
+    A diagonal block that is not positive definite comes back NaN, as
+    XLA's Cholesky leaves it in the reference, so the failure spreads
+    to the rest of that element's factor and to any solve with it (the
+    batch cores' elements carry no info; their callers test
+    finiteness). The library alone would leave a partial factor that
+    looks valid."""
 
     def diag_factor(s):
-        return chol_diag_factor(s), torch.zeros((), dtype=torch.int32,
-                                                device=s.device)
+        lkk, bad = _chol_diag_factor_ex(s)
+        lkk = torch.where((bad > 0)[..., None, None],
+                          torch.full_like(lkk, float("nan")), lkk)
+        return lkk, torch.zeros((), dtype=torch.int32, device=s.device)
 
     loop = chol_loop_pipelined if lookahead >= 1 else chol_loop
     return loop(a, nb, diag_factor)[0]

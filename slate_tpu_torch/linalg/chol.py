@@ -1,6 +1,7 @@
 """Cholesky family (counterpart of ``slate_tpu/linalg/chol.py``) on one
 device: potrf / potrs / posv (with ``return_info``), trtri / trtrm /
-potri, and the mixed-precision solves posv_mixed / posv_mixed_gmres.
+potri, the band pbtrf / pbtrs / pbsv, and the mixed-precision solves
+posv_mixed / posv_mixed_gmres.
 
 ``potrf`` with Auto takes the Fused route, one library Cholesky of the
 whole matrix (``blocked.chol_diag_factor``: cuSOLVER on the card,
@@ -13,8 +14,10 @@ the reference's Cholesky paths call XLA, not its ``chol_panel`` or
 ``trtri_lower`` Pallas kernels, whose ports are the public entries in
 ``ops/kernels.py``.
 
-Not ported (raise ``NotImplementedError`` naming ROADMAP queue 1): the
-band factors pbtrf / pbtrs / pbsv and every grid (mesh) path.
+The band Cholesky pbtrf / pbtrs / pbsv runs the windowed band
+algorithms of ``band.py`` on a narrow band and the dense drivers on a
+wide one, as the reference. Not ported (raises ``NotImplementedError``
+naming ROADMAP queue 1): every grid (mesh) path.
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ def potrf(A: TiledMatrix, opts: OptionsLike = None,
     with A's uplo (reference src/potrf.cc:262). With return_info=True
     returns (L, info): info == 0 on success, k > 0 if the leading minor
     of order k is not positive definite (a 0-d int32 tensor on A's
-    device)."""
-    slate_assert(A.mtype in (MatrixType.Hermitian, MatrixType.Symmetric),
+    device). A HermitianBand A gives a TriangularBand factor with its
+    bandwidths (pbtrf's wide-band route)."""
+    slate_assert(A.mtype in (MatrixType.Hermitian, MatrixType.Symmetric,
+                             MatrixType.HermitianBand),
                  "potrf: A must be Hermitian/symmetric")
     if get_option(opts, Option.Grid, None) is not None:
         raise _not_ported("potrf on a grid (mesh) of devices")
@@ -59,7 +64,8 @@ def potrf(A: TiledMatrix, opts: OptionsLike = None,
     # square padded storage, a multiple of nb; the factor uses mb = nb
     np_ = ceil_div(max(r.n, 1), nb) * nb
     if method is MethodFactor.Fused and not return_info \
-            and r.data.shape == (np_, np_) and r.mb == nb:
+            and r.data.shape == (np_, np_) and r.mb == nb \
+            and A.mtype is not MatrixType.HermitianBand:
         # the factorization reads only the stored triangle: hand the raw
         # padded storage (transposed for Upper) without mirroring it
         a = r.data if r.uplo is Uplo.Lower else r.data.mH
@@ -82,9 +88,11 @@ def potrf(A: TiledMatrix, opts: OptionsLike = None,
         else:
             L = cholesky_blocked(a, nb, lookahead=lookahead)
     data = L.mH if r.uplo is Uplo.Upper else L
-    out = dataclasses.replace(r, data=data, mb=nb, nb=nb,
-                              mtype=MatrixType.Triangular,
-                              diag=Diag.NonUnit, kl=-1, ku=-1)
+    band = A.mtype is MatrixType.HermitianBand
+    out = dataclasses.replace(
+        r, data=data, mb=nb, nb=nb,
+        mtype=MatrixType.TriangularBand if band else MatrixType.Triangular,
+        diag=Diag.NonUnit, kl=r.kl if band else -1, ku=r.ku if band else -1)
     if return_info:
         return out, info
     return out
@@ -161,23 +169,57 @@ def potri(A: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
     return trtrm(trtri(A, opts), opts)
 
 
-# -- band Cholesky (not ported) -------------------------------------------
+# -- band Cholesky --------------------------------------------------------
+
+def _use_band_path(A: TiledMatrix, width: int) -> bool:
+    from .band import band_is_narrow
+    r = A.resolve()
+    return band_is_narrow(r.n, r.nb, width)
+
 
 def pbtrf(A: TiledMatrix, opts: OptionsLike = None) -> TiledMatrix:
-    """Band Cholesky (reference src/pbtrf.cc): waits for the band
-    slice."""
-    raise _not_ported("pbtrf (band Cholesky)")
+    """Band Cholesky (reference src/pbtrf.cc, slate.hh:758): the
+    windowed O(n kd^2) band algorithm (``band.pbtrf_band``) when the
+    band is narrow, the dense potrf otherwise (the factor of a kd-band
+    SPD matrix is kd-band triangular either way). The band factor is a
+    TriangularBand matrix with A's uplo and bandwidths."""
+    from .band import band_width_of, pbtrf_band
+    kd = band_width_of(A)
+    if A.mtype is MatrixType.HermitianBand and _use_band_path(A, kd):
+        r = A.resolve()
+        np_ = ceil_div(max(r.n, 1), r.nb) * r.nb
+        a = torch.nn.functional.pad(A.to_dense(),
+                                    (0, np_ - r.n, 0, np_ - r.m))
+        L = pbtrf_band(pad_diag_identity(a, r.m, r.n), r.n, r.nb, kd)
+        if r.uplo is Uplo.Upper:
+            L = L.mH
+        return dataclasses.replace(
+            r, data=L, mb=r.nb, nb=r.nb, mtype=MatrixType.TriangularBand,
+            diag=Diag.NonUnit, kl=r.kl, ku=r.ku)
+    return potrf(A, opts)
 
 
 def pbtrs(A: TiledMatrix, B: TiledMatrix,
           opts: OptionsLike = None) -> TiledMatrix:
-    """Band solve from the pbtrf factor: waits for the band slice."""
-    raise _not_ported("pbtrs (band Cholesky solve)")
+    """Band solve from the pbtrf factor (reference slate.hh:784): two
+    windowed band triangular solves, O(n kd nrhs); a dense factor
+    (pbtrf's wide-band fallback) takes potrs."""
+    from .band import band_trsm_lower, band_width_of
+    kd = band_width_of(A)
+    if A.mtype is MatrixType.TriangularBand and _use_band_path(A, kd):
+        r = A.resolve()
+        l = r.to_dense() if r.uplo is Uplo.Lower else r.to_dense().mH
+        y = band_trsm_lower(l, B.to_dense(), r.n, r.nb, kd)
+        return _store(B, band_trsm_lower(l, y, r.n, r.nb, kd,
+                                         conj_trans=True))
+    return potrs(A, B, opts)
 
 
 def pbsv(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None):
-    """Band positive-definite solve: waits for the band slice."""
-    raise _not_ported("pbsv (band Cholesky solve)")
+    """Band positive-definite solve (reference slate.hh:665): pbtrf,
+    then pbtrs. Returns (factor, X)."""
+    L = pbtrf(A, opts)
+    return L, pbtrs(L, B, opts)
 
 
 # -- mixed precision --------------------------------------------------------

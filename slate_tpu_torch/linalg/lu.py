@@ -1,7 +1,9 @@
 """LU family (counterpart of ``slate_tpu/linalg/lu.py``) on one device:
 getrf / getrs / gesv with partial pivoting, the tournament-pivot
 (CALU) getrf_tntpiv, the no-pivot getrf_nopiv / gesv_nopiv, the
-inverse getri / getriOOP, the random butterfly solve gesv_rbt, and the
+inverse getri / getriOOP, the random butterfly solve gesv_rbt, the
+band LU gbtrf / gbtrs / gbsv (the windowed algorithms of ``band.py``
+on a narrow square band, getrf / getrs otherwise), and the
 mixed-precision solves gesv_mixed / gesv_mixed_gmres.
 
 Pivots are a flat int32 tensor of global row swap targets (LAPACK
@@ -22,7 +24,7 @@ Above LU_SCAN_THRESHOLD block steps on a square, the reference runs
 a fixed-shape scan at a dividing width (an XLA program-size device);
 the port runs the same loops at that width. Not ported yet (each
 raises ``NotImplementedError`` naming its ROADMAP item rather than
-taking another route): the grid (mesh) paths and the band factors.
+taking another route): the grid (mesh) paths.
 gesv_rbt has no resil sentinel (the reference's fallback to gesv on a
 non-finite solution, off by default, comes with resil/).
 """
@@ -58,6 +60,9 @@ class LUFactors(NamedTuple):
     LU: TiledMatrix
     pivots: torch.Tensor       # (min(m,n)_pad,) int32 global swap targets
     info: Optional[torch.Tensor] = None   # () int32
+    #: True when produced by the windowed band gbtrf, whose L blocks
+    #: are not permuted across blocks: solves go through gbtrs
+    band: bool = False
 
 
 # -- pivot machinery ------------------------------------------------------
@@ -125,7 +130,16 @@ def _lu_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     the dtype allows, the rank-1 hand kernel (ops/kernels.lu_panel)
     where its gate takes the panel (bf16 on the card), else the fori
     loop. The pallas_rec route runs the hand-written recursive panel
-    kernel (ops/kernels.lu_panel_rec)."""
+    kernel (ops/kernels.lu_panel_rec).
+
+    A cached kernel route whose gate rejects the panel (a bucket's
+    entry speaks for panels of the probe's width; the driver's may be
+    wider) takes the cold route of the panel, for ``pallas`` as for
+    ``pallas_rec``. The reference demotes a rejected ``pallas`` to its
+    fori loop; the cold route is the same partial pivoting, and for
+    the library-LU types far faster (ROADMAP queue 3). The chain ends
+    at the fori loop: a cold ``pallas`` that its gate rejects is not
+    retried."""
     m, w = a.shape
     method = MethodLUPanel.resolve(m, w, a.dtype, a.device)
     if method is MethodLUPanel.PallasRec:
@@ -137,7 +151,9 @@ def _lu_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         fused = pk.lu_panel(a)
         if fused is not None:
             return fused
-        method = MethodLUPanel.Fori
+        method = MethodLUPanel.cold_default(m, w, a.dtype, a.device)
+        if method is MethodLUPanel.Pallas:
+            method = MethodLUPanel.Fori
     if method is MethodLUPanel.Native:
         lu, piv = _native_lu(a)
         return lu, piv
@@ -553,6 +569,10 @@ def getrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
         slate_assert(trans in (True, False),
                      f"trans must be an Op or bool, got {trans!r}")
         trans = Op.ConjTrans if trans else Op.NoTrans
+    if F.band:
+        # band-convention factors (block-local swaps) need gbtrs's
+        # interleaved sweeps
+        return gbtrs(F, B, opts, trans=trans)
     LU = F.LU
     L = dataclasses.replace(LU, mtype=MatrixType.Triangular,
                             uplo=Uplo.Lower, diag=Diag.Unit)
@@ -605,6 +625,80 @@ def getriOOP(F: LUFactors, opts: OptionsLike = None) -> TiledMatrix:
     """Out-of-place inverse (reference getriOOP, slate.hh:654). The
     functional design is always out of place; kept for API parity."""
     return getri(F, opts)
+
+
+# -- band LU --------------------------------------------------------------
+
+def _use_band_path(A: TiledMatrix) -> bool:
+    from .band import band_is_narrow, band_width_of
+    r = A.resolve()
+    # the windowed gbtrf takes a square matrix (identity-padded
+    # windows); rectangular band inputs take the dense fallback
+    return A.mtype is MatrixType.GeneralBand and r.kl >= 0 \
+        and r.m == r.n and band_is_narrow(r.n, r.nb, band_width_of(r))
+
+
+def gbtrf(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
+    """Band LU with partial pivoting (reference src/gbtrf.cc,
+    slate.hh:594). A narrow square band runs the windowed
+    O(n kl (kl + ku)) algorithm (``band.gbtrf_band``); pivoting grows
+    the upper bandwidth to kl + ku (LAPACK gbtrf fill-in), and the
+    factor's band tags are widened so. Its L blocks are not permuted
+    across blocks (the gbtrf convention): solves go through gbtrs,
+    which replays the blocked swap interleaving. Other inputs take
+    getrf (a band input's factor keeps the widened tags)."""
+    if _use_band_path(A):
+        from .band import gbtrf_band
+        r, a = _prep(A)
+        lu, ipiv = gbtrf_band(a, r.n, r.nb, r.kl, r.ku)
+        out = dataclasses.replace(r, data=lu, mtype=MatrixType.GeneralBand,
+                                  kl=r.kl, ku=r.kl + r.ku)
+        return LUFactors(out, ipiv, lu_info(lu, r.m, r.n), band=True)
+    F = getrf(A, opts)
+    if A.mtype is MatrixType.GeneralBand:
+        lu = dataclasses.replace(F.LU, mtype=MatrixType.GeneralBand,
+                                 kl=A.kl, ku=A.kl + A.ku)
+        return LUFactors(lu, F.pivots, F.info)
+    return F
+
+
+def gbtrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
+          trans=Op.NoTrans) -> TiledMatrix:
+    """Solve with gbtrf factors (reference slate.hh:622); trans as in
+    getrs (an Op or a bool). Band factors take the interleaved blocked
+    sweeps (LAPACK gbtrs): the forward swaps and L solve, then the U
+    band backward solve, or for op(A) = A^T / A^H the U^op band solve,
+    then the L^op sweep with its swaps undone; dense factors take
+    getrs."""
+    if not isinstance(trans, Op):
+        slate_assert(trans in (True, False),
+                     f"trans must be an Op or bool, got {trans!r}")
+        trans = Op.ConjTrans if trans else Op.NoTrans
+    if not F.band:
+        return getrs(F, B, opts, trans=trans)
+    from .band import (band_trsm_lower, band_trsm_upper,
+                       gb_backward_solve_trans, gb_forward_solve)
+    r = F.LU.resolve()
+    lu_d = r.data
+    b = B.to_dense()
+    kband = r.ku          # widened to kl + ku by gbtrf
+    if trans is Op.NoTrans:
+        y = gb_forward_solve(lu_d, F.pivots, b, r.n, r.nb, r.kl)
+        x = band_trsm_upper(lu_d, y, r.n, r.nb, kband)
+    else:
+        conj = trans is Op.ConjTrans
+        y = band_trsm_lower(lu_d.mH if conj else lu_d.mT, b, r.n, r.nb,
+                            kband)
+        x = gb_backward_solve_trans(lu_d, F.pivots, y, r.n, r.nb, r.kl,
+                                    conj)
+    return _store(B, x)
+
+
+def gbsv(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None):
+    """Band solve (reference slate.hh:499): gbtrf, then gbtrs. Returns
+    (factors, X)."""
+    F = gbtrf(A, opts)
+    return F, gbtrs(F, B, opts)
 
 
 # -- mixed precision ------------------------------------------------------

@@ -2,7 +2,11 @@
 counterpart of the panel helpers in ``tests/test_pallas_rec.py``).
 numpy arrays, so the same inputs can go through both packages;
 ``spd_system`` also makes its system on the card from a
-``torch.Generator``."""
+``torch.Generator``. The band and indefinite systems
+(``band_spd_system``, ``band_general_system``, ``indefinite_system``)
+take a seed and an explicit device and make tensors there from a
+``torch.Generator``: on the card at the paths' size, on the CPU for the
+tests (whose ``.numpy()`` goes through both packages)."""
 
 from __future__ import annotations
 
@@ -310,3 +314,74 @@ def serve_stream(seed: int = 0, reqs: int = 256):
         xs.append(x)
         spds.append((x @ x.T / n + 4.0 * np.eye(n)).astype(np.float32))
     return [int(n) for n in sizes], xs, spds
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def band_spd_system(seed: int, n: int, kd: int, nrhs: int, device,
+                    dtype=torch.float32):
+    """(A, B): tests/test_band.py's ``spd_band``, the entries
+    |i - j| <= kd of G + G^T plus 4 sqrt(n) I with G Gaussian (n, n),
+    and a Gaussian right-hand side (n, nrhs), made on `device`. The
+    band of G + G^T has its spectrum in about +-2 sqrt(2 (2 kd + 1)),
+    far below 4 sqrt(n) when kd << n: A is SPD and well conditioned."""
+    g = _generator(seed, device)
+    x = torch.randn((n, n), generator=g, device=device, dtype=dtype)
+    a = x + x.T
+    del x
+    a.tril_(kd).triu_(-kd)
+    a.diagonal().add_(4.0 * n ** 0.5)
+    return a, torch.randn((n, nrhs), generator=g, device=device,
+                          dtype=dtype)
+
+
+def band_general_system(seed: int, n: int, kl: int, ku: int, nrhs: int,
+                        device, shift: float = 4.0, group: int = 0,
+                        dtype=torch.float32):
+    """(A, B): tests/test_band.py's ``gen_band``, a Gaussian band with
+    kl sub- and ku superdiagonals plus shift I, and a Gaussian
+    right-hand side (n, nrhs), made on `device`.
+
+    With ``group`` > 0 the band is built with kl - group + 1 and
+    ku - group + 1 diagonals and its rows are then permuted at random
+    within consecutive groups of ``group`` rows (the band counterpart
+    of ``permuted_boosted_system``): A keeps bandwidths kl and ku, a
+    shift above the band's spectral disc (radius about
+    sqrt(kl + ku + 1)) keeps it well conditioned, and each column's
+    pivot sits in another row of its group, so partial pivoting moves
+    rows in every block step. Without it, a shift inside the disc makes
+    pivoting move rows but lets the condition number grow with n."""
+    g = _generator(seed, device)
+    a = torch.randn((n, n), generator=g, device=device, dtype=dtype)
+    a.tril_(ku - max(group - 1, 0)).triu_(-(kl - max(group - 1, 0)))
+    a.diagonal().add_(shift)
+    if group > 0:
+        keys = torch.rand((n,), generator=g, device=device) \
+            + torch.arange(n, device=device) // group
+        a = a[torch.argsort(keys)]
+    return a, torch.randn((n, nrhs), generator=g, device=device,
+                          dtype=dtype)
+
+
+def indefinite_system(seed: int, n: int, nrhs: int, device,
+                      dtype=torch.float32):
+    """(A, B): A = (G + G^T) / 2 + 4 sqrt(n) diag(s) with G Gaussian
+    (n, n) and s random +-1, and a Gaussian right-hand side (n, nrhs),
+    made on `device`. (G + G^T) / 2 has its spectrum in
+    [-sqrt(2n), sqrt(2n)], so A's eigenvalues lie in
+    +-[4 - 1.41, 4 + 1.41] sqrt(n): indefinite, with 2-norm condition
+    about 2.1, while Aasen's panel LU still pivots off the diagonal
+    (the off-diagonal entries of a column outweigh its diagonal)."""
+    g = _generator(seed, device)
+    x = torch.randn((n, n), generator=g, device=device, dtype=dtype)
+    a = x + x.T
+    del x
+    a.mul_(0.5)
+    s = torch.randint(0, 2, (n,), generator=g, device=device)
+    a.diagonal().add_((2 * s - 1).to(dtype) * (4.0 * n ** 0.5))
+    return a, torch.randn((n, nrhs), generator=g, device=device,
+                          dtype=dtype)

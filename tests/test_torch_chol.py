@@ -280,15 +280,6 @@ def test_blas3_matches_jax(name):
     np.testing.assert_allclose(o, r, atol=1e-4, rtol=1e-5)
 
 
-def test_band_cholesky_not_ported():
-    A = st.HermitianMatrix(st.Uplo.Lower, np.eye(8, dtype=np.float32),
-                           mb=8, **CPU)
-    for fn, args in ((st.pbtrf, (A,)), (st.pbtrs, (A, A)),
-                     (st.pbsv, (A, A))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args)
-
-
 def test_potrf_factor_from_jax_state(system):
     """potrf's triangular factor carried over with its metadata, then
     potrs on both sides."""

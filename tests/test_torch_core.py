@@ -146,9 +146,10 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax():
     """Lazy imports inside functions do not show in sys.modules: scan
-    the sources too."""
+    the sources too, the chip scripts' with them."""
     import ast
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in (
+        "chip_smoke.py", "chip_compare.py", "chip_gen_band.py")]
     for root, _, names in os.walk(os.path.join(REPO, "slate_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     for path in files:

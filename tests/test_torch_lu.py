@@ -143,9 +143,12 @@ def test_from_jax_state_round_trip(system, jax_results):
     assert np.array_equal(F.pivots.numpy(), jpiv)
     assert F.pivots.dtype == torch.int32 and int(F.info) == jinfo
     assert _meta(F.LU) == _meta(JF.LU)
-    with pytest.raises(st.SlateError, match="band"):
-        st.from_jax_state({"LU": jlu, "pivots": jpiv},
-                          dict(_meta(JF.LU), band=True), device="cpu")
+    # band factors (gbtrf's) carry over with their flag since the band
+    # slice (tests/test_torch_band.py solves with them)
+    Fb = st.from_jax_state({"LU": jlu, "pivots": jpiv},
+                           dict(_meta(JF.LU), band=True), device="cpu")
+    assert Fb.band and not F.band
+    assert np.array_equal(Fb.LU.data.numpy(), jlu)
 
 
 def test_getrf_rectangular_and_ragged_tiles_match_jax():
@@ -642,3 +645,46 @@ def test_aliases_match_their_targets():
                    device="cpu")
     assert torch.equal(st.qr_multiply_by_q(st.Side.Left, F, Cq).data,
                        st.unmqr(st.Side.Left, F, Cq).data)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rejected_cached_pallas_takes_the_cold_route(dtype, monkeypatch,
+                                                     tmp_path):
+    """A cached ``pallas`` entry (the rank-1 kernel) whose gate rejects
+    the panel (512 wide, past its 256) takes the panel's cold route, as
+    a rejected ``pallas_rec`` does: for f32 the library LU (bitwise
+    _native_lu, the column loop never entered), for bf16 (no library
+    LU; off the card the kernel's gate rejects) the chain ends at the
+    column loop. A panel the gate takes keeps the kernel (its plain
+    version on the CPU)."""
+    monkeypatch.setenv("SLATE_TPU_TORCH_TUNE_CACHE", str(tmp_path))
+    tcache.reset_cache()
+    fori = []
+    real_fori = tlu.lu_panel_fori
+    monkeypatch.setattr(tlu, "lu_panel_fori",
+                        lambda a: fori.append(a.shape) or real_fori(a))
+    kernel = []
+    real_kernel = pk.lu_panel
+    monkeypatch.setattr(pk, "lu_panel",
+                        lambda a: kernel.append(a.shape) or real_kernel(a))
+    try:
+        tcache.get_cache().put("lu_panel", dtype, 512,
+                               {"method_lu_panel": "pallas"})
+        a, _ = permuted_boosted_system(np.random.default_rng(3), 512, 1)
+        a = torch.as_tensor(a).to(dtype)
+        lu, piv = tlu._lu_panel(a)
+        assert kernel == [(512, 512)]
+        if dtype == torch.float32:
+            ref_lu, ref_piv = tlu._native_lu(a)
+            assert fori == []
+        else:
+            ref_lu, ref_piv = real_fori(a)
+            assert fori == [(512, 512)]
+        assert torch.equal(lu, ref_lu) and torch.equal(piv, ref_piv)
+        del kernel[:], fori[:]
+        lu, piv = tlu._lu_panel(a[:, :256])
+        assert kernel == [(512, 256)] and fori == []
+        plu, ppiv = pk.lu_panel_plain(a[:, :256])
+        assert torch.equal(lu, plu) and torch.equal(piv, ppiv)
+    finally:
+        tcache.reset_cache()
