@@ -226,7 +226,40 @@ script exit non-zero without the final result line:
               the chain kernel (ge2tb -> tb2bd -> bdsqr_qr, two chain
               launches a pass); reconstruction and values within
               EIG_LIMIT;
- 19. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+ 19. spectral_dc  the spectral divide & conquer eigensolver
+              (linalg/spectral_dc.py, polar.py; library calls, no hand
+              kernel): the library eigensolver at the leaves' orders
+              (64, 256, 512 and a stack of 64 x 32), PyTorch's f32 route
+              beside blocked.library_eigh, the latter's residual and
+              orthogonality within LEAF_EIGH_LIMIT; polar_unitary on an
+              f32 Gaussian at n = 4096
+              (iterations, converged, max |U^T U - I| <= POLAR_ORTH_LIMIT,
+              ms); the two ADVICE diagonals at n = 48, each within 5e-5
+              of diag(sign(d)); eigh_dc at n = 8192 (leaf 256) on
+              (G + G^T)/2 from --seed: ok, eigenvalues within
+              DC_EIG_LIMIT ||H||_2 of eigvalsh in f64 (4 n eps, the
+              staged eigensolvers' limit), residual and orthogonality
+              within DC_RESID_LIMIT / DC_ORTH_LIMIT, the counts of
+              splits, leaves, polar iterations (the root's apart) and
+              host reads, its wall beside torch.linalg.eigh f32 on the
+              same matrix; check_polar under SLATE_TPU_CHECK_POLAR=1
+              with obs on records polar.unconverged False;
+ 20. obs.resil  obs (bus, metrics), the flight recorder, request traces
+              and series on: phase 16's posv and gesv legs (64 requests
+              each, one flush each) through CoalescingQueue(ragged)
+              twice, clean and then under a FaultPlan injecting one
+              transient failure at the "batch" site of the second
+              dispatch: the retry counted (guard.counts()), every
+              ticket bitwise the clean run's, the ragged kernels'
+              launches equal between the runs and to phase 16's legs,
+              one ledger record a dispatch, one request span a ticket,
+              p50 / p99 in the series, a Perfetto JSON written and read
+              back with its flow events, a non-empty report, and
+              xprof.analyze's peak memory on a gesv at 4096; then
+              everything off, and gesv at n = 16384 (phase 4's route)
+              timed with obs off and on, alternately, three each.
+              Every other phase must end with guard.counts() empty;
+ 21. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
               n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               the heev and
@@ -238,7 +271,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 20. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 22. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -267,6 +300,7 @@ from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 from slate_tpu_torch.linalg import eig as teig
 from slate_tpu_torch.linalg import qr as tqr
+from slate_tpu_torch.resil import guard
 from slate_tpu_torch.testing import (EXACT_KINDS, band_general_system,
                                      band_spd_system, bf16_ulps, chol_cases,
                                      indefinite_system, panel_cases,
@@ -2561,6 +2595,7 @@ def phase_batch_serve(seed, results, system):
                 ok &= all(launches[k] > 0 for k in need)
                 set_launches(results, "batch.serve (ragged %s)" % op,
                              launches)
+                system.setdefault("serve_launches", {})[op] = launches
             rep[strategy], outs[op + "." + strategy] = rec, o
         rep["ragged_vs_bucket"] = max(
             rel(r, b) for r, b in zip(outs[op + ".ragged"],
@@ -2604,6 +2639,284 @@ def phase_batch_serve(seed, results, system):
                                  "rel_err_vs_coalesced": bg_err}
     ok &= flushed and bg_err <= 1e-5
     system["serve_posv"] = (spds[leg], b1)
+    system["serve_gesv"] = (gens, b1)
+    out["ok"] = bool(ok)
+    return out
+
+
+# -- the spectral divide & conquer eigensolver --------------------------------
+
+N_POLAR = 4096
+N_DC, LEAF_DC = 8192, 256
+N_ADVICE = 48
+#: the ADVICE diagonals' polar factor against diag(sign(d)): the
+#: reference tests' limit (tests/test_tune.py)
+ADVICE_LIMIT = 5e-5
+#: max |U^T U - I| of the polar factor at N_POLAR, f32
+POLAR_ORTH_LIMIT = 5e-5
+#: eigh_dc's eigenvalues against eigvalsh in f64, relative to ||H||_2:
+#: the staged eigensolvers' f32 limit (ROADMAP queue 3), 4 n eps
+DC_EIG_LIMIT = 4.0 * N_DC * float(torch.finfo(torch.float32).eps)
+#: residual and orthogonality of the library eigensolver through
+#: blocked.library_eigh at the leaves' orders, f32 (LAPACK on the CPU
+#: gives ~1e-6; cuSOLVER's syevj, PyTorch's f32 route at orders 32-512
+#: on the card, ~1e-4)
+LEAF_EIGH_LIMIT = 1e-5
+LEAF_EIGH_CASES = ((1, 64), (1, 256), (1, 512), (64, 32))
+#: ||H V - V diag(w)||_F / ||H||_F and max |V^T V - I| of eigh_dc in
+#: f32: ten times what it gives on the CPU at n = 1024 and 2048 (4.0e-6
+#: / 1.7e-6 and 3.4e-6 / 1.6e-6, flat in n)
+DC_RESID_LIMIT = 5e-5
+DC_ORTH_LIMIT = 5e-5
+
+
+def advice_diagonal(case, n=N_ADVICE):
+    """tests/test_tune.py's two ADVICE cases: a singular value at the
+    capped-weight dip, and clustered tiny ones."""
+    if case == "dip":
+        d = np.linspace(0.5, 1.0, n).astype(np.float32)
+        d[0], d[1] = 0.12, -0.12
+    else:
+        d = np.full(n, 1e-4, np.float32)
+        d[n // 2:] = 1.0
+        d[::2] *= -1.0
+    return d
+
+
+def phase_spectral_dc(seed):
+    from slate_tpu_torch.linalg import polar as tpolar
+    from slate_tpu_torch.linalg import spectral_dc as sdc
+    from slate_tpu_torch.obs import events as obs_events
+    from slate_tpu_torch.obs import metrics as obs_metrics
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 14)
+    out = {"phase": "spectral_dc"}
+    # the polar factor of a Gaussian
+    x = torch.randn(N_POLAR, N_POLAR, generator=g, device="cuda")
+    tpolar.polar_unitary(x[:512, :512])                  # warm-up
+    wall, (u, k, conv) = wall_s(lambda: tpolar.polar_unitary(x))
+    u64 = u.double()
+    orth = float((u64.T @ u64 - torch.eye(N_POLAR, dtype=torch.float64,
+                                          device="cuda")).abs().max())
+    out["polar"] = {"n": N_POLAR, "iterations": k, "converged": conv,
+                    "orth_max": orth, "limit": POLAR_ORTH_LIMIT,
+                    "ms": wall * 1e3}
+    ok = conv and orth <= POLAR_ORTH_LIMIT
+    del x, u, u64
+    adv = {}
+    for case in ("dip", "clustered"):
+        d = advice_diagonal(case)
+        u, k, conv = tpolar.polar_unitary(np.diag(d))
+        err = float((u.cpu() - torch.diag(torch.sign(torch.as_tensor(d))))
+                    .abs().max())
+        adv[case] = {"iterations": k, "converged": conv, "err": err}
+        ok &= conv and err <= ADVICE_LIMIT
+    out["advice"] = dict(adv, limit=ADVICE_LIMIT)
+    # the leaves' eigensolver: the library's f32 route against the
+    # port's (f64 where that route is syevj)
+    from slate_tpu_torch.linalg.blocked import library_eigh
+    leaves = {}
+    for batch_, n in LEAF_EIGH_CASES:
+        x = torch.randn(batch_, n, n, generator=g, device="cuda")
+        a = 0.5 * (x + x.mT)
+        a64 = a.double()
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        row = {}
+        for name, fn in (("torch.linalg.eigh", torch.linalg.eigh),
+                         ("library_eigh", library_eigh)):
+            w, v = fn(a)
+            v64 = v.double()
+            row[name] = {
+                "residual": float((torch.linalg.norm(
+                    a64 @ v64 - v64 * w.double()[:, None, :], dim=(1, 2))
+                    / torch.linalg.norm(a64, dim=(1, 2))).max()),
+                "orth_max": float((v64.mT @ v64 - eye).abs().max())}
+        leaves["%dx%d" % (batch_, n)] = row
+        ok &= max(row["library_eigh"].values()) <= LEAF_EIGH_LIMIT
+    out["leaf_eigh"] = dict(leaves, limit=LEAF_EIGH_LIMIT)
+    # the eigensolver at full width
+    x = torch.randn(N_DC, N_DC, generator=g, device="cuda")
+    h = 0.5 * (x + x.T)
+    del x
+    sdc.eigh_dc(h[:1024, :1024], leaf=LEAF_DC)           # warm-up
+    stats = {}
+    wall, (w, v, dc_ok) = wall_s(lambda: sdc.eigh_dc(h, leaf=LEAF_DC,
+                                                     stats=stats))
+    wall_eigh, _ = wall_s(lambda: torch.linalg.eigh(h))
+    h64 = h.double()
+    w_ref = torch.linalg.eigvalsh(h64)
+    hn2 = float(w_ref.abs().max())
+    eig_err = float((w.double() - w_ref).abs().max()) / hn2
+    del w_ref
+    v64 = v.double()
+    resid = float(torch.linalg.norm(h64 @ v64 - v64 * w.double())
+                  / torch.linalg.norm(h64))
+    del h64
+    orth = float((v64.T @ v64 - torch.eye(N_DC, dtype=torch.float64,
+                                          device="cuda")).abs().max())
+    del v64
+    ascending = bool((w[1:] >= w[:-1]).all())
+    out["eigh_dc"] = {
+        "n": N_DC, "leaf": LEAF_DC, "dtype": "float32", "ok": dc_ok,
+        "ascending": ascending, "eig_err_rel": eig_err,
+        "eig_limit": DC_EIG_LIMIT, "residual": resid,
+        "residual_limit": DC_RESID_LIMIT, "orth_max": orth,
+        "orth_limit": DC_ORTH_LIMIT, "wall_s": wall,
+        "eigh_wall_s": wall_eigh, "wall_over_eigh": wall / wall_eigh,
+        **stats}
+    ok &= dc_ok and ascending and eig_err <= DC_EIG_LIMIT \
+        and resid <= DC_RESID_LIMIT and orth <= DC_ORTH_LIMIT
+    # the opt-in check, with obs on
+    prev = os.environ.get(sdc.CHECK_POLAR_ENV)
+    os.environ[sdc.CHECK_POLAR_ENV] = "1"
+    obs_metrics.reset()
+    obs_events.enable()
+    try:
+        read = sdc.check_polar(dc_ok)
+        unconverged = obs_metrics.snapshot()["counters"].get(
+            "polar.unconverged", 0)
+    finally:
+        obs_events.disable()
+        obs_events.clear()
+        obs_metrics.reset()
+        if prev is None:
+            os.environ.pop(sdc.CHECK_POLAR_ENV)
+        else:
+            os.environ[sdc.CHECK_POLAR_ENV] = prev
+    out["check_polar"] = {"read": read, "polar.unconverged": unconverged}
+    ok &= read is True and unconverged == 0
+    out["ok"] = bool(ok)
+    return out
+
+
+# -- obs and resil around the serving path ------------------------------------
+
+#: gesv at N timed with obs off and on, alternately, this many times each
+OBS_REPS = 3
+
+
+def obs_all(on):
+    """The bus (and metrics), the flight recorder, request traces and
+    series, all on or all off."""
+    from slate_tpu_torch.obs import events, ledger, reqtrace, series
+    for mod in (events, ledger, reqtrace, series):
+        (mod.enable if on else mod.disable)()
+
+
+def phase_obs_resil(seed, results, system):
+    from slate_tpu_torch import obs
+    from slate_tpu_torch.obs import (events, export, ledger, metrics,
+                                     reqtrace, series, xprof)
+    from slate_tpu_torch.resil import faults, guard
+    spds, b1 = system["serve_posv"]
+    gens, _ = system["serve_gesv"]
+    reqs = [("posv", a, b) for a, b in zip(spds, b1)] \
+        + [("gesv", a, b) for a, b in zip(gens, b1)]
+    serve = system["serve_launches"]
+    want = {k: serve["posv"][k] + serve["gesv"][k]
+            for k in ("ragged_potrf", "ragged_getrf", "ragged_trsm",
+                      "compose_swaps")}
+    out = {"phase": "obs.resil", "requests": len(reqs)}
+    for mod in (ledger, reqtrace, series):
+        mod.reset()
+    events.clear()
+    metrics.reset()
+    guard.reset_counts()
+    obs_all(True)
+
+    def run(tenant):
+        led0 = len(ledger.records("batch.dispatch"))
+        span0 = len(reqtrace.spans(reqtrace.REQUEST_SPAN))
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        with batch.CoalescingQueue(max_batch=SERVE_BATCH, max_wait_us=0,
+                                   strategy="ragged") as q:
+            ts = [q.submit(op, a, b, trace=reqtrace.begin(tenant=tenant,
+                                                          op=op))
+                  for op, a, b in reqs]
+            q.flush()
+            outs = [t.result() for t in ts]
+        launches = pk.launch_counts()
+        req = reqtrace.spans(reqtrace.REQUEST_SPAN)[span0:]
+        return outs, {
+            "dispatches": q.stats()["dispatches"],
+            "ledger_records": len(ledger.records("batch.dispatch")) - led0,
+            "spans": len(req),
+            "spans_with_flush": sum(1 for sp in req
+                                    if "flush_id" in sp.args),
+            "launches": {k: v for k, v in launches.items() if v}}
+
+    ok = True
+    clean, rec_clean = run("clean")
+    plan = faults.install(faults.FaultPlan(
+        [{"site": "batch", "after": 1, "times": 1, "kind": "error"}]))
+    try:
+        faulted, rec_fault = run("faulted")
+    finally:
+        faults.clear()
+    counts = guard.counts()
+    bitwise = all(torch.equal(a, b) for a, b in zip(faulted, clean))
+    rec_fault["fired"] = plan.fired()
+    rec_fault["injections"] = plan.log()
+    rec_fault["guard_counts"] = counts
+    for rec in (rec_clean, rec_fault):
+        ok &= rec["dispatches"] == rec["ledger_records"] == 2 \
+            and rec["spans"] == rec["spans_with_flush"] == len(reqs) \
+            and all(rec["launches"].get(k) == v for k, v in want.items())
+    ok &= bitwise and counts == {"resil.retries": 1} and plan.fired() == 1
+    add_phase_launches(results, "obs.resil", rec_clean["launches"])
+    out.update(clean=rec_clean, faulted=rec_fault,
+               faulted_bitwise_clean=bitwise, serve_launches=want)
+    guard.reset_counts()
+    qs = {t: {op: series.quantiles("serve.latency_s", t, op)
+              for op in ("posv", "gesv")} for t in ("clean", "faulted")}
+    ok &= all(q is not None and q["p50"] <= q["p99"]
+              for per in qs.values() for q in per.values())
+    out["latency_s"] = qs
+    path = os.path.join(tempfile.mkdtemp(prefix="obs_trace_"),
+                        "obs_resil.trace.json")
+    export.write_trace(path)
+    with open(path) as f:
+        tr = json.load(f)["traceEvents"]
+    phs = sorted({e["ph"] for e in tr})
+    out["trace"] = {"events": len(tr), "phases": phs}
+    ok &= {"X", "i", "s", "f", "C"} <= set(phs)
+    text = obs.report()
+    out["report_lines"] = len(text.splitlines())
+    ok &= "batch.dispatches" in text and "critical path" in text
+    a4, b4 = permuted_boosted_system(np.random.default_rng(seed + 4),
+                                     N_COLD, NRHS)
+    A4, B4 = st.Matrix(a4, mb=NB), st.Matrix(b4, mb=NB)
+    del a4, b4
+    xp = xprof.analyze("gesv", st.gesv, A4, B4, {st.Option.BlockSize: NB})
+    out["xprof_gesv"] = xp
+    ok &= xp["peak_bytes"] is not None and xp["peak_bytes"] > 0
+    del A4, B4
+    obs_all(False)
+    for mod in (ledger, reqtrace, series):
+        mod.reset()
+    events.clear()
+    metrics.reset()
+    xprof.clear_analyses()
+    # gesv at N on phase 4's route, obs off and on alternately
+    fresh_tune_cache([torch.float32])
+    A, B, opts = system["A"], system["B"], system["opts"]
+    st.gesv(A, B, opts)                       # warm-up
+    walls = {"off": [], "on": []}
+    for _ in range(OBS_REPS):
+        for mode in ("off", "on"):
+            obs_all(mode == "on")
+            wall, _ = wall_s(lambda: st.gesv(A, B, opts))
+            walls[mode].append(wall)
+    obs_all(False)
+    n_events = events.count()
+    events.clear()
+    metrics.reset()
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    out["gesv_obs"] = {"n": N, "wall_s": walls, "median_s": med,
+                       "on_over_off": med["on"] / med["off"],
+                       "events_on": n_events}
+    ok &= guard.counts() == {}
     out["ok"] = bool(ok)
     return out
 
@@ -3133,6 +3446,8 @@ def main():
          lambda: phase_batch_serve(args.seed, results, system)),
         ("heev", lambda: phase_heev(args.seed, results, system)),
         ("svd", lambda: phase_svd(args.seed, results, system)),
+        ("spectral_dc", lambda: phase_spectral_dc(args.seed)),
+        ("obs.resil", lambda: phase_obs_resil(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:
@@ -3143,6 +3458,11 @@ def main():
                 traceback.print_exc()
                 out = {"phase": name, "ok": False,
                        "error": "%s: %s" % (type(e).__name__, e)}
+            if name != "obs.resil" and guard.counts():
+                # only obs.resil injects a fault: any other phase that
+                # retried or fell back is a failure
+                out["ok"] = False
+                out["guard_counts"] = guard.counts()
             emit(out)
             if name == "device":
                 device = out

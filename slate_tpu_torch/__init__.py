@@ -19,10 +19,15 @@ aliases); the BLAS-3 drivers they use; the user surface (the
 ``generate_matrix``, ``print_matrix``, ``core.func``); the batch layer
 (``batch/``: batched drivers, the coalescing queue, bucket and ragged
 strategies); the Hermitian eigensolvers (heev, hegv, the staged he2hb /
-hb2st / steqr2 / stedc / sterf) and the SVD (svd, the staged ge2tb /
-tb2bd / bdsqr); the hand-written kernels (``ops/kernels.py``); and the
-autotuner (``tune.autotune``), which measures the routes to those
-kernels on the card and persists the winners.
+hb2st / steqr2 / stedc / sterf, and the spectral divide & conquer
+``linalg.spectral_dc.eigh_dc`` with its polar iteration) and the SVD
+(svd, the staged ge2tb / tb2bd / bdsqr); the hand-written kernels
+(``ops/kernels.py``); the autotuner (``tune.autotune``), which measures
+the routes to those kernels on the card and persists the winners; and
+observability and resilience (``obs``: events, metrics, the flight
+recorder, request traces, series, the watchdog, the Perfetto export,
+the report; ``resil``: fault injection, retries and the escalation
+ladder, checkpoints).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -72,7 +77,7 @@ from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
                      unmbr_tb2bd, unmlq, unmqr, unmtr_hb2st, unmtr_he2hb)
 from .matgen import generate_matrix  # noqa: E402,F401
 from .utils import Timers, print_matrix, sprint_matrix  # noqa: E402,F401
-from . import api, batch, matgen, obs, ops, tune  # noqa: E402,F401
+from . import api, batch, matgen, obs, ops, resil, tune  # noqa: E402,F401
 from .api import lapack_compat, simplified  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -19,7 +19,7 @@ building blocks:
     library panels; a bf16 stack, whose type the library QR lacks,
     takes its panels element by element (the ``qr_panel`` kernel where
     its gate takes the panel, else the column loop);
-  * heev: ``torch.linalg.eigh`` on the stack, values ascending.
+  * heev: ``blocked.library_eigh`` on the stack, values ascending.
 
 Inputs are stacked, already padded (batch/bucket.py prepares them).
 The reference warns when its raw-array entries turn f64 into f32 (JAX
@@ -43,7 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.tiles import ceil_div
-from ..linalg.blocked import solve_triangular
+from ..linalg.blocked import library_eigh, solve_triangular
 from ..linalg.lu import lu_panel_fori
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
@@ -164,11 +164,11 @@ _EIGH_DTYPES = (torch.float32, torch.float64, torch.complex64,
 
 def heev_core(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hermitian eigendecomposition of each padded (N, N) element,
-    values ascending (``torch.linalg.eigh``; a bf16 stack is solved in
+    values ascending (``blocked.library_eigh``; a bf16 stack is solved in
     f32 and rounded). Returns (w, V)."""
     if a.dtype in _EIGH_DTYPES:
-        return torch.linalg.eigh(a)
-    w, v = torch.linalg.eigh(a.float())
+        return library_eigh(a)
+    w, v = library_eigh(a.float())
     return w.to(a.dtype), v.to(a.dtype)
 
 

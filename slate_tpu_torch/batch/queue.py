@@ -21,11 +21,21 @@ device is the queue's (``device``; the CUDA card unless the caller
 passes ``device="cpu"``), used explicitly by the background flusher
 thread too.
 
-Every flush updates ``stats()`` and, with the obs bus on, publishes
-one ``batch:<op>`` instant. Not ported: the reference's resil fault
-sites and retry ladder (a dispatch is one direct call), its
-flight-recorder ledger record, request-trace stamping and obs metrics
-(ROADMAP queue 1).
+Every flush updates ``stats()`` and, with the obs bus on, the
+``batch.*`` metrics and one ``batch:<op>`` instant. Both strategies
+dispatch through ``_dispatch_guarded``: without a fault plan the first
+attempt runs bare and only a transient failure (resil/guard.py's
+TRANSIENT_TYPES) enters the bounded retry; under a plan every attempt
+passes the ``batch`` fault site. ``submit`` passes the
+``batch_submit`` site and the background flusher the ``flusher`` site
+each tick. With the flight recorder on (obs/ledger.py), each dispatch
+appends one ``batch.dispatch`` record: ``stage`` is the host-side stack
+build, ``factor`` the host-to-device copy, the dispatch and the copy
+back. A ticket submitted with a request span (``submit(...,
+trace=)``, obs/reqtrace.py) gets the flush's timestamps and id, and the
+flush a linkage record. All of it is off by default: with no plan, the
+recorder and tracing off, a flush adds no host read and its results
+are bitwise those of the unguarded dispatch.
 """
 
 from __future__ import annotations
@@ -39,6 +49,9 @@ import torch
 
 from . import bucket as _bucket
 from . import drivers as _drivers
+from ..obs import ledger as _ledger
+from ..resil import faults as _faults
+from ..resil import guard as _guard
 from ..utils.backend import DeviceLike, resolve_device
 
 
@@ -63,11 +76,26 @@ class Ticket:
         #: set at flush time: wall seconds from submit to result
         self.latency_s: Optional[float] = None
         self._t_submit = time.perf_counter()
+        #: request span (obs/reqtrace.py) handed in through
+        #: submit(trace=); the dispatch stamps the flush timestamps and
+        #: id onto traced tickets only
+        self.trace = None
+        self.t_flush: Optional[float] = None
+        self.t_dispatch: Optional[float] = None
+        self.flush_id: Optional[int] = None
 
     def _resolve(self, value=None, error=None) -> None:
         self._value = value
         self._error = error
         self.latency_s = time.perf_counter() - self._t_submit
+        if self.trace is not None:
+            # the span closes on the resolving thread, before the event
+            # fires (a waiter must find it committed); it never fails a
+            # resolution
+            try:
+                self.trace.on_resolved(self)
+            except Exception:
+                pass
         self._done.set()
 
     def done(self) -> bool:
@@ -156,6 +184,9 @@ class CoalescingQueue:
                        "flops_sum": 0.0, "occ_flops_sum": 0.0,
                        "ragged_dispatches": 0,
                        "ragged_flops_saved": 0.0}
+        #: ledger step ids of dispatch records (read and incremented
+        #: under _lock)
+        self._led_seq = 0
         self._closed = False
         #: set when the background flusher thread died
         self._flusher_error: Optional[BaseException] = None
@@ -191,14 +222,17 @@ class CoalescingQueue:
 
     # -- submission -------------------------------------------------------
 
-    def submit(self, op: str, a, b=None) -> Ticket:
+    def submit(self, op: str, a, b=None, trace=None) -> Ticket:
         """Enqueue one problem. `a` is a single (n, n) (or (m, n) for
         geqrf/gels) matrix, `b` an optional (n,) / (n, k) right-hand
         side, numpy arrays or CPU tensors. The operands are copied here
         (padded to the bucket on the bucket path), so a caller may
-        reuse its arrays after submit returns."""
+        reuse its arrays after submit returns. `trace` (an
+        obs/reqtrace.py span) rides the ticket, since submit may flush
+        inline."""
         if self._closed:
             raise RuntimeError("queue is closed")
+        _faults.check("batch_submit", op=op)
         spec = _drivers.OPS.get(op)
         if spec is None:
             raise ValueError(f"unknown batched op {op!r}; have "
@@ -250,6 +284,8 @@ class CoalescingQueue:
             pb = None if b2 is None else _bucket.pad_rhs(b2, bm, nrhs)
             key = (op, bm, bn, nrhs, str(pa.dtype))
         ticket = Ticket(self, key)
+        if trace is not None:
+            ticket.trace = trace
         flush_now = False
         with self._lock:
             pend = self._pending.setdefault(key, [])
@@ -288,6 +324,9 @@ class CoalescingQueue:
                 self._wake.clear()
                 if self._closed:
                     return
+                # `busy` lets a plan target a tick that holds pending
+                # work (an idle loop ticks every max_wait_us / 2)
+                _faults.check("flusher", busy=bool(self._oldest))
                 now = time.perf_counter()
                 with self._lock:
                     due = [k for k, t0 in self._oldest.items()
@@ -301,7 +340,8 @@ class CoalescingQueue:
         """The background flusher died: fail every pending ticket with
         the death error instead of leaving their waiters to hang. The
         queue stays usable in synchronous mode (result() forces its own
-        bucket's flush); the death is published as an obs instant."""
+        bucket's flush); the death is counted
+        (``resil.flusher_deaths``) and published as an obs instant."""
         self._flusher_error = e
         with self._lock:
             taken = list(self._pending.items())
@@ -311,34 +351,100 @@ class CoalescingQueue:
         for _k, entries in taken:
             for t, *_rest in entries:
                 t._resolve(error=err)
+        _guard._count("resil.flusher_deaths")
         from ..obs import events as obs_events
         if obs_events.enabled():
-            obs_events.instant("batch::flusher_death", cat="batch",
+            from ..obs import metrics as om
+            om.inc("resil.flusher_deaths")
+            obs_events.instant("resil::flusher_death", cat="resil",
                                error=str(e)[:120],
                                failed=sum(len(v) for _, v in taken))
 
-    def _run(self, op: str, entries, stack, rhs, call) -> None:
-        """Copy the stacks to the device (one copy each), dispatch
-        through `call(stack, rhs)` (the stacks are the queue's own
-        copies: the ragged kernels factor and solve in them), copy each
-        output stack back (one copy each) and resolve every ticket with
-        its crop; any failure resolves every ticket with the error.
-        (The reference rounds the batch up to a power of two to bound
-        XLA's compiled shapes; eager launches take any batch, so the
-        real one is dispatched.)"""
-        nrhs = rhs.shape[-1] if rhs is not None else 0
-        tickets = [e[0] for e in entries]
+    def _dispatch_guarded(self, op: str, fn):
+        """The dispatch retry ladder both strategies share: under an
+        active fault plan every attempt passes the "batch" site;
+        without one the first attempt runs bare and only a transient
+        failure enters the bounded retry. Exhaustion, or any other
+        error (a CUDA error, a failed build or launch among them),
+        propagates to the caller, which resolves every co-batched
+        ticket with it."""
+        def _once():
+            _faults.check("batch", op=op)
+            return fn()
+
+        if _faults.active() is not None:
+            return _guard.retry(_once, "batch", op=op)
         try:
-            with self._device_ctx():
-                stack = stack.to(self._device)
-                if rhs is not None:
-                    rhs = rhs.to(self._device)
-                out = call(stack, rhs)
-                parts = out if isinstance(out, tuple) else (out,)
-                hosts = [o.cpu() for o in parts]
+            return fn()
+        except Exception as e:
+            if not _guard.is_transient(e):
+                raise
+            return _guard.retry_after_failure(_once, "batch", e, op=op)
+
+    def _run(self, op: str, entries, build, call, strategy: str,
+             ceiling: int, waste) -> None:
+        """One flush: `build()` makes the host stacks (the ledger's
+        ``stage``); each guarded attempt copies them to the device (one
+        copy each, a fresh one an attempt, since the ragged kernels
+        factor and solve in their operands), dispatches through
+        `call(stack, rhs)` and copies each output stack back (the
+        ledger's ``factor``); every ticket is resolved with its crop,
+        or every ticket with the error. `waste()` gives the ledger's
+        padding-waste fraction. (The reference rounds the batch up to a
+        power of two to bound XLA's compiled shapes; eager launches
+        take any batch, so the real one is dispatched.)"""
+        tickets = [e[0] for e in entries]
+        led_on = _ledger.enabled()
+        traced = any(t.trace is not None for t in tickets)
+        fid = None
+        if traced:
+            from ..obs import reqtrace as _rt
+            fid = _rt.next_flush_id()
+        clocked = led_on or traced
+        t_led = time.perf_counter() if clocked else 0.0
+        try:
+            stack, rhs = build()
+            nrhs = rhs.shape[-1] if rhs is not None else 0
+            t_stage = time.perf_counter() if clocked else 0.0
+
+            def attempt():
+                with self._device_ctx():
+                    s = stack.to(self._device, copy=True)
+                    r = None if rhs is None \
+                        else rhs.to(self._device, copy=True)
+                    out = call(s, r)
+                    parts = out if isinstance(out, tuple) else (out,)
+                    return [o.cpu() for o in parts]
+
+            hosts = self._dispatch_guarded(op, attempt)
+            if led_on:
+                t_done = time.perf_counter()
+                with self._lock:
+                    seq = self._led_seq
+                    self._led_seq += 1
+                meta = {"op": op, "occupancy": len(entries),
+                        "strategy": strategy, "ceiling": ceiling,
+                        "waste_flops": round(waste(), 4)}
+                if traced:
+                    meta["traces"] = [t.trace.trace_id for t in tickets
+                                      if t.trace is not None][:16]
+                _ledger.append("batch.dispatch", step=seq,
+                               phases={"stage": t_stage - t_led,
+                                       "factor": t_done - t_stage},
+                               meta=meta)
             for i, (t, _pa, _pb, (m, n)) in enumerate(entries):
+                if t.trace is not None:
+                    t.t_flush = t_led
+                    t.t_dispatch = t_stage
+                    t.flush_id = fid
                 t._resolve(value=_crop(op, [h[i] for h in hosts], m, n,
                                        nrhs))
+            if traced:
+                _rt.record_flush(
+                    op, t_led, time.perf_counter(), fid,
+                    [t.trace.trace_id for t in tickets
+                     if t.trace is not None],
+                    occupancy=len(entries), strategy=strategy)
         except BaseException as e:      # resolve-or-hang: every ticket
             for t in tickets:           # must learn its fate
                 t._resolve(error=e)
@@ -348,11 +454,18 @@ class CoalescingQueue:
             return self._dispatch_ragged(key, entries)
         op, bm, bn, nrhs, _dt = key
         spec = _drivers.OPS[op]
-        stack = torch.stack([e[1] for e in entries])
-        rhs = torch.stack([e[2] for e in entries]) if spec.has_rhs \
-            else None
-        self._run(op, entries, stack, rhs,
-                  lambda s, r: _drivers._dispatch(op, s, r))
+
+        def build():
+            stack = torch.stack([e[1] for e in entries])
+            rhs = torch.stack([e[2] for e in entries]) if spec.has_rhs \
+                else None
+            return stack, rhs
+
+        self._run(op, entries, build,
+                  lambda s, r: _drivers._dispatch(op, s, r), "bucket", bm,
+                  lambda: _bucket.stack_report(
+                      [e[3] for e in entries], bm, bn)
+                  ["padding_waste_flops"])
         self._record(key, entries)
 
     def _dispatch_ragged(self, key, entries) -> None:
@@ -366,21 +479,28 @@ class CoalescingQueue:
         blk = _pk.ragged_blk(opts=self._opts)
         sizes = [e[3][1] for e in entries]
         ceil = _bucket.ragged_ceiling(sizes, blk=blk, align=self._align)
-        k = len(entries)
-        stack = torch.zeros((k, ceil, ceil), dtype=entries[0][1].dtype)
-        rhs = torch.zeros((k, ceil, nrhs), dtype=stack.dtype) \
-            if spec.has_rhs else None
-        for i, (_t, pa, pb, (_m, n)) in enumerate(entries):
-            stack[i, :n, :n] = pa
-            if rhs is not None:
-                rhs[i, :n] = pb
+
+        def build():
+            k = len(entries)
+            stack = torch.zeros((k, ceil, ceil),
+                                dtype=entries[0][1].dtype)
+            rhs = torch.zeros((k, ceil, nrhs), dtype=stack.dtype) \
+                if spec.has_rhs else None
+            for i, (_t, pa, pb, (_m, n)) in enumerate(entries):
+                stack[i, :n, :n] = pa
+                if rhs is not None:
+                    rhs[i, :n] = pb
+            return stack, rhs
 
         def call(s, r):
             return _drivers.ragged_dispatch(
                 op, s, torch.tensor(sizes, dtype=torch.int32), r,
                 blk=blk, donate=True, device=self._device)
 
-        self._run(op, entries, stack, rhs, call)
+        self._run(op, entries, build, call, "ragged", ceil,
+                  lambda: _bucket.ragged_report(
+                      sizes, blk, align=self._align)
+                  ["padding_waste_flops"])
         self._record(key, entries, ragged_blk=blk)
 
     def _record(self, key, entries,
@@ -415,6 +535,17 @@ class CoalescingQueue:
                 s["ragged_flops_saved"] += saved
         from ..obs import events as obs_events
         if obs_events.enabled():
+            from ..obs import metrics as om
+            om.inc("batch.requests", k)
+            om.inc("batch.dispatches")
+            om.inc("batch.dispatches_saved", k - 1)
+            if saved is not None:
+                om.inc("batch.ragged_dispatches")
+                om.inc("batch.ragged_flops_saved", int(saved))
+            om.observe("batch.occupancy", k)
+            om.observe("batch.padding_waste", rep["padding_waste"])
+            om.observe("batch.padding_waste_flops",
+                       rep["padding_waste_flops"])
             obs_events.instant("batch:%s" % op, cat="driver",
                                occupancy=k, bucket=label,
                                padding_waste=round(

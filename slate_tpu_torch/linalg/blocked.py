@@ -8,7 +8,9 @@ The direct triangular solve is :func:`solve_triangular` over
 ``torch.linalg.solve_triangular`` (LAPACK on the CPU, cuBLAS on the
 card), the counterpart of the reference's XLA TriangularSolve; the
 diagonal-block Cholesky is :func:`chol_diag_factor` over
-``torch.linalg.cholesky_ex``, the counterpart of XLA's ``cholesky``.
+``torch.linalg.cholesky_ex``, the counterpart of XLA's ``cholesky``;
+the Hermitian eigensolver is :func:`library_eigh` over
+``torch.linalg.eigh``, the counterpart of XLA's ``eigh``.
 The reference's grid (SPMD) paths wait for the distributed slice.
 Where the reference updates slices functionally, the loops here update
 a copy of the input in place (same values).
@@ -25,6 +27,35 @@ from ..core.tiles import ceil_div, round_up
 #: block order up to which one direct solve against the identity is
 #: the inversion leaf; larger blocks recurse on halves
 TRTRI_LEAF_MAX = 512
+
+
+#: the largest order at which torch.linalg.eigh / eigvalsh hand an f32
+#: matrix on the card to cuSOLVER's Jacobi solver (syevj) at its default
+#: tolerance instead of syevd
+SYEVJ_MAX_N = 512
+
+
+def _syevj_route(device_type: str, dtype: torch.dtype, n: int) -> bool:
+    """Whether the library eigensolver would take syevj: f32 on the
+    card at order <= SYEVJ_MAX_N (batched or not)."""
+    return device_type == "cuda" and dtype == torch.float32 \
+        and n <= SYEVJ_MAX_N
+
+
+def library_eigh(a: torch.Tensor, eigenvectors: bool = True):
+    """``torch.linalg.eigh`` (or ``eigvalsh`` without eigenvectors), the
+    counterpart of XLA's eigh, accurate to f32 on the card too. For an
+    f32 matrix of order <= SYEVJ_MAX_N on the card, PyTorch runs
+    cuSOLVER's syevj, whose residual and orthogonality reach only
+    ~1e-4 at order 256 on an H100 (LAPACK: ~1e-6); there the solve runs
+    in f64 (syevd) and rounds to f32. Elsewhere it is one plain call."""
+    if _syevj_route(a.device.type, a.dtype, a.shape[-1]):
+        if not eigenvectors:
+            return torch.linalg.eigvalsh(a.double()).float()
+        w, v = torch.linalg.eigh(a.double())
+        return w.float(), v.float()
+    return torch.linalg.eigh(a) if eigenvectors \
+        else torch.linalg.eigvalsh(a)
 
 
 #: dtypes the library triangular solve implements

@@ -4,7 +4,8 @@ hegv / sygv, and the staged pipeline he2hb (full -> band) -> hb2st
 (band -> tridiagonal) -> steqr2 / stedc / sterf with the
 back-transforms unmtr_he2hb / unmtr_hb2st.
 
-Auto takes the library eigensolver (``torch.linalg.eigh``), as the
+Auto takes the library eigensolver (``blocked.library_eigh`` over
+``torch.linalg.eigh``), as the
 reference takes XLA's off the TPU. The tridiagonal QR iteration
 (``steqr2_qr``) runs its passes in ``steqr_sweeps`` launches of up to
 ``STEQR_PASSES_PER_LAUNCH`` passes each (ops/kernels.py: clamp, block
@@ -18,8 +19,11 @@ kernel.
 
 At each of the reference's ``_on_tpu()`` sites the port takes the
 branch the reference takes off the TPU, on the CPU and on the card
-alike; the TPU-only spectral divide & conquer (``polar.py``,
-``spectral_dc.py``, ``SLATE_TPU_CHECK_POLAR``) is not ported.
+alike. The spectral divide & conquer that the reference's Auto takes on
+a TPU is ported as a public entry (``spectral_dc.eigh_dc``, with
+``polar.py`` and the ``SLATE_TPU_CHECK_POLAR`` check as
+``spectral_dc.check_polar``), and heev does not route to it on the
+card.
 
 Not ported (raise ``NotImplementedError`` naming ROADMAP queue 1):
 steqr2 and stedc under ``Option.Grid``, hegst's grid form. Left out on
@@ -47,7 +51,7 @@ from ..ops import kernels as pk
 from ..ops.householder import reflect
 from ..utils.backend import DeviceLike, resolve_device
 from .blas3 import _store
-from .blocked import solve_triangular
+from .blocked import library_eigh, solve_triangular
 from .chol import potrf
 from .lu import _not_ported
 from .qr import _larft, _panel_V, _qr_panel_blocked
@@ -98,7 +102,7 @@ def heev(A: TiledMatrix, opts: OptionsLike = None,
         return _heev_two_stage(A, opts, want_vectors, use_dc=True)
     # the reference's spectral D&C runs on a TPU only (eig.py:86); the
     # card is not one, so Auto is the library eigensolver
-    w, v = torch.linalg.eigh(A.to_dense())
+    w, v = library_eigh(A.to_dense())
     order = torch.argsort(w, stable=True)
     w = w[order]
     if not want_vectors:
@@ -338,7 +342,7 @@ def sterf(d, e, opts: OptionsLike = None, device: DeviceLike = None):
     t = torch.diag(d)
     if d.shape[0] > 1:
         t = t + torch.diag(e, 1) + torch.diag(e, -1)
-    return torch.linalg.eigvalsh(t)
+    return library_eigh(t, eigenvectors=False)
 
 
 def steqr2_qr(d: torch.Tensor, e: torch.Tensor,

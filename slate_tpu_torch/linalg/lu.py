@@ -25,8 +25,9 @@ a fixed-shape scan at a dividing width (an XLA program-size device);
 the port runs the same loops at that width. Not ported yet (each
 raises ``NotImplementedError`` naming its ROADMAP item rather than
 taking another route): the grid (mesh) paths.
-gesv_rbt has no resil sentinel (the reference's fallback to gesv on a
-non-finite solution, off by default, comes with resil/).
+gesv_rbt keeps the reference's resil sentinel: with
+``resil.guard.enable_checks()`` a non-finite solution steps down to
+partial-pivot gesv (rung ``rbt_to_getrf``); off by default.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from ..core.options import Option, OptionsLike, get_option
 from ..core.tiles import TiledMatrix, ceil_div, pad_diag_identity
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
+from ..resil import guard as _rguard
 from .blas3 import _store, trsm
 from .blocked import assemble_packed, solve_triangular
 from .info import lu_info
@@ -835,4 +837,15 @@ def gesv_rbt(A: TiledMatrix, B: TiledMatrix, opts: OptionsLike = None,
 
     x = solve_rbt(b)
     x = x + solve_rbt(b - a @ x)        # one refinement step
+    if _rguard.checks_enabled():
+        # the resil ladder's sentinel rung: the no-pivot factor of A'
+        # breaks down with small probability and shows as non-finite
+        # entries in x; step down to partial-pivot gesv instead of
+        # returning them (a host read, hence gated on enable_checks)
+        try:
+            _rguard.check_panel("gesv_rbt", 0, x)
+        except _rguard.PanelHealthError as e:
+            _rguard.record_escalation("rbt_to_getrf", op="gesv_rbt",
+                                      reason=e.reason)
+            return gesv(A, B, opts)
     return F, _store(B, x[:rb.m])

@@ -11,9 +11,10 @@ right-preconditions restarted GMRES with the lo solve.
 
 The reference's ``while_loop``/``cond`` are Python loops here. The
 convergence test is the only host read of a device value: one per
-sweep (IR) or per restart cycle (FGMRES). The reference's obs metrics
-and its resil escalation of a fallback are not ported (ROADMAP.md);
-a fallback shows as an obs instant.
+sweep (IR) or per restart cycle (FGMRES). With obs on, each call counts
+``refine.<kind>.calls``, observes ``refine.<kind>.iters`` and publishes
+one instant; a fallback also counts ``refine.<kind>.fallback`` and
+steps down the resil ladder's ``mixed_to_full`` rung.
 """
 
 from __future__ import annotations
@@ -41,15 +42,24 @@ def lo_dtype(dtype):
 
 
 def _record_refine(kind: str, iters: int) -> None:
-    """One obs instant per refinement call: the sweep count and whether
-    the fallback ran (iters < 0, the reference info convention). No-op
-    with obs off."""
+    """Observability of one refinement call: the call count, the sweep
+    count and the fallback flag (iters < 0 per the reference's info
+    convention, decoded before it is observed), one obs instant, and a
+    fallback through the resil escalation funnel (``mixed_to_full``).
+    No-op with obs off; `iters` is already a host value."""
     from ..obs import events as obs
+    from ..obs import metrics as obs_metrics
     if not obs.enabled():
         return
     sweeps = iters if iters >= 0 else -iters - 1
+    obs_metrics.inc("refine.%s.calls" % kind)
+    obs_metrics.observe("refine.%s.iters" % kind, sweeps)
     obs.instant("refine.%s" % kind, cat="refine", iters=iters,
                 sweeps=sweeps, fallback=iters < 0)
+    if iters < 0:
+        obs_metrics.inc("refine.%s.fallback" % kind)
+        from ..resil.guard import record_escalation
+        record_escalation("mixed_to_full", kind=kind, sweeps=int(sweeps))
 
 
 def iterative_refinement(A: TiledMatrix, B: TiledMatrix,

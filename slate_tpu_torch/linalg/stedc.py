@@ -4,7 +4,7 @@ stedc_{deflate,merge,secular,solve,sort,z_vector}.cc).
 
 The tridiagonal is split into 2^k leaves (padded with decoupled
 sentinels), the leaves are solved by one batched library eigensolver
-(``torch.linalg.eigh``), and each level merges all its equal-size pairs
+(``blocked.library_eigh``), and each level merges all its equal-size pairs
 by the Cuppen rank-one update T = diag(T1', T2') + rho v v^T, batched
 over a leading dimension where the reference vmaps:
 
@@ -35,6 +35,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core.tiles import ceil_div, next_pow2
+from .blocked import library_eigh
 
 #: secular-iteration schedule (the reference's, per type)
 _BISECT_ITERS_F32 = 30
@@ -380,7 +381,7 @@ def stedc_leaves(dblk: torch.Tensor, eblk: torch.Tensor):
     branch."""
     tmat = torch.diag_embed(dblk) + torch.diag_embed(eblk, -1) \
         + torch.diag_embed(eblk, 1)
-    w, V = torch.linalg.eigh(tmat)
+    w, V = library_eigh(tmat)
     order = torch.argsort(w, dim=-1, stable=True)
     return (w.gather(-1, order),
             V.gather(-1, order[:, None, :].expand_as(V)))
@@ -397,7 +398,7 @@ def stedc_solve(d: torch.Tensor, e: torch.Tensor, leaf: int = 32):
         t = torch.diag(d)
         if n > 1:
             t = t + torch.diag(e, -1) + torch.diag(e, 1)
-        w, v = torch.linalg.eigh(t)
+        w, v = library_eigh(t)
         order = torch.argsort(w, stable=True)
         return w[order], v[:, order]
     dp, ep, N, nl = stedc_split(d, e, leaf)

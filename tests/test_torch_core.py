@@ -149,7 +149,8 @@ def test_port_sources_name_no_jax():
     the sources too, the chip scripts' with them."""
     import ast
     files = [os.path.join(REPO, f) for f in (
-        "chip_smoke.py", "chip_compare.py", "chip_gen_band.py")]
+        "chip_smoke.py", "chip_compare.py", "chip_gen_band.py",
+        "chip_eigh_leaves.py")]
     for root, _, names in os.walk(os.path.join(REPO, "slate_tpu_torch")):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     for path in files:
