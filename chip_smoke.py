@@ -259,10 +259,44 @@ script exit non-zero without the final result line:
               everything off, and gesv at n = 16384 (phase 4's route)
               timed with obs off and on, alternately, three each.
               Every other phase must end with guard.counts() empty;
- 21. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+ 21. ooc      the out-of-core stream (linalg/stream.py, ooc.py, sched/;
+              host-resident numpy matrices made on the card from
+              --seed): the engine's transfer pieces on one 2 GiB panel
+              (the host gather into pinned memory, also from never-
+              touched pages, each DMA, a staged upload and writeback);
+              posv_ooc f32 at n = 65536 (8 panels of 8192,
+              64 rhs, S = G G^T / 2048 + I) at budget 0 and at 4 panels
+              (mru, evicting): factors bitwise, backward error <= 1e-6,
+              the transfer counters, walls beside the in-core posv;
+              gesv_ooc at 32768 with its panels on the recursive kernel
+              (incore_nb 512, a tune cache routing pallas_rec up to
+              32768 rows; lu_panel_rec launched exactly as predicted
+              from the panel shapes, _rank_update and compose_swaps
+              launched; getrf_ooc once more with every panel held
+              against the plain version by held_panel, pivots equal to
+              the timed run's) and at the default incore_nb (library
+              panels, pivots equal to the kernel route's), beside the
+              in-core gesv; getrf_tntpiv_ooc + getrs_ooc at
+              a budget of 2 panels (no invalidation); gels_ooc 65536 x
+              16384 (panels of 4096) against the in-core gels (1e-4)
+              and gemm_ooc against torch.matmul (1e-5); posv_ooc and
+              gesv_ooc under bf16 residency at 32768, refined to 1e-6,
+              every revisit and sweep byte staged in bf16 (the H2D bytes
+              equal to the count predicted from the shapes); at 16384
+              (panels of 2048): the graph scheduler bitwise the walk
+              with the watchdog on (nt + 1 heartbeats a call), the
+              fused visits, crash and resume at panel 3 with a
+              checkpoint a panel, one h2d and one d2h fault retried
+              bitwise; tune.autotune(ops=("ooc",)) at 32768 over
+              widths 4096 and 8192 (8192, the default, is the baseline;
+              a persisted winner is another width). Each part ends
+              with guard.counts() empty (the crash runs' checkpoint
+              commits counted and cleared, the planned transfer
+              faults' two retries counted and cleared);
+ 22. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
               n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
-              the heev and
+              posv_ooc at 16384 (panels of 2048), the heev and
               svd QR iterations, once more under torch.profiler: host
               wall, device busy time (the union of the kernel, copy and
               memset intervals of the trace), idle share, the heaviest
@@ -271,7 +305,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 22. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 23. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -469,10 +503,11 @@ def rel_diff(x, ref):
 _TUNE_DIRS = []
 
 
-def fresh_tune_cache(routes=()):
+def fresh_tune_cache(routes=(), top=None):
     """Point the port's tune cache at a new empty directory and put
     method_lu_panel = "pallas_rec" into it for each dtype in `routes`,
-    panel-height buckets 512 ... N."""
+    panel-height buckets 512 ... `top` (default N; the out-of-core LU
+    reaches N_OOC_LU rows)."""
     d = tempfile.TemporaryDirectory(prefix="slate_tpu_torch_tune_")
     _TUNE_DIRS.append(d)
     os.environ["SLATE_TPU_TORCH_TUNE_CACHE"] = d.name
@@ -481,7 +516,7 @@ def fresh_tune_cache(routes=()):
     cache = tcache.get_cache()
     for dtype in routes:
         n = 512
-        while n <= N:
+        while n <= (top or N):
             cache.put("lu_panel", dtype, n, {"method_lu_panel": "pallas_rec"})
             n *= 2
     cache.save()
@@ -617,10 +652,12 @@ def adversarial(dtype, run, plain, shape=(256, 32, 8), bitwise=False):
     return ok, worst, kinds
 
 
-def time_panel(rng, dtype, m, w, run, plain, reps, peak, latency=None):
+def time_panel(rng, dtype, m, w, run, plain, reps, peak, latency=None,
+               held=False):
     """A random (m, w) panel: residual of the kernel's factors, pivots
     against the plain version, and times. `latency`: the latency floor
-    (one exchange between SMs a column unless given)."""
+    (one exchange between SMs a column unless given). `held`: also the
+    held_panel row of the kernel's factors against the plain's."""
     a = torch.as_tensor(rng.standard_normal((m, w), dtype=np.float32),
                         device="cuda").to(dtype)
     kp, kpiv = run(a)
@@ -629,6 +666,7 @@ def time_panel(rng, dtype, m, w, run, plain, reps, peak, latency=None):
     piv_eq = torch.equal(kpiv, ppiv)
     err = float((kp.double() - pp.double()).abs().max()) if piv_eq \
         else None
+    row = held_panel(a, kp, kpiv, pp, ppiv) if held else None
     ms = cuda_ms(lambda: run(a), reps)
     g_ms, g_err = try_graph_ms(lambda: run(a), reps)
     plain_ms = cuda_ms(lambda: plain(a), 1)
@@ -645,7 +683,8 @@ def time_panel(rng, dtype, m, w, run, plain, reps, peak, latency=None):
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "torch.linalg.lu_factor_ex"
                        + (" (f32 upcast)" if dtype != torch.float32 else ""),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            **({"held": row} if held else {})}
 
 
 #: residual limits of a random Gaussian panel. f32: rounding. bf16:
@@ -718,7 +757,10 @@ def phase_lu_panel(rng, results):
 def phase_panel_rec(rng, results):
     """lu_panel_rec: the adversarial suite (m=256, w=32, ib=8), then
     random panels at the main paths' shapes: one dispatch (f32
-    16384x128, bf16 16384x64) and the tall split (16384x512)."""
+    16384x128, bf16 16384x64) and the tall split (16384x512); in f32
+    also the out-of-core LU's tallest panel (N_OOC_LU x 512, split into
+    dispatches of N_OOC_LU x 64), held against the plain version by
+    held_panel (pivots equal or parted at a tie, |L| <= 1)."""
     ok, out = True, {"phase": "kernel.lu_panel_rec"}
     for dname, dtype in DTYPES:
         a_ok, worst, kinds = adversarial(
@@ -728,11 +770,16 @@ def phase_panel_rec(rng, results):
         one = 128 if dtype == torch.float32 else 64
         peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         shapes = {}
-        for m, w in ((N, one), (N, 512)):
+        f32 = dtype == torch.float32
+        for m, w in ((N, one), (N, 512)) + (((N_OOC_LU, 512),) if f32
+                                            else ()):
             s = time_panel(rng, dtype, m, w, pk.lu_panel_rec,
-                           pk.lu_panel_rec_plain, 5 if w == one else 3, peak)
+                           pk.lu_panel_rec_plain, 5 if w == one else 3, peak,
+                           held=m == N_OOC_LU)
             s["split"] = m * w > pk._rec_max_elems(dtype, None)
             ok &= s["residual"] <= RES_LIMIT[dtype]
+            if "held" in s:
+                ok &= s["held"]["ok"]
             shapes[s["shape"]] = s
             if s["max_abs_err"] is not None:
                 worst = max(worst, s["max_abs_err"])
@@ -2921,6 +2968,542 @@ def phase_obs_resil(seed, results, system):
     return out
 
 
+# -- the out-of-core stream (linalg/stream.py, ooc.py, sched/) --------------
+
+#: posv_ooc's size: 8 panels of the frozen width 8192, 17.2 GB of f32 in
+#: host memory; the SPD matrix is S = G G^T / k + I with G of n x k
+N_OOC, W_OOC, K_OOC = 65536, 8192, 2048
+#: the LU, bf16 and tuner runs (4 panels), and the scheduler / fused /
+#: resilience runs (8 panels of 2048)
+N_OOC_LU, N_OOC_SCHED, W_OOC_SCHED = 32768, 16384, 2048
+#: gels_ooc / gemm_ooc: 65536 x 16384, panels of 4096; gemm's B 16384 x
+#: 4096
+GELS_M, GELS_N, GELS_W, GEMM_N = 65536, 16384, 4096, 4096
+OOC_TUNE_CANDIDATES = (4096, 8192)
+#: limits: backward error, gels against the in-core gels, gemm against
+#: torch.matmul (relative)
+OOC_BERR, OOC_GELS, OOC_GEMM = 1e-6, 1e-4, 1e-5
+#: the counters each run prints
+OOC_COUNTERS = ("ooc.h2d_bytes", "ooc.d2h_bytes", "ooc.cache.hits",
+                "ooc.cache.misses", "ooc.cache.evictions",
+                "ooc.cache.served_bytes", "ooc.lu_invalidations",
+                "ooc.cast_demote_bytes", "ooc.prefetch.issued")
+
+
+def ooc_spd(gen, n, k=K_OOC):
+    """S = G G^T / k + I on the card, G (n, k) Gaussian, made exactly
+    symmetric ((S + S^T) / 2), so the refinement's host residual needs
+    no mirrored copy. Eigenvalues in 1 + [0, (1 + sqrt(n / k))^2 k / n
+    ... ]: kappa ~45 at 65536."""
+    g = torch.randn((n, k), generator=gen, device="cuda")
+    s = g @ g.T
+    del g
+    s.div_(k)
+    s.diagonal().add_(1.0)
+    t = s + s.T
+    del s
+    return t.mul_(0.5)
+
+
+def host(t):
+    """A card tensor as a numpy array in host memory."""
+    return t.cpu().numpy()
+
+
+def ooc_berr(a_dev, x, b, rows=8192):
+    """||A X - B||_F / (||A||_F ||X||_F) in f64, A on the card, X and B
+    numpy; A's rows in blocks, so no f64 copy of A is made."""
+    xd = torch.from_numpy(np.ascontiguousarray(x)).cuda().double()
+    bd = torch.from_numpy(np.ascontiguousarray(b)).cuda().double()
+    r2 = a2 = 0.0
+    for i in range(0, a_dev.shape[0], rows):
+        blk = a_dev[i:i + rows].double()
+        r2 += float(((blk @ xd - bd[i:i + rows]) ** 2).sum())
+        a2 += float((blk ** 2).sum())
+    return float(np.sqrt(r2) / (np.sqrt(a2) * float(torch.linalg.norm(xd))))
+
+
+def host_equal(x, y):
+    """Bitwise equality of two host arrays (torch's threaded compare)."""
+    return x.shape == y.shape and torch.equal(torch.from_numpy(x),
+                                              torch.from_numpy(y))
+
+
+def ooc_run(fn):
+    """One out-of-core call with the bus and the flight recorder on:
+    (host wall seconds, result, its counters and the recorder's phase
+    split a driver); the drivers return host arrays, so the wall ends
+    with the card's work."""
+    from slate_tpu_torch.obs import events, ledger, metrics
+    metrics.reset()
+    ledger.reset()
+    events.enable()
+    ledger.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        recs = ledger.records()
+    finally:
+        events.disable()
+        events.clear()
+        ledger.disable()
+        ledger.reset()
+    c = snap["counters"]
+    rep = {k: c.get(k, 0) for k in OOC_COUNTERS}
+    rep.update({k: v for k, v in c.items()
+                if k.startswith("refine.ooc") or k.startswith("ooc.visit")})
+    hist = snap.get("histograms", {})
+    for k in ("ooc.prefetch.overlap_fraction", "ooc.d2h.overlap_fraction",
+              "refine.ooc.iters"):
+        if k in hist:
+            rep[k] = hist[k]
+    # the flight recorder's phase split of the factor's panel steps
+    steps = {}
+    for r in recs:
+        d = steps.setdefault(r.op, {"steps": 0, "wall_s": 0.0})
+        d["steps"] += 1
+        d["wall_s"] += r.wall
+        for ph, t in r.phases.items():
+            d[ph] = d.get(ph, 0.0) + t
+    rep["ledger"] = steps
+    return wall, res, rep
+
+
+def free_card():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ooc_transfers(a, reps=2):
+    """The engine's transfer pieces on one stream panel (rows of a
+    C-ordered host matrix `a`, its first W_OOC columns: N_OOC rows of
+    32 KiB at a stride of 256 KiB): the host gather into pinned memory
+    (also from never-touched zero pages), each direction's DMA, the pinned-to-strided host copy, one staged
+    upload and writeback (stream._Stager) into touched and into
+    fresh (first-touch) host pages, and one 2 GiB pinned allocation;
+    best of `reps`, GB/s of the panel's bytes."""
+    from slate_tpu_torch.linalg import stream
+    view = a[:, :W_OOC]
+    src = torch.from_numpy(view)
+    gb = view.size * 4 / 1e9
+    t0 = time.perf_counter()
+    pin = torch.empty(view.shape, dtype=torch.float32, pin_memory=True)
+    rec = {"pin_alloc_s": time.perf_counter() - t0}
+    dev = torch.empty(view.shape, dtype=torch.float32, device="cuda")
+    stg = stream._Stager(view.size * 4, dev.device)
+    back = np.zeros(view.shape, np.float32)
+
+    def best(fn, reps=reps):
+        t = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t = min(t, time.perf_counter() - t1)
+        return t
+
+    rec["gather_to_pinned_s"] = best(lambda: pin.copy_(src))
+    # the same gather from never-touched zero pages (the upper part of
+    # a fresh host factor, which potrs_ooc's sweeps and the cached
+    # loaders read): one read, since the first maps the pages
+    fresh = np.zeros(view.shape, np.float32)
+    rec["gather_untouched_zeros_s"] = best(
+        lambda: pin.copy_(torch.from_numpy(fresh)), reps=1)
+    del fresh
+    rec["dma_h2d_s"] = best(lambda: dev.copy_(pin, non_blocking=True))
+    rec["dma_d2h_s"] = best(lambda: pin.copy_(dev, non_blocking=True))
+    rec["pinned_to_host_s"] = best(lambda: torch.from_numpy(back).copy_(pin))
+    rec["staged_h2d_s"] = best(lambda: stg.h2d(view))
+    rec["staged_d2h_s"] = best(lambda: stg.d2h(dev, back))
+    rec["staged_d2h_fresh_pages_s"] = best(
+        lambda: stg.d2h(dev, np.zeros(view.shape, np.float32)))
+    rec.update({k[:-2] + "_GBps": gb / v for k, v in list(rec.items())
+                if k != "pin_alloc_s"})
+    del pin, dev, stg, back
+    free_card()
+    return {"panel_gb": gb, **rec}
+
+
+def ooc_posv(seed, out):
+    """Run 1: posv_ooc f32 at N_OOC, budget 0 and 4 panels (mru, must
+    evict): bitwise factors, backward error, beside the in-core posv."""
+    gen = torch.Generator("cuda").manual_seed(seed + 15)
+    A = ooc_spd(gen, N_OOC)
+    B = torch.randn((N_OOC, NRHS), generator=gen, device="cuda")
+    a, b = host(A), host(B)
+    out["transfers"] = ooc_transfers(a)
+    runs, ok = {}, True
+    budget = 4 * N_OOC * W_OOC * 4
+    factors = {}
+    for name, bud in (("budget0", 0), ("budget4", budget)):
+        wall, (L, X), rep = ooc_run(lambda: st.posv_ooc(
+            a, b, panel_cols=W_OOC, cache_budget_bytes=bud))
+        e = ooc_berr(A, X, b)
+        ok &= e <= OOC_BERR and bool(np.isfinite(X).all())
+        runs[name] = {"budget_bytes": bud, "wall_s": wall,
+                      "backward_error": e, **rep}
+        factors[name] = L
+        del X
+    ok &= runs["budget4"]["ooc.cache.evictions"] > 0
+    same = host_equal(factors["budget0"], factors["budget4"])
+    ok &= same
+    del factors
+    # the in-core posv on the same matrix: its tiled copy replaces A on
+    # the card (A, the copy and the factor would not fit beside the
+    # stream's cached blocks)
+    Ah = st.HermitianMatrix(st.Uplo.Lower, A, mb=NB)
+    Bm = st.Matrix(B, mb=NB)
+    del A, B
+    free_card()
+    st.posv(Ah, Bm)
+    torch.cuda.synchronize()
+    wall_in, (_, Xin) = wall_s(lambda: st.posv(Ah, Bm))
+    e_in = ooc_berr(Ah.data, host(Xin.data[:N_OOC, :NRHS]), b)
+    del Ah, Bm, Xin
+    free_card()
+    out["posv_ooc"] = {"n": N_OOC, "panel_cols": W_OOC, "nrhs": NRHS,
+                       "runs": runs, "factors_bitwise": same,
+                       "incore_posv_wall_s": wall_in,
+                       "incore_backward_error": e_in,
+                       "ooc_over_incore": runs["budget0"]["wall_s"]
+                       / wall_in}
+    return ok
+
+
+def ooc_lu(seed, results, out):
+    """Runs 2 and 3: gesv_ooc (partial pivoting) at N_OOC_LU with its
+    panels on the recursive kernel (incore_nb 512, a tune cache routing
+    every height to pallas_rec; lu_panel_rec launched exactly as
+    rec_launches predicts from the panel shapes), getrf_ooc once more
+    with every panel held against lu_panel_rec_plain (held_panels: the
+    permuted boosted system's pivots are plain to see, so its backward
+    error alone would pass a wrong pivot search) and its pivots equal to
+    the timed run's; then at the default incore_nb (1024: the library),
+    pivots equal to the kernel route's, beside the in-core gesv;
+    getrf_tntpiv_ooc + getrs_ooc with a budget of 2 panels."""
+    gen = torch.Generator("cuda").manual_seed(seed + 16)
+    A, B = permuted_boosted_system(gen, N_OOC_LU, NRHS)
+    a, b = host(A), host(B)
+    budget = 2 * N_OOC_LU * W_OOC * 4
+    ok, rec = True, {}
+    fresh_tune_cache([torch.float32], top=N_OOC_LU)
+    pk.reset_launch_counts()
+    wall, ((lu, piv), X), rep = ooc_run(lambda: st.gesv_ooc(
+        a, b, panel_cols=W_OOC, cache_budget_bytes=budget, incore_nb=512))
+    launches = pk.launch_counts()
+    e = ooc_berr(A, X, b)
+    want = sum(rec_launches(m - 512 * i, 512, torch.float32)
+               for k0 in range(0, N_OOC_LU, W_OOC)
+               for m in (N_OOC_LU - k0,) for i in range(W_OOC // 512))
+    ok &= e <= OOC_BERR and launches["lu_panel_rec"] == want > 0 \
+        and launches["rank_update"] > 0 and launches["compose_swaps"] > 0
+    add_phase_launches(results, "ooc.gesv_ooc", launches)
+    rec["gesv_ooc_rec"] = {"incore_nb": 512, "wall_s": wall,
+                           "backward_error": e,
+                           "launches": {k: v for k, v in launches.items()
+                                        if v},
+                           "lu_panel_rec_predicted": want, **rep}
+    del lu, X
+    got = {}
+    held = held_panels(lambda: got.setdefault("f", st.getrf_ooc(
+        a, panel_cols=W_OOC, cache_budget_bytes=budget, incore_nb=512)))
+    calls = (N_OOC_LU // W_OOC) * (W_OOC // 512)
+    heights = held.pop("heights")
+    held["heights"] = {"count": len(heights), "min": min(heights, default=0),
+                       "max": max(heights, default=0)}
+    held["calls_predicted"] = calls
+    held["pivots_equal_timed"] = bool(np.array_equal(got["f"][1], piv))
+    ok &= held["ok"] and held["calls"] == calls \
+        and held["pivots_equal_timed"]
+    rec["gesv_ooc_rec"]["held"] = held
+    del got
+    # the in-core gesv on the same cache (phase gesv's route)
+    Am, Bm = st.Matrix(A, mb=NB), st.Matrix(B, mb=NB)
+    opts = {st.Option.BlockSize: NB}
+    st.gesv(Am, Bm, opts)
+    wall_in, (_, Xin) = wall_s(lambda: st.gesv(Am, Bm, opts))
+    rec["incore_gesv_wall_s"] = wall_in
+    del Am, Bm, Xin
+    free_card()
+    fresh_tune_cache()
+    pk.reset_launch_counts()
+    wall, ((lu, piv2), X), rep = ooc_run(lambda: st.gesv_ooc(
+        a, b, panel_cols=W_OOC, cache_budget_bytes=budget))
+    e = ooc_berr(A, X, b)
+    same = bool(np.array_equal(piv, piv2))
+    ok &= e <= OOC_BERR and same and no_hand_kernel(
+        {k: v for k, v in pk.launch_counts().items()
+         if k in ("lu_panel_rec", "lu_panel")})
+    rec["gesv_ooc_library"] = {"incore_nb": 1024, "wall_s": wall,
+                               "backward_error": e,
+                               "pivots_equal_rec": same, **rep}
+    del lu, X
+    wall, (lu, piv3), rep_f = ooc_run(lambda: st.getrf_tntpiv_ooc(
+        a, panel_cols=W_OOC, cache_budget_bytes=budget))
+    wall2, X, rep_s = ooc_run(lambda: st.getrs_ooc(
+        lu, piv3, b, panel_cols=W_OOC, cache_budget_bytes=budget))
+    e = ooc_berr(A, X, b)
+    ok &= e <= OOC_BERR and rep_f["ooc.lu_invalidations"] == 0 \
+        and rep_f["ooc.cache.hits"] > 0
+    rec["getrf_tntpiv_ooc"] = {"wall_s": wall, "getrs_wall_s": wall2,
+                               "backward_error": e, "factor": rep_f,
+                               "solve": rep_s}
+    del lu, X, A, B
+    free_card()
+    ok &= guard.counts() == {}
+    out["lu"] = {"n": N_OOC_LU, "panel_cols": W_OOC, "nrhs": NRHS,
+                 "budget_bytes": budget, **rec}
+    return ok
+
+
+def ooc_gels(seed, out):
+    """Run 4: gels_ooc at GELS_M x GELS_N (panels of GELS_W) against the
+    in-core gels; gemm_ooc against torch.matmul."""
+    gen = torch.Generator("cuda").manual_seed(seed + 17)
+    A = torch.randn((GELS_M, GELS_N), generator=gen, device="cuda")
+    B = torch.randn((GELS_M, NRHS), generator=gen, device="cuda")
+    a, b = host(A), host(B)
+    wall, (_, X), rep = ooc_run(lambda: st.gels_ooc(a, b,
+                                                    panel_cols=GELS_W))
+    Am, Bm = st.Matrix(A, mb=NB), st.Matrix(B, mb=NB)
+    st.gels(Am, Bm)
+    wall_in, Xin = wall_s(lambda: st.gels(Am, Bm))
+    xin = Xin.data[:GELS_N, :NRHS]
+    d = rel_diff(torch.from_numpy(X).cuda(), xin)
+    ok = d <= OOC_GELS and bool(np.isfinite(X).all())
+    rec = {"m": GELS_M, "n": GELS_N, "panel_cols": GELS_W, "wall_s": wall,
+           "x_rel_diff_incore": d, "incore_gels_wall_s": wall_in, **rep}
+    del Am, Bm, Xin, xin, X, B
+    Bg = torch.randn((GELS_N, GEMM_N), generator=gen, device="cuda")
+    bg = host(Bg)
+    c = np.empty((GELS_M, GEMM_N), np.float32)    # beta 0: never read
+    wall_g, C, rep_g = ooc_run(lambda: st.gemm_ooc(
+        1.0, a, bg, 0.0, c, row_panel=W_OOC))
+    ref = A @ Bg
+    dg = rel_diff(torch.from_numpy(C).cuda(), ref)
+    torch.cuda.synchronize()
+    wall_mm, _ = wall_s(lambda: A @ Bg)
+    ok &= dg <= OOC_GEMM
+    del A, Bg, ref, C
+    free_card()
+    out["gels"] = rec
+    out["gemm"] = {"m": GELS_M, "k": GELS_N, "n": GEMM_N, "wall_s": wall_g,
+                   "rel_diff_matmul": dg, "matmul_wall_s": wall_mm,
+                   **rep_g}
+    return ok
+
+
+def panel_bytes(n, w, item, full=True):
+    """Bytes of the input panels a stream stages: full columns (n x n
+    in all) or potrf's lower rows (rows k0: of each panel)."""
+    if full:
+        return n * n * item
+    return sum((n - k0) * min(w, n - k0) * item for k0 in range(0, n, w))
+
+
+def ooc_bf16(seed, out):
+    """Run 5: bf16 residency at N_OOC_LU: posv_ooc and gesv_ooc
+    (tournament) under precision="bf16", refined by host_ir to the f32
+    backward error; every revisit and solve-sweep byte staged in bf16
+    (exactly half of f32's; the input panels and the rhs stay f32)."""
+    n, w, item = N_OOC_LU, W_OOC, 4
+    gen = torch.Generator("cuda").manual_seed(seed + 18)
+    S = ooc_spd(gen, n)
+    B = torch.randn((n, NRHS), generator=gen, device="cuda")
+    s, b = host(S), host(B)
+    rhs = n * NRHS * item
+    ok, rec = True, {}
+    wall, (_, X), rep = ooc_run(lambda: st.posv_ooc(s, b, panel_cols=w))
+    nt = n // w
+    revisit = sum(k * (n - k * w) * w * item for k in range(nt))
+    f32 = panel_bytes(n, w, item, full=False) + revisit + 2 * n * n * item \
+        + rhs
+    ok &= rep["ooc.h2d_bytes"] == f32
+    rec["posv_f32"] = {"wall_s": wall, "backward_error": ooc_berr(S, X, b),
+                       "h2d_predicted": f32, **rep}
+    wall, (_, X), rep = ooc_run(lambda: st.posv_ooc(
+        s, b, panel_cols=w, precision="bf16"))
+    e = ooc_berr(S, X, b)
+    iters = int(rep["refine.ooc.iters"]["total"])
+    # a bf16 solve: the f32 rhs and two sweeps of n x n bf16 panels;
+    # the first, one a sweep, and host_ir's polish
+    solve = n * n * item + rhs
+    bf16 = panel_bytes(n, w, item, full=False) + revisit // 2 \
+        + (2 + iters) * solve
+    ok &= e <= OOC_BERR and rep["ooc.h2d_bytes"] == bf16
+    rec["posv_bf16"] = {"wall_s": wall, "backward_error": e,
+                        "h2d_predicted": bf16, "sweeps": iters, **rep}
+    del S, X
+    free_card()
+    A, B2 = permuted_boosted_system(gen, n, NRHS)
+    a, b2 = host(A), host(B2)
+    wall, (_, X), rep = ooc_run(lambda: st.gesv_ooc(
+        a, b2, panel_cols=w, precision="bf16"))
+    e = ooc_berr(A, X, b2)
+    iters = int(rep["refine.ooc.iters"]["total"])
+    revisit = sum(k * n * w * item for k in range(nt))
+    f32 = n * n * item + revisit + 2 * n * n * item + rhs
+    bf16 = n * n * item + revisit // 2 + (2 + iters) * (n * n * item + rhs)
+    ok &= e <= OOC_BERR and rep["ooc.h2d_bytes"] == bf16 \
+        and rep["ooc.lu_invalidations"] == 0
+    rec["gesv_bf16"] = {"wall_s": wall, "backward_error": e,
+                        "h2d_predicted": bf16, "h2d_f32_predicted": f32,
+                        "sweeps": iters, **rep}
+    del A, B2, X, B
+    free_card()
+    out["bf16"] = {"n": n, "panel_cols": w, **rec}
+    return ok
+
+
+def ooc_sched(seed, out, system):
+    """Runs 6 and 7 at N_OOC_SCHED, panels of W_OOC_SCHED: the graph
+    route bitwise the walk for potrf / geqrf / getrf_tntpiv (watchdog on:
+    nt + 1 heartbeats a call), the fused visits, crash and resume with a
+    checkpoint a panel, one transient fault each at h2d and d2h."""
+    from slate_tpu_torch.obs import health
+    from slate_tpu_torch.resil import faults
+    n, w = N_OOC_SCHED, W_OOC_SCHED
+    nt = n // w
+    gen = torch.Generator("cuda").manual_seed(seed + 19)
+    S = ooc_spd(gen, n)
+    G, _ = permuted_boosted_system(gen, n, 1)
+    s, g = host(S), host(G)
+    del S, G
+    free_card()
+    system["ooc"] = (s, np.ones((n, NRHS), np.float32))
+    calls = {"potrf_ooc": lambda **kw: (st.potrf_ooc(s, w, **kw),),
+             "geqrf_ooc": lambda **kw: st.geqrf_ooc(g, w, **kw),
+             "getrf_tntpiv_ooc": lambda **kw: st.getrf_tntpiv_ooc(
+                 g, w, **kw)}
+    ok, rec, walk = True, {}, {}
+    health.enable(min_budget_s=60.0)
+    try:
+        for op, call in calls.items():
+            t0 = time.perf_counter()
+            walk[op] = call()
+            t_walk = time.perf_counter() - t0
+            beats = health.stats()["heartbeats"]
+            t0 = time.perf_counter()
+            graph = call(scheduler="graph")
+            t_graph = time.perf_counter() - t0
+            beats = health.stats()["heartbeats"] - beats
+            bit = all(host_equal(x, y) for x, y in zip(walk[op], graph))
+            ok &= bit and beats == nt + 1
+            rec[op] = {"graph_bitwise_walk": bit, "heartbeats": beats,
+                       "walk_s": t_walk, "graph_s": t_graph}
+    finally:
+        health.disable()
+    ok &= not health.thread_alive()
+    rec["watchdog_stopped"] = not health.thread_alive()
+    for op, call in calls.items():
+        fused = call(visit_fuse="fused")
+        if op == "potrf_ooc":
+            d = float(np.abs(fused[0] - walk[op][0]).max()
+                      / np.abs(walk[op][0]).max())
+            good = d <= 1e-5
+        elif op == "geqrf_ooc":
+            d = all(host_equal(x, y) for x, y in zip(fused, walk[op]))
+            good = d
+        else:
+            d = bool(np.array_equal(fused[1], walk[op][1]))
+            good = d
+        ok &= good
+        rec[op]["fused"] = d
+    rec["guard_counts_before_crash_runs"] = guard.counts()
+    ok &= guard.counts() == {}
+    for op in ("potrf_ooc", "getrf_tntpiv_ooc"):
+        with tempfile.TemporaryDirectory(prefix="ooc_ckpt_") as ck:
+            faults.install(faults.FaultPlan(
+                [{"site": "step", "match": {"op": op, "step": 3},
+                  "times": 1}]))
+            try:
+                calls[op](ckpt_path=ck, ckpt_every=1)
+                crashed = False
+            except faults.InjectedFault:
+                crashed = True
+            finally:
+                faults.clear()
+            with open(os.path.join(ck, "meta.json")) as f:
+                epoch = json.load(f)["epoch"]
+            resumed = calls[op](ckpt_path=ck, ckpt_every=1)
+            bit = all(host_equal(x, y) for x, y in zip(resumed, walk[op]))
+            ok &= crashed and epoch == 3 and bit
+            rec[op]["crash_resume"] = {"crashed_at_epoch": epoch,
+                                       "resume_bitwise": bit}
+    # each of the two ops commits each of its nt panels once: 3 before
+    # the crash, the rest after the resume
+    rec["guard_counts_crash_runs"] = guard.counts()
+    ok &= guard.counts() == {"resil.ckpt_commits": 2 * nt}
+    guard.reset_counts()
+    faults.install(faults.FaultPlan(
+        [{"site": "h2d", "match": {"buf": "A"}, "after": 1, "times": 1},
+         {"site": "d2h", "match": {"buf": "L", "idx": 2}, "times": 1}]))
+    try:
+        L = calls["potrf_ooc"](cache_budget_bytes=4 * n * w * 4)[0]
+        plan = faults.active()
+    finally:
+        faults.clear()
+    counts = guard.counts()
+    bit = host_equal(L, walk["potrf_ooc"][0])
+    ok &= bit and counts == {"resil.retries": 2} and plan.fired() == 2
+    rec["transfer_faults"] = {"injections": plan.log(),
+                              "guard_counts": counts, "bitwise": bit}
+    guard.reset_counts()
+    out["sched"] = {"n": n, "panel_cols": w, **rec}
+    return ok
+
+
+def ooc_autotune(out):
+    """Run 8: tune.autotune(ops=("ooc",)) at N_OOC_LU with candidate
+    widths OOC_TUNE_CANDIDATES, best of 2 timed calls each: each width's
+    seconds and the winner. The default width (the frozen 8192, row
+    panel_cols None) is the baseline and is not raced against itself; a
+    persisted winner is another width."""
+    from slate_tpu_torch.linalg.ooc import _panel_cols
+    fresh_tune_cache()
+    default = _panel_cols(None, N_OOC_LU, np.float32)
+    rep = autotune(ops=("ooc",), n=N_OOC_LU, dtype=torch.float32, reps=2,
+                   ooc_candidates=OOC_TUNE_CANDIDATES)
+    chosen = rep["ooc"]["chosen"]
+    out["autotune"] = {"n": N_OOC_LU, "default_width": default,
+                       "chosen": chosen, "results": rep["ooc"]["results"]}
+    fresh_tune_cache()
+    raced = {r["panel_cols"] for r in rep["ooc"]["results"]}
+    return raced == {None} | (set(OOC_TUNE_CANDIDATES) - {default}) \
+        and chosen.get("panel_cols") != default
+
+
+def phase_ooc(seed, results, system):
+    """The out-of-core stream on the card (the module doc's phase
+    21)."""
+    out = {"phase": "ooc"}
+    fresh_tune_cache()
+    ok = True
+    for part in (lambda: ooc_posv(seed, out),
+                 lambda: ooc_lu(seed, results, out),
+                 lambda: ooc_gels(seed, out),
+                 lambda: ooc_bf16(seed, out),
+                 lambda: ooc_sched(seed, out, system),
+                 lambda: ooc_autotune(out)):
+        t0 = time.perf_counter()
+        good = part()
+        out.setdefault("part_seconds", []).append(
+            round(time.perf_counter() - t0, 3))
+        counts = guard.counts()
+        out.setdefault("part_guard_counts", []).append(counts)
+        ok &= bool(good) and counts == {}
+    import resource
+    out["host_peak_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    out["ok"] = bool(ok and guard.counts() == {})
+    return out
+
+
 # -- the eigen / SVD slice: the Givens chain, the QR sweeps, heev, svd ------
 
 #: heev: the largest n at which the reference's single-device steqr2
@@ -3356,9 +3939,10 @@ def phase_profile(system):
     both types), gesv_mixed cold at n = 4096 (its 16 lu_panel
     launches), posv on both routes, gbsv and the f32 hesv of phases
     band and indefinite (f32 recursive panels cached), the square gels,
-    the bf16 gels (its 64 qr_panel launches), and one ragged
+    the bf16 gels (its 64 qr_panel launches), one ragged
     posv flush of the serving stream's first 64 requests (host stacking
-    and copies included)."""
+    and copies included), and posv_ooc at N_OOC_SCHED (panels of
+    W_OOC_SCHED, budget 0: the copies' share of the card's time)."""
     A, B, opts = system["A"], system["B"], system["opts"]
     fresh_tune_cache([torch.float32])
     out = {"phase": "profile", "ok": True,
@@ -3389,6 +3973,9 @@ def phase_profile(system):
     mats, rhss = system["serve_posv"]
     out["batch.ragged_posv"] = profile_call(
         lambda: serve_run("posv", mats, rhss, "ragged"))
+    s_ooc, b_ooc = system["ooc"]
+    out["ooc.posv_ooc"] = profile_call(lambda: st.posv_ooc(
+        s_ooc, b_ooc, panel_cols=W_OOC_SCHED))
     route_chain("steqr2", torch.float32, N_EIG)
     out["heev.qr_iteration"] = profile_call(
         lambda: st.heev(system["eig_A"], system["eig_opts"]))
@@ -3448,6 +4035,7 @@ def main():
         ("svd", lambda: phase_svd(args.seed, results, system)),
         ("spectral_dc", lambda: phase_spectral_dc(args.seed)),
         ("obs.resil", lambda: phase_obs_resil(args.seed, results, system)),
+        ("ooc", lambda: phase_ooc(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:

@@ -27,7 +27,11 @@ the routes to those kernels on the card and persists the winners; and
 observability and resilience (``obs``: events, metrics, the flight
 recorder, request traces, series, the watchdog, the Perfetto export,
 the report; ``resil``: fault injection, retries and the escalation
-ladder, checkpoints).
+ladder, checkpoints); and the out-of-core streams (``posv_ooc``,
+``gesv_ooc``, ``gels_ooc``, ``gemm_ooc`` and their factor / solve
+parts: numpy matrices in host memory streamed through the card a
+column panel at a time, with the residency cache and transfer pipeline
+of ``linalg.stream`` and the task-graph runtime of ``sched``).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -49,7 +53,9 @@ from .core import (BandMatrix, Diag, DimensionError,  # noqa: E402,F401
                    GridOrder, HermitianBandMatrix, HermitianMatrix, Matrix,
                    MatrixType, Norm, NormScope, MethodBatchStrategy,
                    MethodCholQR, MethodEig, MethodFactor, MethodGels,
-                   MethodLU, MethodLUPanel, MethodSVD, Op, Option, Side,
+                   MethodLU, MethodLUPanel, MethodLUPivot, MethodOOC,
+                   MethodPrecision, MethodScheduler, MethodSVD,
+                   MethodVisitFuse, Op, Option, Side,
                    SlateError, SymmetricMatrix, TiledMatrix,
                    TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix,
                    Uplo)
@@ -59,13 +65,16 @@ from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
                      SVDResult, TridiagResult, add, apply_pivots, bdsqr,
                      cholqr, colNorms, copy, eig_vals, gbmm, gbsv, gbtrf,
                      gbtrs, gecondest, ge2tb, gelqf, gemm, gemmA, gemmC,
-                     geqrf, gels, gels_cholqr, gels_qr, gels_tsqr, gesv,
-                     gesv_mixed, gesv_mixed_gmres, gesv_nopiv, gesv_rbt,
-                     gesvd, getrf, getrf_nopiv, getrf_tntpiv, getri,
-                     getriOOP, getrs, hb2st, hbmm, he2hb, heev, hegst,
+                     gemm_ooc, geqrf, geqrf_ooc, gels, gels_cholqr,
+                     gels_ooc, gels_qr, gels_tsqr, gesv, gesv_mixed,
+                     gesv_mixed_gmres, gesv_nopiv, gesv_ooc, gesv_rbt,
+                     gesvd, getrf, getrf_nopiv, getrf_ooc, getrf_tntpiv,
+                     getrf_tntpiv_ooc, getri, getriOOP, getrs, getrs_ooc,
+                     hb2st, hbmm, he2hb, heev, hegst,
                      hegv, hemm, her2k, herk, hesv, hetrf, hetrs, norm,
-                     pbsv, pbtrf, pbtrs, pocondest, posv,
-                     posv_mixed, posv_mixed_gmres, potrf, potri, potrs,
+                     PanelCache, pbsv, pbtrf, pbtrs, pocondest, posv,
+                     posv_mixed, posv_mixed_gmres, posv_ooc, potrf,
+                     potrf_ooc, potri, potrs, potrs_ooc, StreamEngine,
                      qr_multiply_by_q, redistribute, scale,
                      scale_row_col, set, set_entries, stedc,
                      stedc_deflate, stedc_merge, stedc_rotate,
@@ -74,10 +83,12 @@ from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
                      sygv, symm, syr2k, syrk, sysv, sytrf, sytrs, tb2bd,
                      tbsm, tournament_pivot_rows, trcondest, trmm, trsm,
                      trsmA, trsmB, trtri, trtrm, tsqr, unmbr_ge2tb,
-                     unmbr_tb2bd, unmlq, unmqr, unmtr_hb2st, unmtr_he2hb)
+                     unmbr_tb2bd, unmlq, unmqr, unmqr_ooc, unmtr_hb2st,
+                     unmtr_he2hb)
 from .matgen import generate_matrix  # noqa: E402,F401
 from .utils import Timers, print_matrix, sprint_matrix  # noqa: E402,F401
-from . import api, batch, matgen, obs, ops, resil, tune  # noqa: E402,F401
+from . import (api, batch, matgen, obs, ops, resil,  # noqa: E402,F401
+               sched, tune)
 from .api import lapack_compat, simplified  # noqa: E402,F401
 
 __version__ = "0.1.0"

@@ -10,6 +10,8 @@ from .matrix import (BandMatrix, HermitianBandMatrix,  # noqa: F401
                      TriangularMatrix)
 from .methods import (MethodBatchStrategy, MethodCholQR,  # noqa: F401
                       MethodEig, MethodFactor, MethodGels, MethodLU,
-                      MethodLUPanel, MethodSVD)
+                      MethodLUPanel, MethodLUPivot, MethodOOC,
+                      MethodPrecision, MethodScheduler, MethodSVD,
+                      MethodVisitFuse)
 from .options import get_option, get_option_tuned  # noqa: F401
 from .tiles import TiledMatrix, ceil_div, next_pow2, round_up  # noqa: F401

@@ -1,8 +1,10 @@
 """Algorithm-variant selection (counterpart of
 ``slate_tpu/core/methods.py``), reduced to the ported slices: MethodLU,
 MethodFactor, MethodLUPanel, MethodCholQR, MethodGels,
-MethodBatchStrategy, MethodEig, MethodSVD and the shared height-cap
-rule.
+MethodBatchStrategy, the out-of-core streams' MethodOOC,
+MethodPrecision, MethodLUPivot, MethodScheduler and MethodVisitFuse,
+MethodEig, MethodSVD and the shared height-cap rule. (MethodOwnership,
+the sharded stream's, comes with ``dist/``, ROADMAP queue 1, item 10.)
 
 "Native" here means ``torch.linalg.lu_factor`` (LAPACK on the CPU,
 cuSOLVER on the card) where the reference means XLA's LU custom call.
@@ -196,6 +198,147 @@ class MethodBatchStrategy(enum.Enum):
             if m is MethodBatchStrategy.Auto else m
 
 
+class MethodOOC(enum.Enum):
+    """Execution route of the out-of-core streams when a grid is
+    supplied: ``Stream`` (the single-device host <-> device stream,
+    linalg/ooc.py through linalg/stream.py) or ``Sharded`` (the
+    block-cyclic multi-process stream of the reference's
+    dist/shard_ooc.py, which comes with ROADMAP queue 1, item 10).
+    ``Auto`` resolves through the tune cache (``ooc/shard_method``,
+    FROZEN "stream"); a measured "sharded" entry is demoted to Stream
+    below ``ooc/shard_min_panels`` panels per rank."""
+    Auto = "auto"
+    Stream = "stream"
+    Sharded = "sharded"
+
+    @staticmethod
+    def resolve(n: int, nt: int, nranks: int, dtype) -> "MethodOOC":
+        """The tuned / frozen ``ooc/shard_method`` route, demoted to
+        Stream when the panel count cannot give every rank its
+        ``ooc/shard_min_panels`` share; an unknown value from a newer
+        cache demotes to Stream, never an error."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("ooc", str(_resolve(
+                "ooc", "shard_method", n=n, dtype=dtype)))
+        except KeyError:
+            m = MethodOOC.Stream
+        if m is MethodOOC.Sharded:
+            minp = int(_resolve("ooc", "shard_min_panels", n=n,
+                                dtype=dtype))
+            if nt < minp * max(int(nranks), 1):
+                return MethodOOC.Stream
+        return MethodOOC.Stream if m is MethodOOC.Auto else m
+
+    @staticmethod
+    def lookahead(n: int, dtype) -> int:
+        """The sharded stream's broadcast depth (``ooc/shard_lookahead``,
+        FROZEN 0), clamped non-negative; a non-integer entry demotes to
+        0."""
+        from ..tune.select import resolve as _resolve
+        try:
+            return max(int(_resolve("ooc", "shard_lookahead", n=n,
+                                    dtype=dtype)), 0)
+        except (TypeError, ValueError):
+            return 0
+
+
+class MethodPrecision(enum.Enum):
+    """Arithmetic mode of the out-of-core streams: ``Full`` stages and
+    updates in the input dtype; ``Mixed`` keeps the panel FACTOR in the
+    input dtype but stages, caches and multiplies the visiting factor
+    panels in the lo dtype (refine.lo_dtype: bf16 for f32, f32 for
+    f64), and the solves finish with refine.host_ir. ``Auto`` resolves
+    through ``ooc/precision`` (FROZEN "f32")."""
+    Auto = "auto"
+    Full = "f32"
+    Mixed = "bf16"
+
+    @staticmethod
+    def resolve(n: int, dtype) -> "MethodPrecision":
+        """The tuned / frozen ``ooc/precision`` route (an unknown value
+        demotes to Full)."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("precision", str(_resolve(
+                "ooc", "precision", n=n, dtype=dtype)))
+        except KeyError:
+            m = MethodPrecision.Full
+        return MethodPrecision.Full if m is MethodPrecision.Auto else m
+
+
+class MethodLUPivot(enum.Enum):
+    """Pivot discipline of the out-of-core LU: ``Partial`` (pivoting
+    confined to the resident panel, host-side row-swap fixups of the
+    written L panels, which retire the cached ones) or ``Tournament``
+    (CALU selection before the panel is written: immutable factor
+    panels in original row order, no fixups, checkpointable). ``Auto``
+    resolves through ``ooc/lu_pivot`` (FROZEN "partial")."""
+    Auto = "auto"
+    Partial = "partial"
+    Tournament = "tournament"
+
+    @staticmethod
+    def resolve(n: int, dtype) -> "MethodLUPivot":
+        """The tuned / frozen ``ooc/lu_pivot`` route (an unknown value
+        demotes to Partial)."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("lu_pivot", str(_resolve(
+                "ooc", "lu_pivot", n=n, dtype=dtype)))
+        except KeyError:
+            m = MethodLUPivot.Partial
+        return MethodLUPivot.Partial if m is MethodLUPivot.Auto else m
+
+
+class MethodScheduler(enum.Enum):
+    """Issue loop of the out-of-core streams: ``Walk`` (the hand-written
+    panel loops) or ``Graph`` (the same loop bodies as typed nodes of a
+    task graph, issued by sched/runtime.py in an order that is a linear
+    extension of the walk's, so the results are bitwise the walk's).
+    ``Auto`` resolves through ``ooc/scheduler`` (FROZEN "walk")."""
+    Auto = "auto"
+    Walk = "walk"
+    Graph = "graph"
+
+    @staticmethod
+    def resolve(n: int, dtype) -> "MethodScheduler":
+        """The tuned / frozen ``ooc/scheduler`` route (an unknown value
+        demotes to Walk)."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("scheduler", str(_resolve(
+                "ooc", "scheduler", n=n, dtype=dtype)))
+        except KeyError:
+            m = MethodScheduler.Walk
+        return MethodScheduler.Walk if m is MethodScheduler.Auto else m
+
+
+class MethodVisitFuse(enum.Enum):
+    """Update granularity of the out-of-core streams: ``PerPanel`` (one
+    visit a (panel, earlier panel) pair) or ``Fused`` (a panel's whole
+    visit sweep as one update: one wide product for the Cholesky and
+    LU visits, the ordered compact-WY applies of QR in one graph node).
+    ``Auto`` resolves through ``ooc/visit_fuse`` (FROZEN
+    "per_panel")."""
+    Auto = "auto"
+    PerPanel = "per_panel"
+    Fused = "fused"
+
+    @staticmethod
+    def resolve(n: int, dtype) -> "MethodVisitFuse":
+        """The tuned / frozen ``ooc/visit_fuse`` route (an unknown value
+        demotes to PerPanel)."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("visit_fuse", str(_resolve(
+                "ooc", "visit_fuse", n=n, dtype=dtype)))
+        except KeyError:
+            m = MethodVisitFuse.PerPanel
+        return MethodVisitFuse.PerPanel \
+            if m is MethodVisitFuse.Auto else m
+
+
 class MethodEig(enum.Enum):
     """Eigensolver backend: QR iteration vs divide & conquer."""
     Auto = "auto"
@@ -219,7 +362,10 @@ def str2method(family: str, s: str):
     fam = {"lu": MethodLU, "factor": MethodFactor,
            "lu_panel": MethodLUPanel, "cholqr": MethodCholQR,
            "gels": MethodGels, "batch": MethodBatchStrategy,
-           "eig": MethodEig, "svd": MethodSVD}[family]
+           "eig": MethodEig, "svd": MethodSVD, "ooc": MethodOOC,
+           "lu_pivot": MethodLUPivot, "precision": MethodPrecision,
+           "scheduler": MethodScheduler,
+           "visit_fuse": MethodVisitFuse}[family]
     for mem in fam:
         if mem.value.lower() == s.lower() or mem.name.lower() == s.lower():
             return mem

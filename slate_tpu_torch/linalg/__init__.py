@@ -3,7 +3,9 @@ dense LU (partial pivot, CALU, no-pivot, inverse, butterfly),
 Cholesky and QR / least-squares slices and their mixed-precision
 solves, the band LU and Cholesky and the band BLAS, Aasen's
 symmetric-indefinite solver, the norms, condition estimators and
-elementwise aux drivers, the Hermitian eigensolvers and the SVD."""
+elementwise aux drivers, the Hermitian eigensolvers and the SVD, and
+the out-of-core streams (``ooc``: host-resident matrices streamed
+through the card a column panel at a time, on ``stream``'s engine)."""
 
 from .aux import (add, copy, redistribute, scale,  # noqa: F401
                   scale_row_col, set, set_entries)
@@ -24,6 +26,11 @@ from .qr import (LQFactors, QRFactors, cholqr, gelqf,  # noqa: F401
                  geqrf, gels, gels_cholqr, gels_qr, gels_tsqr,
                  qr_multiply_by_q, unmlq, unmqr)
 from .ca import tournament_pivot_rows, tsqr  # noqa: F401
+from .ooc import (gemm_ooc, geqrf_ooc, gels_ooc, gesv_ooc,  # noqa: F401
+                  getrf_ooc, getrf_tntpiv_ooc, getrs_ooc, posv_ooc,
+                  potrf_ooc, potrs_ooc, unmqr_ooc)
+# the streaming engine behind every *_ooc driver (budgets, stats)
+from .stream import PanelCache, StreamEngine  # noqa: F401
 # the stedc module first: importing a submodule binds its name in this
 # package, and the name must end up bound to eig's stedc function
 from .stedc import (stedc_deflate, stedc_merge, stedc_rotate,  # noqa: F401

@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement (counterpart of
-``slate_tpu/linalg/refine.py``), the part the LU slice uses:
-``lo_dtype``, ``iterative_refinement``, ``fgmres_ir``,
-``lo_rhs_solver``.
+``slate_tpu/linalg/refine.py``): ``lo_dtype``,
+``iterative_refinement``, ``fgmres_ir``, ``lo_rhs_solver``, and
+``host_ir``, the out-of-core solves' loop over host-resident operands.
 
 The pattern (reference src/gesv_mixed.cc, gesv_mixed_gmres.cc): factor
 in lo precision (f32 -> bf16, f64 -> f32), refine the hi-precision
@@ -190,6 +190,83 @@ def fgmres_ir(A: TiledMatrix, B: TiledMatrix, solve_lo: Callable,
         iters = -iters - 1
     _record_refine("fgmres", iters)
     return x[:, None], iters
+
+
+def host_ir(op: str, a, b, x, solve_lo: Callable,
+            full_solve: Callable, opts: OptionsLike = None):
+    """Host-loop iterative refinement of the out-of-core mixed solves
+    (posv_ooc / gesv_ooc under ``precision="bf16"``): the factor was
+    computed with lo-precision trailing updates and the solve sweeps
+    stage lo panels, so the first solution `x` is lo-grade; each sweep
+    computes the FULL-precision residual ``b - a @ x`` on the host (the
+    matrix is host-resident at that scale: one host product a sweep, no
+    extra streaming; torch's threaded CPU product) and corrects it with
+    one more lo solve. The stopping rule is iterative_refinement's
+    normwise bound (max|r| <= max|x| * anorm * eps * sqrt(n) at the
+    input dtype's eps), and, as there, one polish sweep follows once it
+    holds (not counted in iters, skipped when MaxIterations is 0): the
+    reference's host loop stops at the bound, which at the out-of-core
+    sizes leaves backward errors near 1e-5 in f32 (ROADMAP queue 3).
+
+    Non-convergence within ``Option.MaxIterations`` is the residual
+    sentinel: the ``mixed_to_full`` rung is recorded through the resil
+    guard funnel (counted with obs off too), BEFORE ``full_solve()``
+    supplies the full-precision answer. Returns (x, iters), iters < 0 on
+    fallback. Numpy in and out. With obs on the loop runs under an
+    ``ooc::refine`` span and publishes ``refine.ooc.calls`` /
+    ``refine.ooc.iters`` (and ``refine.ooc.fallback``)."""
+    import numpy as np
+    from ..obs import events as obs_events
+    from ..obs import metrics as obs_metrics
+    from .stream import _host_tensor
+    itermax = int(get_option(opts, Option.MaxIterations, 30))
+    use_fallback = get_option(opts, Option.UseFallbackSolver, True)
+    at = _host_tensor(np.asarray(a))
+    bt = _host_tensor(np.asarray(b))
+    hi = np.asarray(a).dtype
+    n = at.shape[0]
+    eps = np.finfo(hi).eps
+    anorm = float(at.abs().sum(dim=1).max())
+    cte = anorm * eps * math.sqrt(n)
+
+    def resid(x):
+        return (bt - at @ torch.from_numpy(x)).numpy()
+
+    def converged(x, r):
+        return bool(np.abs(r).max() <= np.abs(x).max() * cte)
+
+    def correct(x, r):
+        return x + np.asarray(solve_lo(r), dtype=hi)
+
+    with obs_events.span("ooc::refine", cat="refine", op=op):
+        x = np.asarray(x, dtype=hi)
+        r = resid(x)
+        it = 0
+        done = converged(x, r)
+        while not done and it < itermax:
+            x = correct(x, r)
+            r = resid(x)
+            it += 1
+            done = converged(x, r)
+        iters = it
+        if itermax > 0 and done:
+            x = correct(x, r)               # the polish sweep
+        if not done and use_fallback:
+            iters = -it - 1
+            # the sentinel goes through the resil funnel BEFORE the
+            # fallback work: a fallback that fails still left it on
+            # record
+            from ..resil.guard import record_escalation
+            record_escalation("mixed_to_full", kind="ooc", op=op,
+                              sweeps=int(it))
+            x = np.asarray(full_solve(), dtype=hi)
+    if obs_events.enabled():
+        obs_metrics.inc("refine.ooc.calls")
+        obs_metrics.observe("refine.ooc.iters",
+                            iters if iters >= 0 else -iters - 1)
+        if iters < 0:
+            obs_metrics.inc("refine.ooc.fallback")
+    return x, iters
 
 
 def lo_rhs_solver(B: TiledMatrix, lo, solver) -> Callable:

@@ -24,8 +24,8 @@ presents as silence. The watchdog turns silence into a signal:
 
 The gate is the FROZEN ``obs/watchdog`` tunable, shipped ``"off"``: a
 cold cache starts no thread. :func:`disable` stops the monitor and
-joins it. The step loops that beat (the streams, the scheduler's
-runtime) come with linalg/stream.py and sched/.
+joins it. The step loops that beat are the out-of-core streams
+(linalg/ooc.py) and the task-graph runtime (sched/runtime.py).
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ a bounded ring of per-step structured records.
 The event bus answers "what spans ran" and the metrics registry "how
 much, in aggregate"; the ledger answers "which step, on which host, in
 which phase, took the wall". Each step of a long-running path (each
-coalesced batch dispatch here; the streams' panel steps come with
-linalg/stream.py) appends one :class:`StepRecord` carrying the step
+coalesced batch dispatch, each panel step of an out-of-core stream,
+linalg/ooc.py) appends one :class:`StepRecord` carrying the step
 index, the owning host, the resume epoch and a per-phase wall
 breakdown over the closed phase set :data:`PHASES`::
 

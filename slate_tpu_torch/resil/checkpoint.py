@@ -19,8 +19,8 @@ resumes mid-factorization instead of restarting:
 
 The cadence rides the tune subsystem: explicit ``every`` > measured
 entry > FROZEN ``resil/ckpt_every`` = 0 (off: no checkpointer, no file
-touched). The drivers that use it (linalg/stream.py, ooc.py) come with
-ROADMAP queue 1, item 9.
+touched). Its callers are the out-of-core factorizations of
+linalg/ooc.py (potrf_ooc, geqrf_ooc, getrf_tntpiv_ooc).
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ injection points threaded through the layers that can fail:
 
 The table mirrors the :data:`SITES` registry, which keeps every row of
 the reference. The port has call sites for ``batch``,
-``batch_submit`` and ``flusher``; the others come with the modules
-that hold them (ROADMAP queue 1, items 9-11).
+``batch_submit``, ``flusher`` (batch/queue.py), ``h2d``, ``d2h``
+(linalg/stream.py) and ``step`` (linalg/ooc.py); the others come with
+the modules that hold them (ROADMAP queue 1, items 10-11).
 
 Plan JSON schema (one object; ``FaultPlan.to_json`` / ``from_json``)::
 

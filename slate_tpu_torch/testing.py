@@ -1,8 +1,8 @@
 """Seeded inputs shared by the tests and ``chip_smoke.py`` (the
 counterpart of the panel helpers in ``tests/test_pallas_rec.py``).
 numpy arrays, so the same inputs can go through both packages;
-``spd_system`` also makes its system on the card from a
-``torch.Generator``. The band and indefinite systems
+``spd_system`` and ``permuted_boosted_system`` also make their systems
+on the card from a ``torch.Generator``. The band and indefinite systems
 (``band_spd_system``, ``band_general_system``, ``indefinite_system``)
 take a seed and an explicit device and make tensors there from a
 ``torch.Generator``: on the card at the paths' size, on the CPU for the
@@ -79,7 +79,15 @@ def permuted_boosted_system(rng, n: int, nrhs: int
     search and row swap does real work, while the condition number
     stays O(1), so solves by different routes agree to a tight
     forward tolerance (a plain Gaussian matrix has a condition number
-    of order n)."""
+    of order n). A torch.Generator makes the same kind of system as
+    tensors on its device (chip_smoke.py's out-of-core runs)."""
+    if isinstance(rng, torch.Generator):
+        dev = rng.device
+        g = torch.randn((n, n), generator=rng, device=dev)
+        g.diagonal().add_(2.0 * float(np.sqrt(n)))
+        a = g[torch.randperm(n, generator=rng, device=dev)]
+        del g
+        return a, torch.randn((n, nrhs), generator=rng, device=dev)
     g = rng.standard_normal((n, n), dtype=np.float32)
     g[np.diag_indices(n)] += np.float32(2.0 * np.sqrt(n))
     a = g[rng.permutation(n)]

@@ -23,9 +23,10 @@ decisions do not depend on them. Probing is never automatic: it runs
 only through :func:`autotune`. The drivers only READ the cache
 (tune/select.py), so a cold start stays probe-free.
 
-Not ported: ``probe_ooc_panel`` waits for the out-of-core slice
-(``linalg/ooc.py``, ROADMAP queue 1); ``autotune(ops=("ooc",))``
-raises ``NotImplementedError``.
+``probe_ooc_panel`` times the streamed Cholesky (linalg/ooc.py) on
+host-resident input at the frozen panel width and at each candidate
+width; ``autotune(ops=("ooc",))`` persists a winner as the
+``ooc/panel_cols`` every streaming driver resolves.
 """
 
 from __future__ import annotations
@@ -235,17 +236,58 @@ def probe_lu_panel(m: int, w: int, dtype, reps: int = 3,
     return sorted(out, key=lambda d: d["seconds"])
 
 
+def probe_ooc_panel(n: int, candidates: Sequence[int], reps: int = 2,
+                    device=None) -> List[Dict]:
+    """Time the streamed Cholesky (potrf_ooc, numpy in and out, so a
+    call ends with its factor on the host) at the frozen default width
+    (entry {"panel_cols": None}, resolved with cached entries bypassed:
+    the cold-cache baseline) and at each candidate panel width: the
+    best of `reps` timed calls after one untimed call. The matrix
+    (_spd, f32) is formed on `device` and copied to host memory: a host
+    product at the sizes this probe is for would take minutes. Fastest
+    first."""
+    from ..linalg.ooc import potrf_ooc
+    from ..obs import events as obs
+    from . import select as _select
+    t0 = time.perf_counter()
+    x, s = _spd(n, torch.float32, device)
+    del x
+    a = s.cpu().numpy()
+    del s
+    out = []
+
+    def timed(cand):
+        best = float("inf")
+        potrf_ooc(a, panel_cols=cand, device=device)     # first call
+        for _ in range(max(reps, 1)):
+            t1 = time.perf_counter()
+            potrf_ooc(a, panel_cols=cand, device=device)
+            best = min(best, time.perf_counter() - t1)
+        return best
+
+    with obs.span("tune::probe::ooc", cat="tune"):
+        with _select.disabled():
+            out.append({"panel_cols": None, "seconds": timed(None)})
+        for cand in candidates:
+            out.append({"panel_cols": int(cand),
+                        "seconds": timed(int(cand))})
+    stats.add_probe_time(time.perf_counter() - t0)
+    return sorted(out, key=lambda d: d["seconds"])
+
+
 def autotune(ops: Iterable[str] = ("getrf", "geqrf"), n: int = 1024,
              dtype=None, nb_candidates: Optional[Sequence[int]] = None,
-             write: bool = True, reps: int = 3, device=None) -> Dict:
+             write: bool = True, reps: int = 3, device=None,
+             ooc_candidates: Optional[Sequence[int]] = None) -> Dict:
     """Probe each op at size n on `device` (the card unless named) and
     (optionally) persist the winners. Returns {op: {"chosen": {...},
     "results": [...]}}. Accepted op names: getrf / geqrf (block size,
     auto-selected by the drivers), potrf (tile-size guidance, ADVISORY:
     see _blocksize_runner), heev (method routing), lu_panel (the
     panel-route method at height n: the library LU vs the column loop vs
-    the hand kernels; n is the panel HEIGHT here). "ooc" raises
-    NotImplementedError until the out-of-core slice is ported.
+    the hand kernels; n is the panel HEIGHT here), ooc (the streaming
+    panel width: the reference's candidates n/8, n/4, n/2 unless
+    `ooc_candidates` names others).
 
     Never-regress contract: every probe measures the driver's own
     default configuration as a baseline candidate, and a winner is
@@ -253,10 +295,6 @@ def autotune(ops: Iterable[str] = ("getrf", "geqrf"), n: int = 1024,
     ("chosen" is empty otherwise), so a probe can never leave the cache
     slower than a cold start."""
     ops = tuple(ops)
-    if "ooc" in ops:
-        from ..linalg.lu import _not_ported
-        raise _not_ported("autotune(ops=('ooc',)) (probe_ooc_panel, "
-                          "with linalg/ooc.py)")
     dtype = _torch_dtype(dtype or torch.float32)
     if nb_candidates is None:
         nb_candidates = [c for c in (64, 128, 256, 512, 1024)
@@ -284,6 +322,22 @@ def autotune(ops: Iterable[str] = ("getrf", "geqrf"), n: int = 1024,
             results = probe_lu_panel(n, w, dtype, reps=reps, device=device)
             chosen = {"method_lu_panel": results[0]["method"]} \
                 if beats_default(results, "method") else {}
+        elif op == "ooc":
+            cands = ooc_candidates
+            if cands is None:
+                cands = [p for p in (max(n // 8, 32), max(n // 4, 64),
+                                     max(n // 2, 128))
+                         if p <= n] or [n]
+            # the default width is measured as the baseline: a
+            # candidate equal to it would only race it against noise
+            from ..linalg.ooc import _panel_cols
+            from . import select as _select
+            with _select.disabled():
+                base = _panel_cols(None, n, dtype)
+            results = probe_ooc_panel(
+                n, sorted(set(cands) - {base}), reps=reps, device=device)
+            chosen = {"panel_cols": results[0]["panel_cols"]} \
+                if beats_default(results, "panel_cols") else {}
         else:
             results = probe_blocksize(op, n, dtype, nb_candidates,
                                       reps=reps, device=device)

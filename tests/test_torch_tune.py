@@ -4,7 +4,8 @@ candidate, both ``autotune``s choose the same winner and persist it
 under the same op, param, dtype name and size bucket, or persist
 nothing (never-regress). Then the port's probe on its own: measure's
 warm-up discipline, a real-timing smoke, the CPU's candidate set, a
-persisted route taken by the driver, and the unported op."""
+persisted route taken by the driver, and the out-of-core panel-width
+probe (probe_ooc_panel, autotune(ops=("ooc",)))."""
 
 import json
 import os
@@ -199,9 +200,74 @@ def test_persisted_fori_reroutes_lu_panel(tune_env, monkeypatch):
     assert calls == []
 
 
-def test_autotune_ooc_not_ported():
-    with pytest.raises(NotImplementedError, match="probe_ooc_panel"):
-        probe.autotune(ops=("ooc",), n=256, device="cpu")
+def test_probe_ooc_panel_cpu():
+    """The streamed-Cholesky probe on the CPU at a small n: the frozen
+    width (8192, one panel here) and each candidate, fastest first."""
+    res = probe.probe_ooc_panel(128, [32, 64], reps=1, device="cpu")
+    assert sorted(r["panel_cols"] or 0 for r in res) == [0, 32, 64]
+    assert [r["seconds"] for r in res] == sorted(r["seconds"]
+                                                 for r in res)
+    assert stats.snapshot()["probe_seconds"] > 0
+
+
+def _ooc_results(seconds, cands):
+    """A probe_ooc_panel stand-in: the default's and each candidate's
+    fixed seconds, fastest first."""
+    def fake(n, candidates, reps=2, device=None):
+        assert list(candidates) == cands
+        out = [{"panel_cols": None, "seconds": seconds[0]}] + [
+            {"panel_cols": int(c), "seconds": t}
+            for c, t in zip(candidates, seconds[1:])]
+        return sorted(out, key=lambda d: d["seconds"])
+    return fake
+
+
+@pytest.mark.parametrize("seconds,expect", [
+    ((1.0, 0.5, 0.9, 1.2), {"panel_cols": 512}),    # n/8 wins
+    ((1.0, 0.99, 1.3, 1.2), {}),                     # within the margin
+])
+def test_autotune_ooc_decides_as_reference(tune_env, monkeypatch,
+                                           seconds, expect):
+    """autotune(ops=("ooc",)) on the reference's candidates (n/8, n/4,
+    n/2): the same winner persisted under the same key as the
+    reference's, or nothing within WIN_MARGIN; a persisted width is
+    what the streaming drivers then resolve."""
+    n = 4096
+    cands = [512, 1024, 2048]
+    monkeypatch.setattr(probe, "probe_ooc_panel",
+                        _ooc_results(seconds, cands))
+    monkeypatch.setattr(jprobe, "probe_ooc_panel",
+                        _ooc_results(seconds, cands))
+    got = probe.autotune(ops=("ooc",), n=n, dtype=torch.float32,
+                         device="cpu")
+    ref = jprobe.autotune(ops=("ooc",), n=n, dtype=np.float32)
+    assert got["ooc"]["chosen"] == ref["ooc"]["chosen"] == expect
+    if expect:
+        assert _entries(got["_cache_path"]) == _entries(ref["_cache_path"])
+        from slate_tpu_torch.linalg import ooc
+        tcache.reset_cache()
+        assert ooc._panel_cols(None, n, np.float32) == 512
+    else:
+        assert not os.path.exists(tcache.cache_path()) \
+            or _entries(tcache.cache_path()) == {}
+
+
+def test_autotune_ooc_never_races_the_default_width(tune_env,
+                                                   monkeypatch):
+    """A candidate equal to the frozen default width (8192) is left out
+    of the probe, which measures that width as its baseline anyway: a
+    width is persisted only when it differs from the default and beat
+    it past WIN_MARGIN, however the two runs of one width fall."""
+    monkeypatch.setattr(probe, "probe_ooc_panel",
+                        _ooc_results((1.0, 1.2), [4096]))
+    got = probe.autotune(ops=("ooc",), n=32768, dtype=torch.float32,
+                         device="cpu", ooc_candidates=(4096, 8192))
+    assert got["ooc"]["chosen"] == {}
+    monkeypatch.setattr(probe, "probe_ooc_panel",
+                        _ooc_results((1.0, 0.5), [4096]))
+    got = probe.autotune(ops=("ooc",), n=32768, dtype=torch.float32,
+                         device="cpu", ooc_candidates=(4096, 8192))
+    assert got["ooc"]["chosen"] == {"panel_cols": 4096}
 
 
 def test_win_margin_is_the_reference_margin():
