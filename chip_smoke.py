@@ -259,7 +259,36 @@ script exit non-zero without the final result line:
               everything off, and gesv at n = 16384 (phase 4's route)
               timed with obs off and on, alternately, three each.
               Every other phase must end with guard.counts() empty;
- 21. ooc      the out-of-core stream (linalg/stream.py, ooc.py, sched/;
+ 21. serve    the serving daemon (serve/) over the batch queue:
+              (1) phase 16's stream as potrf through
+              Server(cache_mb=0) over CoalescingQueue(max_batch=64,
+              max_wait_us=0, ragged), bitwise the same queue driven
+              directly, in turns with it (matrices/s, p50 / p99
+              submit-to-result, the daemon's overhead); (2) bench.py
+              --serve-daemon's repeat stream (4 operators, n = 128,
+              6 rounds of potrf + posv each, bucket) with cache 0 then
+              64 MB: repeat-round dispatches down >= 2x, results bitwise
+              where a round's flushes held the same elements in both
+              runs, else within SERVE_SPLIT_LIMIT (the chainer forces a
+              factor flush as soon as it sees the miss, so round 0's
+              flushes may split); (3) 16 operators at full width (the
+              stream's first 15 SPD requests and its largest, order
+              1024, with their general twins), 8 rounds of posv + gesv
+              (1 rhs), ragged, cache 0 then 256 MB: backward error
+              <= 1e-6, no ragged_potrf / ragged_getrf launch and some
+              ragged_trsm launches in the cache-on repeat rounds,
+              cache on against off as in (2); the cache-off run's
+              launches go beside each kernel (launches_by_phase);
+              (4) drain under one `batch` fault on posv and one
+              `serve_drain` fault: every ticket drained, guard.counts()
+              exactly {"resil.retries": 2}, then cleared; (5) an
+              RpcServer on 127.0.0.1 and an RpcClient: 8 f32 posv and
+              1 bf16 posv bitwise the in-process Server, stats and
+              metrics; (6) request tracing and series on over (2)'s
+              cache-off stream, in turns with them off: bitwise,
+              latency quantiles, the admit / queue-wait / dispatch /
+              solve split, the overhead;
+ 22. ooc      the out-of-core stream (linalg/stream.py, ooc.py, sched/;
               host-resident numpy matrices made on the card from
               --seed): the engine's transfer pieces on one 2 GiB panel
               (the host gather into pinned memory, also from never-
@@ -293,7 +322,7 @@ script exit non-zero without the final result line:
               with guard.counts() empty (the crash runs' checkpoint
               commits counted and cleared, the planned transfer
               faults' two retries counted and cleared);
- 22. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+ 23. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
               n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               posv_ooc at 16384 (panels of 2048), the heev and
@@ -305,7 +334,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 23. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 24. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -2968,6 +2997,391 @@ def phase_obs_resil(seed, results, system):
     return out
 
 
+# -- the serving daemon (serve/) ---------------------------------------------
+
+#: the reference's bench.py --serve-daemon repeat stream: operators of
+#: order DAEMON_N (x x^T + 2 n I, f32, default_rng(7)), rounds of one
+#: potrf and one posv (2 rhs) per operator
+DAEMON_OPS, DAEMON_N, DAEMON_ROUNDS = 4, 128, 6
+#: leg 3: the stream's first REPEAT_OPS - 1 SPD requests and its
+#: largest, their general twins, rounds of one posv and one gesv each
+REPEAT_OPS, REPEAT_ROUNDS = 16, 8
+#: leg 3's cache: every factor of the 16 operators (~20 MB) fits
+REPEAT_CACHE_MB = 256
+#: cache on against cache off where a flush held other elements than
+#: its twin (the kernels may split the work otherwise): relative
+SERVE_SPLIT_LIMIT = 1e-5
+RPC_REQS = 8
+
+
+class LoggedQueue(batch.CoalescingQueue):
+    """The port's queue, logging each dispatch's op and its requests'
+    orders in flush order: which flushes of two runs held the same
+    elements."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.log = []
+
+    def _dispatch(self, key, entries):
+        self.log.append((key[0], tuple(e[3][1] for e in entries)))
+        return super()._dispatch(key, entries)
+
+
+def serve_latencies(tickets, t_sub):
+    """Submit-to-result seconds of each daemon request: the queue
+    ticket's own latency plus the daemon's time before it (admission,
+    routing)."""
+    return sorted(t._inner.latency_s + (t._inner._t_submit - t0)
+                  for t, t0 in zip(tickets, t_sub))
+
+
+def serve_cold(spds):
+    """Leg 1: the stream as potrf through Server(cache_mb=0) over a
+    ragged queue, against the same queue driven directly, in turns
+    (direct, daemon, daemon, direct, three times) after a warm-up of
+    each; the latencies are the last daemon pass's."""
+    def direct():
+        with batch.CoalescingQueue(max_batch=SERVE_BATCH, max_wait_us=0,
+                                   strategy="ragged") as q:
+            ts = [q.submit("potrf", a) for a in spds]
+            q.flush()
+            return [t.result(timeout=120) for t in ts], None
+
+    def daemon():
+        q = batch.CoalescingQueue(max_batch=SERVE_BATCH, max_wait_us=0,
+                                  strategy="ragged")
+        srv = st.serve.Server(queue=q, cache_mb=0)
+        try:
+            ts, t_sub = [], []
+            for a in spds:
+                t_sub.append(time.perf_counter())
+                ts.append(srv.submit("potrf", a))
+            q.flush()
+            outs = [t.result(timeout=120) for t in ts]
+            return outs, serve_latencies(ts, t_sub)
+        finally:
+            srv.close()
+
+    direct()                                                # warm-ups
+    daemon()
+    walls = {"direct": [], "daemon": []}
+    outs = {}
+    for name in ("direct", "daemon", "daemon", "direct") * 3:
+        wall, (o, lats) = wall_s(direct if name == "direct" else daemon)
+        walls[name].append(wall)
+        outs.setdefault(name, o)
+        if lats is not None:
+            daemon_lats = lats
+    n = len(spds)
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(outs["daemon"], outs["direct"]))
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    return {"requests": n, "wall_s": walls,
+            "matrices_per_s": n / med["daemon"],
+            "direct_matrices_per_s": n / med["direct"],
+            "p50_ms": daemon_lats[n // 2] * 1e3,
+            "p99_ms": daemon_lats[min(int(n * 0.99), n - 1)] * 1e3,
+            "overhead_pct": (med["daemon"] / med["direct"] - 1) * 100,
+            "bitwise_direct_queue": bitwise}, bitwise
+
+
+def daemon_stream(rounds, cache_mb, strategy, reqs):
+    """One run of a repeat stream through Server(cache_mb) over a
+    non-background LoggedQueue: per round, every (op, a, b) of
+    `reqs(r)` submitted, then every result. Returns the results per
+    round, the record (walls, dispatches and launches of the whole run
+    and of the repeat rounds 1 ...), the queue's log split by round and
+    the whole run's launch counts."""
+    q = LoggedQueue(background=False, strategy=strategy)
+    srv = st.serve.Server(queue=q, cache_mb=cache_mb)
+    outs, logs = [], []
+    try:
+        torch.cuda.synchronize()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            if r == 1:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                warm = q.stats()["dispatches"]
+                warm_launches = pk.launch_counts()
+            n0 = len(q.log)
+            ts = [srv.submit(op, a, b) for op, a, b in reqs(r)]
+            outs.append([t.result(timeout=120) for t in ts])
+            logs.append(q.log[n0:])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = pk.launch_counts()
+        s = srv.stats()
+    finally:
+        srv.close()
+    n_req = sum(len(o) for o in outs)
+    n_rep = n_req - len(outs[0])
+    return outs, {"wall_s": t2 - t0, "matrices_per_s": n_req / (t2 - t0),
+                  "repeat_wall_s": t2 - t1,
+                  "repeat_matrices_per_s": n_rep / (t2 - t1),
+                  "dispatches_total": s["queue"]["dispatches"],
+                  "dispatches_repeat": s["queue"]["dispatches"] - warm,
+                  "cache": s["cache"], "admission": s["admission"],
+                  "launches": {k: v for k, v in launches.items() if v},
+                  "launches_repeat": {
+                      k: v - warm_launches.get(k, 0)
+                      for k, v in launches.items()
+                      if v - warm_launches.get(k, 0)}}, logs, launches
+
+
+def same_flushes(off_logs, on_logs, full, pairs):
+    """Per round, whether every cache-on flush of a request held the
+    elements of its cache-off twin: the factor flushes of round 0 (the
+    cache's factors) and the round's solve flushes each equal to `full`
+    (the round's requests in order). `pairs`: cache-on factor op ->
+    solve op, for the fused cache-off op."""
+    factors_full = all([s for o, s in on_logs[0] if o == f] == [full]
+                       for f in pairs)
+    return [factors_full and all(
+        [s for o, s in on_logs[r] if o == solve] == [full]
+        for solve in pairs.values()) for r in range(len(on_logs))]
+
+
+def split_compare(off, on, same):
+    """Cache on against cache off, round by round: (bitwise in every
+    round whose flushes held the same elements, the largest relative
+    difference in the other rounds); the gate is both, the second within
+    SERVE_SPLIT_LIMIT."""
+    worst, exact = 0.0, True
+    for r, (ro, rn) in enumerate(zip(off, on)):
+        for a, b in zip(ro, rn):
+            if same[r]:
+                exact &= torch.equal(a, b)
+            else:
+                worst = max(worst, rel(b, a))
+    return bool(exact), worst
+
+
+def serve_daemon_leg():
+    """Leg 2: bench.py --serve-daemon's stream, cache 0 then 64 MB."""
+    rng = np.random.default_rng(7)
+    operators = []
+    for _ in range(DAEMON_OPS):
+        x = rng.standard_normal((DAEMON_N, DAEMON_N)).astype(np.float32)
+        operators.append(x @ x.T + np.float32(2.0 * DAEMON_N)
+                         * np.eye(DAEMON_N, dtype=np.float32))
+    rhss = [rng.standard_normal((DAEMON_N, 2)).astype(np.float32)
+            for _ in range(DAEMON_ROUNDS)]
+
+    def reqs(r):
+        return [x for a in operators
+                for x in (("potrf", a, None), ("posv", a, rhss[r]))]
+
+    for mb in (0, 64):                                      # warm-ups
+        daemon_stream(DAEMON_ROUNDS, mb, "bucket", reqs)
+    off, rec_off, logs_off, _ = daemon_stream(DAEMON_ROUNDS, 0, "bucket",
+                                              reqs)
+    on, rec_on, logs_on, _ = daemon_stream(DAEMON_ROUNDS, 64, "bucket",
+                                           reqs)
+    full = (DAEMON_N,) * DAEMON_OPS
+    same = same_flushes(logs_off, logs_on, full, {"potrf": "potrs"})
+    exact, worst = split_compare(off, on, same)
+    ratio = rec_off["dispatches_repeat"] / max(rec_on["dispatches_repeat"],
+                                               1)
+    rec = {"operators": DAEMON_OPS, "n": DAEMON_N, "rounds": DAEMON_ROUNDS,
+           "cache_off": rec_off, "cache_on": rec_on,
+           "repeat_dispatch_reduction": ratio,
+           "rounds_same_flushes": same, "bitwise_where_same": exact,
+           "max_rel_diff_other_flushes": worst,
+           "limit_other_flushes": SERVE_SPLIT_LIMIT}
+    ok = ratio >= 2.0 and exact and worst <= SERVE_SPLIT_LIMIT
+    return rec, ok, (operators, reqs, off)
+
+
+def serve_repeat_leg(sizes, spds, gens, seed):
+    """Leg 3: 16 operators at the serving band's full width (the
+    stream's first 15 SPD requests and its largest, with their general
+    twins), rounds of one posv and one gesv (1 rhs) each, ragged, cache
+    0 then a cache that holds every factor."""
+    idx = list(range(REPEAT_OPS - 1)) + [int(np.argmax(sizes))]
+    ops = [(spds[i], gens[i]) for i in idx]
+    ns = [sizes[i] for i in idx]
+    rng = np.random.default_rng(seed + 16)
+    rhss = [[rng.standard_normal((n, 1)).astype(np.float32) for n in ns]
+            for _ in range(REPEAT_ROUNDS)]
+
+    def reqs(r):
+        return [("posv", s, b) for (s, _g), b in zip(ops, rhss[r])] \
+            + [("gesv", g, b) for (_s, g), b in zip(ops, rhss[r])]
+
+    for mb in (0, REPEAT_CACHE_MB):                         # warm-ups
+        daemon_stream(REPEAT_ROUNDS, mb, "ragged", reqs)
+    off, rec_off, logs_off, launches_off = daemon_stream(
+        REPEAT_ROUNDS, 0, "ragged", reqs)
+    on, rec_on, logs_on, _ = daemon_stream(
+        REPEAT_ROUNDS, REPEAT_CACHE_MB, "ragged", reqs)
+    berr = 0.0
+    for outs in (off, on):
+        for r, ro in enumerate(outs):
+            for x, (op, a, b) in zip(ro, reqs(r)):
+                berr = max(berr, solve_berr(x, a, b))
+    same = same_flushes(logs_off, logs_on, tuple(ns),
+                        {"potrf": "potrs", "getrf": "getrs"})
+    exact, worst = split_compare(off, on, same)
+    rep = rec_on["launches_repeat"]
+    hits_skip = "ragged_potrf" not in rep and "ragged_getrf" not in rep \
+        and rep.get("ragged_trsm", 0) > 0
+    rec = {"operators": len(ops), "orders": ns, "rounds": REPEAT_ROUNDS,
+           "cache_mb": REPEAT_CACHE_MB, "cache_off": rec_off,
+           "cache_on": rec_on, "max_backward_error": berr,
+           "rounds_same_flushes": same, "bitwise_where_same": exact,
+           "max_rel_diff_other_flushes": worst,
+           "limit_other_flushes": SERVE_SPLIT_LIMIT,
+           "repeat_rounds_skip_factors": hits_skip}
+    ok = berr <= 1e-6 and exact and worst <= SERVE_SPLIT_LIMIT \
+        and hits_skip
+    return rec, ok, launches_off
+
+
+def serve_drain_leg(operators, rhs):
+    """Leg 4: one `batch` fault on posv and one `serve_drain` fault; the
+    retry ladder absorbs both and the drain completes every ticket."""
+    from slate_tpu_torch.resil import faults
+    guard.reset_counts()
+    try:
+        plan = faults.install(faults.FaultPlan([
+            {"site": "batch", "match": {"op": "posv"}, "times": 1},
+            {"site": "serve_drain", "times": 1}]))
+        srv = st.serve.Server(queue=batch.CoalescingQueue(background=False),
+                              cache_mb=0)
+        try:
+            ts = [srv.submit("posv", operators[i % len(operators)], rhs)
+                  for i in range(len(operators))]
+            summary = srv.drain(timeout=120)
+        finally:
+            srv.close()
+        counts = guard.counts()
+        rec = dict(summary, submitted=len(ts), fired=plan.fired(),
+                   guard_counts=counts)
+        ok = summary["drained"] == len(ts) and summary["failed"] == 0 \
+            and plan.fired() == 2 and counts == {"resil.retries": 2}
+        return rec, ok
+    finally:
+        faults.clear()
+        guard.reset_counts()
+
+
+def serve_rpc_leg(spds, seed):
+    """Leg 5: RPC on loopback, 8 f32 posv and 1 bf16 posv, then stats
+    and metrics, against the same requests through the in-process
+    Server (one request a flush in both)."""
+    rng = np.random.default_rng(seed + 5)
+    reqs = [(a, rng.standard_normal((a.shape[0], 1)).astype(np.float32))
+            for a in spds[:RPC_REQS]]
+    a0, b0 = reqs[0]
+    reqs.append((torch.from_numpy(a0).bfloat16(),
+                 torch.from_numpy(b0).bfloat16()))
+
+    def server():
+        return st.serve.Server(queue=batch.CoalescingQueue(
+            background=False, strategy="ragged"), cache_mb=0)
+
+    srv = server()
+    try:
+        ref = [srv.submit("posv", a, b).result(timeout=120)
+               for a, b in reqs]
+    finally:
+        srv.close()
+    srv = server()
+    try:
+        with st.serve.RpcServer(srv, host="127.0.0.1", port=0) as rs, \
+                st.serve.RpcClient(rs.address) as cl:
+            t0 = time.perf_counter()
+            got = [cl.submit("posv", a, b) for a, b in reqs]
+            wall = time.perf_counter() - t0
+            stats = cl.stats()
+            metrics = cl.metrics()
+    finally:
+        srv.close()
+    bitwise = all(torch.equal(g, r) and g.dtype == r.dtype
+                  for g, r in zip(got, ref))
+    rec = {"requests": len(reqs), "wall_s": wall, "bitwise": bitwise,
+           "bf16_dtype": str(got[-1].dtype), "stats_submitted":
+           stats["submitted"], "metrics_chars": len(metrics)}
+    return rec, bitwise and stats["submitted"] == len(reqs)
+
+
+def serve_telemetry_leg(reqs, off):
+    """Leg 6: leg 2's cache-off stream with request tracing and series
+    on, in turns with it off (off, on, on, off): bitwise the untraced
+    run; latency quantiles, the phase split and the overhead (medians)."""
+    from slate_tpu_torch.obs import reqtrace, series
+    walls = {"off": [], "on": []}
+    bitwise = True
+    try:
+        for mode in ("off", "on", "on", "off"):
+            reqtrace.reset()
+            series.reset()
+            for mod in (reqtrace, series):
+                (mod.enable if mode == "on" else mod.disable)()
+            outs, rec, _, _ = daemon_stream(DAEMON_ROUNDS, 0, "bucket",
+                                            reqs)
+            walls[mode].append(rec["wall_s"])
+            bitwise &= all(torch.equal(a, b) for ro, rt in zip(off, outs)
+                           for a, b in zip(ro, rt))
+            if mode == "on":    # the last traced run's numbers
+                lat, split = {}, {}
+                for op in ("potrf", "posv"):
+                    q = series.quantiles("serve.latency_s",
+                                         tenant="default", op=op)
+                    if q:
+                        lat[op] = {k: v * 1e3 for k, v in q.items()}
+                    for ph in ("admit_wait", "queue_wait", "dispatch",
+                               "solve"):
+                        sm = series.summary("serve.%s_s" % ph,
+                                            tenant="default", op=op)
+                        if sm:
+                            split[ph] = split.get(ph, 0.0) \
+                                + sm["sum"] * 1e3
+                spans = reqtrace.count()
+    finally:
+        reqtrace.disable()
+        series.disable()
+        reqtrace.reset()
+        series.reset()
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    rec = {"wall_s": walls, "overhead_pct": (med["on"] / med["off"] - 1)
+           * 100, "latency_ms": lat, "phase_split_ms": split,
+           "spans": spans, "bitwise_untraced": bool(bitwise)}
+    return rec, bitwise and "posv" in lat and len(split) == 4
+
+
+def phase_serve(seed, results):
+    """The serving daemon (serve/) on the card, legs 1-6 (module doc).
+    Leg 4 injects faults: its counts are checked there and cleared, so
+    the phase ends with guard.counts() empty."""
+    sizes, xs, spds = serve_stream(seed, SERVE_REQS)
+    gens = [x / np.float32(np.sqrt(n))
+            + np.float32(2.0 * np.sqrt(n)) * np.eye(n, dtype=np.float32)
+            for n, x in zip(sizes, xs)]
+    out = {"phase": "serve"}
+    ok = True
+    out["cold"], good = serve_cold(spds)
+    ok &= good
+    out["daemon"], good, (operators, reqs, off) = serve_daemon_leg()
+    ok &= good
+    out["repeat"], good, launches = serve_repeat_leg(sizes, spds, gens, seed)
+    ok &= good and all(launches[k] > 0 for k in (
+        "ragged_potrf", "ragged_getrf", "ragged_trsm", "compose_swaps"))
+    add_phase_launches(results, "serve", launches)
+    out["drain"], good = serve_drain_leg(
+        operators, np.ones((DAEMON_N, 2), np.float32))
+    ok &= good
+    out["rpc"], good = serve_rpc_leg(spds, seed)
+    ok &= good
+    out["telemetry"], good = serve_telemetry_leg(reqs, off)
+    ok &= good and guard.counts() == {}
+    out["ok"] = bool(ok)
+    return out
+
+
 # -- the out-of-core stream (linalg/stream.py, ooc.py, sched/) --------------
 
 #: posv_ooc's size: 8 panels of the frozen width 8192, 17.2 GB of f32 in
@@ -4035,6 +4449,7 @@ def main():
         ("svd", lambda: phase_svd(args.seed, results, system)),
         ("spectral_dc", lambda: phase_spectral_dc(args.seed)),
         ("obs.resil", lambda: phase_obs_resil(args.seed, results, system)),
+        ("serve", lambda: phase_serve(args.seed, results)),
         ("ooc", lambda: phase_ooc(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:

@@ -31,7 +31,11 @@ ladder, checkpoints); and the out-of-core streams (``posv_ooc``,
 ``gesv_ooc``, ``gels_ooc``, ``gemm_ooc`` and their factor / solve
 parts: numpy matrices in host memory streamed through the card a
 column panel at a time, with the residency cache and transfer pipeline
-of ``linalg.stream`` and the task-graph runtime of ``sched``).
+of ``linalg.stream`` and the task-graph runtime of ``sched``); the
+serving daemon (``serve``: tenants and admission, a factor cache for
+repeated operators, a socket front end over the batch queue); and the
+LAPACK / ScaLAPACK layout import and export (``core.io`` over the C++
+``native`` layout engine).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -50,17 +54,22 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from .core import (BandMatrix, Diag, DimensionError,  # noqa: E402,F401
-                   GridOrder, HermitianBandMatrix, HermitianMatrix, Matrix,
-                   MatrixType, Norm, NormScope, MethodBatchStrategy,
+                   GridOrder, HermitianBandMatrix, HermitianMatrix, Layout,
+                   Matrix, MatrixType, Norm, NormScope, MethodBatchStrategy,
                    MethodCholQR, MethodEig, MethodFactor, MethodGels,
-                   MethodLU, MethodLUPanel, MethodLUPivot, MethodOOC,
-                   MethodPrecision, MethodScheduler, MethodSVD,
-                   MethodVisitFuse, Op, Option, Side,
-                   SlateError, SymmetricMatrix, TiledMatrix,
+                   MethodGemm, MethodHemm, MethodLU, MethodLUPanel,
+                   MethodLUPivot, MethodOOC, MethodPrecision,
+                   MethodScheduler, MethodSVD, MethodTrsm, MethodVisitFuse,
+                   Op, Option, OptionError, Side, SlateError,
+                   SymmetricMatrix, Target, TiledMatrix, TileKind,
                    TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix,
-                   Uplo)
+                   Uplo, ceil_div, get_option, normalize_options, round_up,
+                   slate_assert, slate_error_if, str2method)
+from .core import (enums, exceptions, matrix, methods,  # noqa: E402,F401
+                   options, tiles)
 from .interop import from_jax_state  # noqa: E402,F401
-from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
+from .linalg import (BidiagResult, Deflation,  # noqa: E402,F401
+                     EigResult, Ge2tbResult,
                      LQFactors, LTLFactors, LUFactors, QRFactors,
                      SVDResult, TridiagResult, add, apply_pivots, bdsqr,
                      cholqr, colNorms, copy, eig_vals, gbmm, gbsv, gbtrf,
@@ -85,10 +94,12 @@ from .linalg import (BidiagResult, EigResult, Ge2tbResult,  # noqa: E402,F401
                      trsmA, trsmB, trtri, trtrm, tsqr, unmbr_ge2tb,
                      unmbr_tb2bd, unmlq, unmqr, unmqr_ooc, unmtr_hb2st,
                      unmtr_he2hb)
+from .linalg import (aux, blas3, blocked, ca, chol,  # noqa: E402,F401
+                     cond, eig, indefinite, lu, norms, ooc, qr, stream)
 from .matgen import generate_matrix  # noqa: E402,F401
 from .utils import Timers, print_matrix, sprint_matrix  # noqa: E402,F401
 from . import (api, batch, matgen, obs, ops, resil,  # noqa: E402,F401
-               sched, tune)
+               sched, serve, tune)
 from .api import lapack_compat, simplified  # noqa: E402,F401
 
 __version__ = "0.1.0"

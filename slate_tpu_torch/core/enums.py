@@ -78,6 +78,23 @@ class Target(enum.Enum):
     Devices = "d"
 
 
+class TileKind(enum.Enum):
+    """Reference Tile.hh:120, kept for API parity: every tile here is
+    storage that PyTorch owns."""
+
+    Workspace = "w"
+    SlateOwned = "o"
+    UserOwned = "u"
+
+
+class Layout(enum.Enum):
+    """Reference layout flag. Storage here is row-major (C-order)
+    tensors; kept so layout-sensitive call sites can assert."""
+
+    ColMajor = "c"
+    RowMajor = "r"
+
+
 class Option(enum.Enum):
     """Typed option keys (reference enums.hh:63-99), the same members
     as the JAX package so one options dict drives both."""

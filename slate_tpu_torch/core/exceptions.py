@@ -19,3 +19,9 @@ def slate_assert(cond: bool, msg: str = "") -> None:
     """Reference slate_assert macro (Exception.hh)."""
     if not cond:
         raise SlateError(msg or "assertion failed")
+
+
+def slate_error_if(cond: bool, msg: str = "") -> None:
+    """Reference slate_error_if macro (Exception.hh)."""
+    if cond:
+        raise SlateError(msg or "error condition")

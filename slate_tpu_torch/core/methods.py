@@ -1,10 +1,12 @@
 """Algorithm-variant selection (counterpart of
-``slate_tpu/core/methods.py``), reduced to the ported slices: MethodLU,
-MethodFactor, MethodLUPanel, MethodCholQR, MethodGels,
+``slate_tpu/core/methods.py``): MethodTrsm, MethodGemm, MethodHemm,
+MethodLU, MethodFactor, MethodLUPanel, MethodCholQR, MethodGels,
 MethodBatchStrategy, the out-of-core streams' MethodOOC,
 MethodPrecision, MethodLUPivot, MethodScheduler and MethodVisitFuse,
 MethodEig, MethodSVD and the shared height-cap rule. (MethodOwnership,
-the sharded stream's, comes with ``dist/``, ROADMAP queue 1, item 10.)
+the sharded stream's, comes with ``dist/``, ROADMAP queue 1, item 10;
+so does the grid SUMMA that ``MethodGemm.Summa`` names, and gemm
+raises on it until then.)
 
 "Native" here means ``torch.linalg.lu_factor`` (LAPACK on the CPU,
 cuSOLVER on the card) where the reference means XLA's LU custom call.
@@ -15,6 +17,48 @@ from __future__ import annotations
 import enum
 
 import torch
+
+
+class MethodTrsm(enum.Enum):
+    """Reference method.hh:27-60: trsmA broadcasts B to A's ranks (better
+    for few RHS); trsmB broadcasts A (better for many RHS)."""
+    Auto = "auto"
+    A = "A"
+    B = "B"
+
+    @staticmethod
+    def select(side_left: bool, a_n: int, b_m: int, b_n: int
+               ) -> "MethodTrsm":
+        # many RHS relative to A's order -> trsmB. The RHS count is
+        # B's columns for Left, B's rows for Right
+        nrhs = b_n if side_left else b_m
+        return MethodTrsm.B if nrhs >= a_n else MethodTrsm.A
+
+
+class MethodGemm(enum.Enum):
+    """Reference method.hh:79: small n (few C columns) -> gemmA.
+    ``Summa`` is the reference's hand-scheduled SUMMA over a grid of
+    devices; it comes with the distributed slice (ROADMAP queue 1, item
+    10), and gemm raises on it until then."""
+    Auto = "auto"
+    A = "A"
+    C = "C"
+    Summa = "summa"
+
+    @staticmethod
+    def select(m: int, n: int, k: int) -> "MethodGemm":
+        return MethodGemm.A if n <= 256 and k >= 4 * n else MethodGemm.C
+
+
+class MethodHemm(enum.Enum):
+    """Reference method.hh:132."""
+    Auto = "auto"
+    A = "A"
+    C = "C"
+
+    @staticmethod
+    def select(m: int, n: int) -> "MethodHemm":
+        return MethodHemm.A if n <= 256 else MethodHemm.C
 
 
 class MethodCholQR(enum.Enum):
@@ -359,7 +403,8 @@ class MethodSVD(enum.Enum):
 
 
 def str2method(family: str, s: str):
-    fam = {"lu": MethodLU, "factor": MethodFactor,
+    fam = {"trsm": MethodTrsm, "gemm": MethodGemm, "hemm": MethodHemm,
+           "lu": MethodLU, "factor": MethodFactor,
            "lu_panel": MethodLUPanel, "cholqr": MethodCholQR,
            "gels": MethodGels, "batch": MethodBatchStrategy,
            "eig": MethodEig, "svd": MethodSVD, "ooc": MethodOOC,

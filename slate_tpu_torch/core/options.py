@@ -54,6 +54,24 @@ _DEFAULTS = {
 }
 
 
+def normalize_options(opts: OptionsLike) -> dict:
+    """Resolve string aliases to Option keys; validate keys."""
+    out: dict = {}
+    if not opts:
+        return out
+    for k, v in opts.items():
+        if isinstance(k, str):
+            kk = _STR_ALIASES.get(k.lower())
+            if kk is None:
+                raise KeyError(f"unknown option {k!r}")
+            out[kk] = v
+        elif isinstance(k, Option):
+            out[k] = v
+        else:
+            raise KeyError(f"unknown option key type {type(k)}")
+    return out
+
+
 def get_option(opts: OptionsLike, key: Option, default: Any = None) -> Any:
     """Reference get_option<T> (types.hh): the requested key or one of
     its string aliases, else `default`, else the registry default."""

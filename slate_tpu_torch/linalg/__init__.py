@@ -33,9 +33,9 @@ from .ooc import (gemm_ooc, geqrf_ooc, gels_ooc, gesv_ooc,  # noqa: F401
 from .stream import PanelCache, StreamEngine  # noqa: F401
 # the stedc module first: importing a submodule binds its name in this
 # package, and the name must end up bound to eig's stedc function
-from .stedc import (stedc_deflate, stedc_merge, stedc_rotate,  # noqa: F401
-                    stedc_secular, stedc_solve, stedc_sort,
-                    stedc_z_vector)
+from .stedc import (Deflation, stedc_deflate, stedc_merge,  # noqa: F401
+                    stedc_rotate, stedc_secular, stedc_solve,
+                    stedc_sort, stedc_z_vector)
 from .eig import (EigResult, TridiagResult, eig_vals,  # noqa: F401
                   he2hb, hb2st, hegst, hegv, heev, sterf, stedc,
                   steqr2, sygv, syev, unmtr_hb2st, unmtr_he2hb)

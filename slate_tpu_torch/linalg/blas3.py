@@ -6,8 +6,10 @@ written back into the output's padded tiled storage. The band routines
 gbmm / hbmm (the batched window product ``band.band_mm`` on a narrow
 band) and tbsm (the windowed band solves, with either pivot
 convention) fall back to gemm / hemm / trsm on a wide band. The
-reference's grid SUMMA route of gemm (``MethodGemm.Summa``) waits for
-the distributed slice.
+reference's grid routes (gemm's ``Option.Grid`` and
+``MethodGemm.Summa``, trsm's ``Option.Grid``) wait for the distributed
+slice (ROADMAP queue 1, item 10): gemm, gemmA, gemmC, trsm, trsmA and
+trsmB raise on them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 
 from ..core.enums import MatrixType, Side, Uplo
 from ..core.exceptions import DimensionError, slate_assert
-from ..core.options import OptionsLike
+from ..core.enums import Option
+from ..core.options import OptionsLike, get_option
 from ..core.tiles import TiledMatrix
 
 
@@ -36,14 +39,31 @@ def _store(C: TiledMatrix, new_logical: torch.Tensor) -> TiledMatrix:
     return dataclasses.replace(r, data=data)
 
 
+def _no_grid(what: str, opts: OptionsLike) -> None:
+    """Raise on a grid of devices: its routes come with item 10."""
+    from .lu import _not_ported
+    if get_option(opts, Option.Grid, None) is not None:
+        raise _not_ported("%s on a grid (mesh) of devices (item 10)"
+                          % what)
+
+
 def gemm(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
          opts: OptionsLike = None) -> TiledMatrix:
     """C := alpha op(A) op(B) + beta C (reference src/gemm.cc:72).
-    Full f32 precision: the package turns TF32 off at import."""
+    Full f32 precision: the package turns TF32 off at import.
+    ``MethodGemm`` A, C and Auto are the one-device product;
+    ``MethodGemm.Summa`` and ``Option.Grid`` raise (module doc)."""
+    from ..core.methods import MethodGemm
+    from .lu import _not_ported
     m, k = A.shape
     k2, n = B.shape
     if k != k2 or C.shape != (m, n):
         raise DimensionError(f"gemm: {A.shape} x {B.shape} -> {C.shape}")
+    _no_grid("gemm", opts)
+    if get_option(opts, Option.MethodGemm, MethodGemm.Auto) \
+            is MethodGemm.Summa:
+        raise _not_ported("gemm's MethodGemm.Summa (the grid SUMMA, "
+                          "item 10)")
     c = alpha * (_logical(A) @ _logical(B)) + beta * _logical(C)
     return _store(C, c)
 
@@ -152,6 +172,7 @@ def trsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
     triangle mask and bakes Diag.Unit ones onto the diagonal, so the
     solve always sees the logical matrix."""
     from .blocked import trsm_dense
+    _no_grid("trsm", opts)
     ra = A.resolve()
     b = _logical(B)
     x = trsm_dense(ra.to_dense(), alpha * b, left=(side is Side.Left),

@@ -31,21 +31,35 @@ import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 SCHEMA_VERSION = 1
 
 _META = "meta.json"
 
 
-def fingerprint(a: np.ndarray, cap: int = 1 << 17) -> str:
+def fingerprint(a, cap: int = 1 << 17) -> str:
     """Cheap input identity: CRC32 of <= `cap` strided samples plus
     the INPUT's shape/dtype — enough to catch "resumed with a
-    different matrix" without hashing gigabytes."""
-    shape, dtype = a.shape, a.dtype
-    s = np.ascontiguousarray(a.reshape(-1)[:: max(a.size // cap, 1)])
-    return "%08x:%s:%s" % (zlib.crc32(s.tobytes()) & 0xFFFFFFFF,
-                           "x".join(map(str, shape)),
-                           np.dtype(dtype).str)
+    different matrix" without hashing gigabytes. `a` is a numpy array
+    or a torch tensor; a tensor of a numpy dtype gives the string of
+    the same numpy array, a bf16 one (which numpy lacks) hashes its
+    bytes through an int16 view and names its dtype ``bfloat16``."""
+    if isinstance(a, torch.Tensor):
+        s = a.detach().reshape(-1)[:: max(a.numel() // cap, 1)] \
+            .contiguous().cpu()
+        if s.dtype == torch.bfloat16:
+            raw, name = s.view(torch.int16).numpy().tobytes(), "bfloat16"
+        else:
+            s = s.numpy()
+            raw, name = s.tobytes(), s.dtype.str
+        shape = tuple(a.shape)
+    else:
+        shape, name = a.shape, np.dtype(a.dtype).str
+        raw = np.ascontiguousarray(
+            a.reshape(-1)[:: max(a.size // cap, 1)]).tobytes()
+    return "%08x:%s:%s" % (zlib.crc32(raw) & 0xFFFFFFFF,
+                           "x".join(map(str, shape)), name)
 
 
 class Checkpointer:

@@ -1,0 +1,513 @@
+"""The serving daemon (counterpart of ``slate_tpu/serve/server.py``).
+
+A persistent multi-tenant serving tier over the batch layer: requests
+enter through :meth:`Server.submit` (in-process; serve/rpc.py adds the
+out-of-process socket framing), are admission-controlled
+(serve/admission.py), optionally served from the fingerprint-keyed
+factor cache (serve/cache.py), and coalesced by the port's
+:class:`~slate_tpu_torch.batch.queue.CoalescingQueue`: the daemon adds
+policy, never a second dispatch path. Requests are numpy arrays or CPU
+torch tensors (numpy goes in through ``torch.from_numpy``, no copy);
+results are CPU torch tensors, as the queue's. ``Server(device=...)``
+passes the device to the queue it owns: the CUDA card unless the
+caller passes ``device="cpu"``.
+
+Factor-cache routing (cache ON, i.e. a nonzero tuned / explicit
+``serve/cache_mb``):
+
+  * ``potrf`` / ``getrf`` requests that HIT return the cached factor at
+    once, zero dispatches, as a ``clone()`` (serve/cache.py: torch has
+    no read-only tensors);
+  * ``posv`` / ``gesv`` requests that HIT go straight to the solve-only
+    dispatch (batch/drivers potrs / getrs, with gesv's pivots applied
+    on the host by an exact gather), which the queue coalesces per
+    solve key; under the ragged strategy the solve-only stream runs
+    ``ragged_trsm`` across sizes, and no factor kernel;
+  * misses submit the factorization ONCE per operator (concurrent misses
+    on the same fingerprint share the pending factor ticket), and a
+    small chainer thread caches the factor and fans the waiting solves
+    out to the queue, where they land in ONE solve bucket. The chainer
+    waits on tickets and submits; a flush its wait forces runs inside
+    the queue's own device context (``CoalescingQueue._device_ctx``),
+    so the thread never makes a card current itself.
+
+Bitwise contract: the split factor + solve-only path gives the fused
+posv / gesv dispatch's bits where both run the same batched cores on
+flushes of the same composition: identity bucket padding keeps the
+padded factor block-diagonal exact, the pivot gather is exact, and the
+triangular solve pair is the fused core's. With ``cache_mb`` 0 (the
+FROZEN row) no cache object exists and every request forwards
+unchanged to the queue: the cold route is bitwise that of direct queue
+use.
+
+Graceful drain: :meth:`drain` stops admission, passes the
+``serve_drain`` fault site through the retry ladder (an injected
+transient fault is absorbed, not fatal), force-flushes the queue, and
+waits every in-flight request out with ``Ticket.result(timeout=)``.
+"""
+
+from __future__ import annotations
+
+import queue as _stdqueue
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..batch.queue import CoalescingQueue
+from ..obs import metrics as _om
+from ..obs import reqtrace as _rt
+from ..resil import faults as _faults
+from ..resil import guard as _guard
+from ..resil.checkpoint import fingerprint
+from ..utils.backend import DeviceLike
+from .admission import (ADMIT, DEGRADE, REJECT, SHED,
+                        AdmissionController)
+from .cache import FactorCache
+
+#: cacheable request op -> (factor family, factor op, solve-only op).
+#: The family scopes the cache key: a posv and a gesv against the
+#: same bytes need DIFFERENT factors.
+CACHED_OPS = {
+    "potrf": ("chol", "potrf", None),
+    "posv": ("chol", "potrf", "potrs"),
+    "getrf": ("lu", "getrf", None),
+    "gesv": ("lu", "getrf", "getrs"),
+}
+
+
+class ServeRejected(RuntimeError):
+    """A request the admission ladder refused (decision ``shed`` or
+    ``reject``) or that arrived while the daemon was draining."""
+
+    def __init__(self, decision: str, tenant: str, op: str,
+                 why: str = "") -> None:
+        self.decision = decision
+        self.tenant = tenant
+        self.op = op
+        super().__init__(
+            "serve request %r (tenant %r) %s%s"
+            % (op, tenant, decision, (": " + why) if why else ""))
+
+
+class ServeTicket:
+    """One admitted request's handle. Resolution is two-stage: the
+    ticket is first BOUND to its final queue ticket (immediately for
+    direct routes; after the shared factor lands for cache misses),
+    then ``result()`` delegates. ``decision`` records the admission
+    outcome ("admit"/"degrade"), ``cache`` the cache outcome
+    ("hit"/"miss"/None when the cache is off or the op uncacheable).
+    A degraded request's result comes back float32 (the degrade
+    contract)."""
+
+    def __init__(self, tenant: str, decision: str,
+                 cache: Optional[str] = None) -> None:
+        self.tenant = tenant
+        self.decision = decision
+        self.cache = cache
+        #: the request's root reqtrace Span (None with tracing off)
+        self.span = None
+        self._bound = threading.Event()
+        self._inner = None          # the final queue Ticket, or None
+        self._value: Any = None
+        self._error: Optional[BaseException] = None
+
+    def _bind(self, ticket) -> None:
+        self._inner = ticket
+        self._bound.set()
+
+    def _resolve(self, value) -> None:
+        self._value = value
+        self._bound.set()
+
+    def _fail(self, e: BaseException) -> None:
+        self._error = e
+        self._bound.set()
+
+    def done(self) -> bool:
+        return self._bound.is_set() and (self._inner is None
+                                         or self._inner.done())
+
+    def result(self, timeout: Optional[float] = None):
+        deadline = None if timeout is None \
+            else time.perf_counter() + timeout
+        if not self._bound.wait(timeout):
+            raise TimeoutError(
+                "serve request (tenant %r) still awaiting its "
+                "factor after %.4gs" % (self.tenant, timeout))
+        if self._error is not None:
+            raise self._error
+        if self._inner is None:
+            return self._value
+        rem = None if deadline is None \
+            else max(deadline - time.perf_counter(), 1e-3)
+        return self._inner.result(rem)
+
+
+class _FactorFuture:
+    """One in-flight factorization (cache-miss dedup): the factor
+    ticket plus every (serve ticket, op, rhs) waiting on it."""
+
+    __slots__ = ("key", "ticket", "waiters", "trace_id")
+
+    def __init__(self, key) -> None:
+        self.key = key
+        self.ticket = None
+        self.waiters: List[Tuple[ServeTicket, str, Any]] = []
+        #: the FIRST miss's trace id (reqtrace): the shared factor
+        #: dispatch runs as a child span of that request
+        self.trace_id: Optional[str] = None
+
+
+class Server:
+    """The serving daemon (module doc). Owns a background
+    CoalescingQueue on `device` unless handed one; use as a context
+    manager or call :meth:`close`."""
+
+    def __init__(self, queue: Optional[CoalescingQueue] = None,
+                 cache_mb: Optional[float] = None,
+                 tenants=None, opts=None,
+                 max_batch: Optional[int] = None,
+                 max_wait_us: Optional[int] = None,
+                 strategy=None, device: DeviceLike = None) -> None:
+        from ..tune.select import tuned_int
+        if queue is None:
+            queue = CoalescingQueue(max_batch=max_batch,
+                                    max_wait_us=max_wait_us,
+                                    opts=opts, background=True,
+                                    strategy=strategy, device=device)
+            self._owns_queue = True
+        else:
+            self._owns_queue = False
+        self._queue = queue
+        mb = float(cache_mb) if cache_mb is not None \
+            else float(tuned_int("serve", "cache_mb", 0, opts=opts))
+        self.cache: Optional[FactorCache] = \
+            FactorCache(mb) if mb > 0 else None
+        self.admission = AdmissionController(queue, tenants=tenants,
+                                             opts=opts)
+        self._lock = threading.Lock()
+        #: tenant -> unresolved ServeTickets (pruned on access)
+        self._inflight: Dict[str, List[ServeTicket]] = {}
+        self._pending_factors: Dict[Any, _FactorFuture] = {}
+        self._submitted = 0
+        self._draining = False
+        self._closed = False
+        self._chain_q: "_stdqueue.Queue" = _stdqueue.Queue()
+        self._chainer: Optional[threading.Thread] = None
+        if self.cache is not None:
+            self._chainer = threading.Thread(
+                target=self._chain_loop, name="serve-chainer",
+                daemon=True)
+            self._chainer.start()
+
+    # -- submission -------------------------------------------------------
+
+    def submit(self, op: str, a, b=None, tenant: str = "default",
+               trace_parent=None) -> ServeTicket:
+        """Admit, route, and enqueue one request. `a`/`b` follow
+        queue.submit's single-problem shapes, numpy arrays or CPU
+        tensors, ingested without a copy (the RPC layer hands tensors
+        over its receive buffers straight through). Raises
+        :class:`ServeRejected` on a shed/reject decision or while
+        draining.
+
+        `trace_parent` (obs/reqtrace.py) continues a caller's trace
+        (the RPC server passes the client header's {"trace", "span"}),
+        so one request shares a single trace_id across the process
+        boundary. With the FROZEN obs/reqtrace row off this is one
+        boolean: no span, no header growth, bitwise results."""
+        if self._closed or self._draining:
+            raise ServeRejected(
+                "reject", tenant, op,
+                "daemon is %s" % ("closed" if self._closed
+                                  else "draining"))
+        _faults.check("serve_admit", tenant=tenant, op=op)
+        a = _ingest(a)
+        # the root span opens BEFORE admission so admit-wait is
+        # inside it; activation makes the trace id visible to the
+        # ladder's escalation payloads on this thread
+        sp = _rt.begin(_rt.REQUEST_SPAN, tenant=tenant, op=op,
+                       parent=trace_parent)
+        t = self.admission.tenant(tenant)
+        t_adm = time.perf_counter() if sp is not None else 0.0
+        with _rt.active(sp):
+            decision = self.admission.admit(
+                t, op, a.dtype, self.tenant_inflight(tenant))
+        if sp is not None:
+            sp.phases["admit_s"] = time.perf_counter() - t_adm
+            sp.args["decision"] = decision
+        if decision in (SHED, REJECT):
+            if sp is not None:
+                sp.finish(outcome=decision)
+            raise ServeRejected(decision, tenant, op)
+        if decision == DEGRADE:
+            a = a.to(torch.float32)
+            if b is not None:
+                b = _ingest(b).to(torch.float32)
+        st = ServeTicket(tenant, decision)
+        st.span = sp
+        with self._lock:
+            self._submitted += 1
+            self._inflight.setdefault(tenant, []).append(st)
+        try:
+            with _rt.active(sp):
+                self._route(st, op, a, b)
+        except BaseException as e:
+            st._fail(e)
+            if sp is not None:
+                sp.finish(error=e)
+            raise
+        return st
+
+    def _route(self, st: ServeTicket, op: str, a, b) -> None:
+        sp = st.span
+        fam = CACHED_OPS.get(op)
+        if self.cache is None or fam is None:
+            # the span rides the queue ticket: Ticket._resolve closes
+            # it from the resolving thread with the full wall split
+            st._bind(self._queue.submit(op, a, b, trace=sp))
+            return
+        family, factor_op, _solve_op = fam
+        _faults.check("serve_cache", op=op)
+        key = (family, fingerprint(a))
+        factors = self.cache.get(
+            key, trace=None if sp is None else sp.trace_id)
+        if factors is not None:
+            st.cache = "hit"
+            _om.inc("serve.cache.hits")
+            if sp is not None:
+                sp.args["cache"] = "hit"
+            self._finish_with_factors(st, op, factors, b)
+            return
+        st.cache = "miss"
+        _om.inc("serve.cache.misses")
+        if sp is not None:
+            sp.args["cache"] = "miss"
+        with self._lock:
+            fut = self._pending_factors.get(key)
+            if fut is None:
+                fut = _FactorFuture(key)
+                self._pending_factors[key] = fut
+                fut.waiters.append((st, op, b))
+                new = True
+            else:
+                fut.waiters.append((st, op, b))
+                new = False
+        if new:
+            # submit OUTSIDE the lock: queue.submit may flush inline.
+            # The shared factor dispatch is a CHILD span of the first
+            # miss (its own closure must not end the request's root —
+            # the root still has the solve ahead of it)
+            if sp is not None:
+                fut.trace_id = sp.trace_id
+            fsp = None if sp is None else sp.child("serve::factor")
+            fut.ticket = self._queue.submit(factor_op, a, trace=fsp)
+            self._chain_q.put(fut)
+
+    def _finish_with_factors(self, st: ServeTicket, op: str,
+                             factors: tuple, b) -> None:
+        """Resolve one request against known factors: factor requests
+        complete at once (zero dispatches) with clones of the cached
+        tensors (serve/cache.py doc); solves go to the queue as
+        solve-only dispatches, which copy the cached factor into their
+        staging pad."""
+        sp = st.span
+        if op == "potrf":
+            st._resolve(factors[0].clone())
+            if sp is not None:      # zero-dispatch path: close here
+                sp.finish(cache=st.cache)
+        elif op == "getrf":
+            st._resolve((factors[0].clone(), factors[1].clone()))
+            if sp is not None:
+                sp.finish(cache=st.cache)
+        elif op == "posv":
+            b = _match_dtype(_ingest(b), factors[0])
+            st._bind(self._queue.submit("potrs", factors[0], b,
+                                        trace=sp))
+        else:                                  # gesv
+            lu, piv = factors
+            bp = _apply_pivots(_match_dtype(_ingest(b), lu), piv)
+            st._bind(self._queue.submit("getrs", lu, bp, trace=sp))
+
+    def _chain_loop(self) -> None:
+        """The factor-completion chainer: waits each pending
+        factorization out (granting the coalescing window a grace
+        before result() force-flushes), caches the factors, and fans
+        the waiting solves out to the queue, where they land in one
+        solve-only bucket (module doc for the device)."""
+        while True:
+            fut = self._chain_q.get()
+            if fut is None:
+                return
+            if self._queue._flusher is not None:
+                fut.ticket._done.wait(
+                    self._queue.max_wait_us / 1e6 + 1e-3)
+            try:
+                raw = fut.ticket.result()
+            except BaseException as e:
+                waiters = self._drop_future(fut)
+                for (st, _op, _b) in waiters:
+                    st._fail(e)
+                    if st.span is not None:
+                        st.span.finish(error=e)
+                continue
+            factors = raw if isinstance(raw, tuple) else (raw,)
+            evicted = self.cache.put(fut.key, factors)
+            if evicted:
+                _om.inc("serve.cache.evictions", evicted)
+            cached = self.cache.peek(fut.key) or factors
+            waiters = self._drop_future(fut)
+            from ..obs import events as _oe
+            if _oe.enabled() and fut.trace_id is not None:
+                _oe.instant("serve::factor_ready", cat="serve",
+                            trace=fut.trace_id,
+                            waiters=len(waiters))
+            for (st, op, b) in waiters:
+                try:
+                    self._finish_with_factors(st, op, cached, b)
+                except BaseException as e:
+                    st._fail(e)
+                    if st.span is not None:
+                        st.span.finish(error=e)
+
+    def _drop_future(self, fut: _FactorFuture) -> list:
+        """Unregister a pending factorization and snapshot its
+        waiters under the lock (a submit racing this either joined
+        the snapshot or will see the cache/miss afresh)."""
+        with self._lock:
+            self._pending_factors.pop(fut.key, None)
+            waiters, fut.waiters = fut.waiters, []
+        return waiters
+
+    # -- bookkeeping ------------------------------------------------------
+
+    def tenant_inflight(self, tenant: str) -> int:
+        """Unresolved requests this tenant has in the daemon (the
+        quota the admission ladder bounds)."""
+        with self._lock:
+            ts = self._inflight.get(tenant)
+            if not ts:
+                return 0
+            live = [t for t in ts if not t.done()]
+            self._inflight[tenant] = live
+            return len(live)
+
+    def pending(self) -> int:
+        with self._lock:
+            tickets = [t for ts in self._inflight.values()
+                       for t in ts]
+        return sum(1 for t in tickets if not t.done())
+
+    def stats(self) -> Dict[str, Any]:
+        """One merged local view (obs-bus-off safe): submissions,
+        admission decision counts, cache counters, and the queue's
+        stats() including the per-key pending breakdown."""
+        return {"submitted": self._submitted,
+                "pending": self.pending(),
+                "admission": self.admission.counts(),
+                "cache": None if self.cache is None
+                else self.cache.stats(),
+                "queue": self._queue.stats()}
+
+    def metrics_text(self) -> str:
+        """The Prometheus text exposition of obs/series.py (empty
+        with the FROZEN serve/metrics row off) — the RPC layer's
+        ``{cmd: "metrics"}`` command serves this."""
+        from ..obs import series as _series
+        return _series.render_prometheus()
+
+    # -- drain / shutdown -------------------------------------------------
+
+    def drain(self, timeout: Optional[float] = None
+              ) -> Dict[str, Any]:
+        """Graceful drain (module doc): stop admitting, absorb any
+        injected ``serve_drain`` fault through the retry ladder,
+        flush the queue, and wait every in-flight ticket out within
+        `timeout`. Returns a summary; re-raises nothing — per-ticket
+        failures are counted and sampled in the summary, the drain
+        itself always completes."""
+        self._draining = True
+        self._drain_guarded()
+        self._queue.flush()
+        deadline = None if timeout is None \
+            else time.perf_counter() + timeout
+        with self._lock:
+            tickets = [t for ts in self._inflight.values()
+                       for t in ts]
+        done = failed = 0
+        errors: List[str] = []
+        for t in tickets:
+            rem = None if deadline is None \
+                else max(deadline - time.perf_counter(), 1e-3)
+            try:
+                t.result(rem)
+                done += 1
+            except BaseException as e:
+                failed += 1
+                if len(errors) < 4:
+                    errors.append(str(e)[:160])
+        return {"drained": done, "failed": failed, "errors": errors}
+
+    def _drain_guarded(self) -> None:
+        """The ``serve_drain`` fault site behind the same ladder as
+        queue dispatches: without a plan it is one attribute load;
+        with one, an injected transient fault is retried within the
+        tuned budget instead of aborting the drain."""
+        def _once():
+            _faults.check("serve_drain", pending=self.pending())
+            return True
+
+        if _faults.active() is not None:
+            _guard.retry(_once, "serve_drain")
+        else:
+            _once()
+
+    def close(self, timeout: Optional[float] = 60.0) -> None:
+        """drain() then release the chainer and (if owned) the
+        queue. Idempotent."""
+        if self._closed:
+            return
+        try:
+            self.drain(timeout=timeout)
+        finally:
+            self._closed = True
+            if self._chainer is not None:
+                self._chain_q.put(None)
+                self._chainer.join(timeout=1.0)
+            if self._owns_queue:
+                self._queue.close()
+
+    def __enter__(self) -> "Server":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _ingest(x) -> torch.Tensor:
+    """A tensor over `x` without a copy: tensors pass through, numpy
+    arrays go in through torch.from_numpy."""
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.asarray(x))
+
+
+def _match_dtype(b: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """Align the rhs dtype with the cached factor's (a degraded or
+    mixed request), so the split solve-only path does not trip the
+    queue's dtype check."""
+    return b if b.dtype == factor.dtype else b.to(factor.dtype)
+
+
+def _apply_pivots(b: torch.Tensor, piv) -> torch.Tensor:
+    """Host-side LAPACK swap-target application (the gesv pre-solve
+    row permutation): row i swaps with row piv[i], in order. An exact
+    gather, so the split getrs path stays bitwise the fused gesv
+    dispatch."""
+    b2 = b[:, None] if b.dim() == 1 else b
+    perm = list(range(b2.shape[0]))
+    for i, p in enumerate(torch.as_tensor(piv).tolist()):
+        perm[i], perm[p] = perm[p], perm[i]
+    return b2[torch.tensor(perm, dtype=torch.long)]
