@@ -288,7 +288,31 @@ script exit non-zero without the final result line:
               cache-off stream, in turns with them off: bitwise,
               latency quantiles, the admit / queue-wait / dispatch /
               solve split, the overhead;
- 22. ooc      the out-of-core stream (linalg/stream.py, ooc.py, sched/;
+ 22. grid     the in-core distribution (parallel/, dist/, the grid
+              routes). Leg A: a world of one rank under NCCL (a file://
+              rendezvous), make_grid(1, 1): gesv and posv at n = 16384
+              on phases gesv's and posv's systems (tiles 512; gesv's
+              panels on lu_panel_rec by phase gesv's tune cache):
+              backward error <= 1e-6, the difference from the one-device
+              X and the wall beside the one-device wall, lu_panel_rec
+              and compose_swaps launched, collectives counted; a bf16
+              grid getrf at 4096 (16 lu_panel launches, factor residual
+              within 2x of the one-device bf16 getrf's); summa_gemm at
+              16384 within 1e-6 of torch.matmul; steqr2_qr_dist at
+              2048 on a seeded tridiagonal with the chain routed to its
+              kernel (bitwise the one-device steqr2_qr, steqr_sweeps and
+              givens_chain_apply launched, no collective) and
+              stedc_solve_dist (within 1e-6 of stedc_solve); gels_tsqr
+              65536 x 512 within 2x of the one-device gels'
+              orthogonality (or 1e-4). Leg B: four ranks on the card
+              under gloo (testing.multiproc.launch, suite "chip" of
+              testing.grid_checks) on a 2 x 2 grid, posv, gesv and
+              SUMMA at 4096: every rank bitwise rank 0, within 1e-5 of
+              the same run on the one-rank grid, each rank's counted
+              trailing-update FLOPs below half the solo run's; a lost
+              or hung rank fails the phase (WorkerLost, the launch
+              timeout);
+ 23. ooc      the out-of-core stream (linalg/stream.py, ooc.py, sched/;
               host-resident numpy matrices made on the card from
               --seed): the engine's transfer pieces on one 2 GiB panel
               (the host gather into pinned memory, also from never-
@@ -322,7 +346,7 @@ script exit non-zero without the final result line:
               with guard.counts() empty (the crash runs' checkpoint
               commits counted and cleared, the planned transfer
               faults' two retries counted and cleared);
- 23. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+ 24. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
               n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               posv_ooc at 16384 (panels of 2048), the heev and
@@ -334,7 +358,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 24. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 25. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -349,6 +373,7 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3382,6 +3407,239 @@ def phase_serve(seed, results):
     return out
 
 
+# -- the in-core distribution (parallel/, dist/, the grid routes) -----------
+
+#: the grid phase's tridiagonal order and tall least-squares shape
+N_GRID_TRI, M_GRID_TS, N_GRID_TS = 2048, 65536, 512
+#: the four-rank leg's launch limit (seconds)
+GRID_LAUNCH_TIMEOUT = 600
+
+
+def grid_timed(fn):
+    """(wall, result, kernel launches, collectives) of fn() after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    c0 = st.collectives.counts()
+    wall, out = wall_s(fn)
+    comms = st.collectives.counts_delta(c0)
+    return wall, out, pk.launch_counts(), {k: v for k, v in comms.items()
+                                           if v}
+
+
+def grid_solves(grid, system, out):
+    """gesv and posv at N on the 1 x 1 NCCL grid against their
+    one-device phases: backward error, the difference from the
+    one-device X, walls side by side. Returns gesv's launches."""
+    o = {st.Option.Grid: grid}
+    fresh_tune_cache([torch.float32])
+    A, B = system["A"], system["B"]
+    wall, (F, X), launches, comms = grid_timed(lambda: st.gesv(A, B, o))
+    e = berr(A, X, B)
+    rec = {"n": N, "nrhs": NRHS, "tiles": NB, "wall_s": wall,
+           "one_device_wall_s": system["wall"], "backward_error": e,
+           "x_rel_diff_one_device": rel_diff(X.data, system["X"].data),
+           "pivots_equal_one_device": torch.equal(F.pivots, system["piv"]),
+           "launches": {k: v for k, v in launches.items() if v},
+           "collectives": comms,
+           "xprof_collectives": st.obs.xprof.collective_counts()}
+    ok = (e <= 1e-6 and launches["lu_panel_rec"] > 0
+          and launches["compose_swaps"] > 0 and sum(comms.values()) > 0
+          and bool(torch.isfinite(X.data).all()))
+    out["gesv"] = rec
+    SA, SB = system["SA"], system["SB"]
+    wall, (L, X), plaunch, comms = grid_timed(lambda: st.posv(SA, SB, o))
+    e = berr(SA, X, SB)
+    out["posv"] = {"n": N, "nrhs": NRHS, "tiles": NB, "wall_s": wall,
+                   "one_device_wall_s": system["posv_wall"],
+                   "backward_error": e,
+                   "x_rel_diff_one_device": rel_diff(X.data,
+                                                     system["SX"].data),
+                   "collectives": comms}
+    ok &= e <= 1e-6 and bool(torch.isfinite(X.data).all())
+    return ok, launches
+
+
+def grid_bf16_getrf(grid, system, out):
+    """A bf16 getrf at N_COLD on the grid: the rank-1 panel kernel on
+    every panel (the bf16 width cap), the factor residual beside the
+    one-device bf16 getrf's."""
+    fresh_tune_cache()
+    A32 = system["cold"][0]
+    A16 = st.Matrix(A32.data.to(torch.bfloat16), mb=NB_COLD,
+                    device=A32.device)
+    a = A32.data[:N_COLD, :N_COLD].to(torch.bfloat16)
+    wall, F, launches, _ = grid_timed(
+        lambda: st.getrf(A16, {st.Option.Grid: grid}))
+    wall1, F1 = wall_s(lambda: st.getrf(A16))
+    res = lu_residual(a, F.LU.data[:N_COLD, :N_COLD], F.pivots[:N_COLD])
+    res1 = lu_residual(a, F1.LU.data[:N_COLD, :N_COLD],
+                       F1.pivots[:N_COLD])
+    out["getrf_bf16"] = {"n": N_COLD, "tiles": NB_COLD, "wall_s": wall,
+                         "one_device_wall_s": wall1, "residual": res,
+                         "one_device_residual": res1,
+                         "lu_panel_launches": launches["lu_panel"]}
+    return launches["lu_panel"] > 0 and res <= max(2.0 * res1, 1e-2), \
+        launches
+
+
+def grid_summa(grid, seed, out):
+    """summa_gemm at N on the 1 x 1 grid against torch.matmul."""
+    gen = torch.Generator("cuda").manual_seed(seed + 17)
+    a = torch.randn((N, N), generator=gen, device="cuda")
+    b = torch.randn((N, N), generator=gen, device="cuda")
+    coll = st.collectives
+    wall, c, _, comms = grid_timed(lambda: coll.summa_gemm(grid, a, b))
+    wall_lib, ref = wall_s(lambda: torch.matmul(a, b))
+    d = rel_diff(c, ref)
+    out["summa"] = {"n": N, "wall_s": wall, "torch_matmul_wall_s": wall_lib,
+                    "rel_diff_matmul": d, "collectives": comms}
+    del a, b, c, ref
+    return d <= 1e-6
+
+
+def grid_tridiagonal(grid, seed, out):
+    """steqr2_qr_dist and stedc_solve_dist at N_GRID_TRI on a seeded
+    tridiagonal: the row-local QR iteration bitwise the one-device
+    steqr2_qr with the chain routed to its kernel (steqr_sweeps and
+    givens_chain_apply launched, no collective), the distributed D&C
+    against the one-device stedc_solve."""
+    d, e = tridiag(np.random.default_rng(seed + 23), N_GRID_TRI)
+    route_chain("steqr2", torch.float32, N_GRID_TRI)
+    pk.reset_launch_counts()
+    c0 = st.collectives.counts()
+    wall, (w2, Z2, info) = wall_s(lambda: st.dist.steqr2_qr_dist(grid, d,
+                                                                e))
+    launches = pk.launch_counts()
+    comms = {k: v for k, v in st.collectives.counts_delta(c0).items()
+             if v}
+    wall1, (w1, Z1, _) = wall_s(lambda: teig.steqr2_qr(d, e))
+    bitwise = torch.equal(w1, w2) and torch.equal(Z1, Z2)
+    fresh_tune_cache()
+    st.stedc_solve(d, e)                      # warm-up
+    walld, (wd, Vd) = wall_s(lambda: st.dist.stedc_solve_dist(grid, d, e))
+    walls, (ws, Vs) = wall_s(lambda: st.stedc_solve(d, e))
+    t = torch.diag(d.double()) + torch.diag(e.double(), 1) \
+        + torch.diag(e.double(), -1)
+    resid = float((t @ Vd.double() - Vd.double() * wd.double()[None])
+                  .abs().max() / t.abs().max())
+    out["steqr2_dist"] = {"n": N_GRID_TRI, "wall_s": wall,
+                          "one_device_wall_s": wall1, "bitwise": bitwise,
+                          "info": int(info), "collectives": comms,
+                          "launches": {k: v for k, v in launches.items()
+                                       if v}}
+    out["stedc_dist"] = {"n": N_GRID_TRI, "wall_s": walld,
+                         "one_device_wall_s": walls,
+                         "w_rel_diff_one_device": rel_diff(wd, ws),
+                         "residual": resid}
+    ok = (bitwise and not comms and launches["steqr_sweep"] > 0
+          and launches["givens_chain_apply"] > 0
+          and rel_diff(wd, ws) <= 1e-6 and resid <= 1e-5)
+    return ok, launches
+
+
+def grid_gels_tsqr(grid, seed, out):
+    """gels_tsqr at M_GRID_TS x N_GRID_TS on the grid beside the
+    one-device gels: the least-squares orthogonality of both."""
+    gen = torch.Generator("cuda").manual_seed(seed + 29)
+    at = torch.randn((M_GRID_TS, N_GRID_TS), generator=gen, device="cuda")
+    bt = torch.randn((M_GRID_TS, NRHS), generator=gen, device="cuda")
+    At = st.Matrix(at, mb=NB, device=at.device)
+    Bt = st.Matrix(bt, mb=NB, device=at.device)
+    wall, X, _, comms = grid_timed(
+        lambda: st.gels_tsqr(At, Bt, {st.Option.Grid: grid}))
+    wall1, X1 = wall_s(lambda: st.gels(At, Bt))
+    orth = ls_orthogonality(at, X.data[:N_GRID_TS, :NRHS], bt)
+    orth1 = ls_orthogonality(at, X1.data[:N_GRID_TS, :NRHS], bt)
+    out["gels_tsqr"] = {"m": M_GRID_TS, "n": N_GRID_TS, "nrhs": NRHS,
+                        "wall_s": wall, "one_device_gels_wall_s": wall1,
+                        "orthogonality": orth,
+                        "one_device_orthogonality": orth1,
+                        "collectives": comms}
+    return orth <= max(2.0 * orth1, 1e-4)
+
+
+def grid_four_ranks(ref1, out):
+    """Leg B: four ranks on the one card under gloo (NCCL refuses two
+    ranks on one GPU), testing.grid_checks suite "chip" on a 2 x 2 grid.
+    Every rank's X bitwise rank 0's, within 1e-5 of the world-size-1
+    result `ref1`, each rank's trailing-update FLOPs below half the
+    solo run's. A lost or hung rank raises (WorkerLost, the launch
+    timeout), failing the phase."""
+    from slate_tpu_torch.testing import grid_checks, multiproc
+    d = tempfile.mkdtemp(prefix="slate_grid_")
+    try:
+        t0 = time.perf_counter()
+        procs, outs = multiproc.launch(
+            "slate_tpu_torch.testing.grid_checks", 4,
+            extra_args=["chip", "--device", "cuda:0", "--backend", "gloo"],
+            outdir=d, timeout=GRID_LAUNCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        multiproc.assert_success(procs, outs)
+        recs = [r["2x2.chip"] for r in grid_checks.load(outs)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    keys = ("posv", "gesv", "piv", "summa")
+    bitwise = all(np.array_equal(recs[0][k], r[k]) for r in recs
+                  for k in keys)
+    diffs = {k: float(np.linalg.norm(recs[0][k] - ref1[k].cpu().numpy())
+                      / np.linalg.norm(ref1[k].cpu().numpy()))
+             for k in ("posv", "gesv", "summa")}
+    share = {op: max(r["flops"][op] for r in recs) / ref1["flops"][op]
+             for op in ("potrf", "getrf")}
+    pivots = bool(np.array_equal(recs[0]["piv"],
+                                 ref1["piv"].cpu().numpy()))
+    out["four_ranks"] = {"grid": "2x2", "backend": "gloo",
+                         "n": grid_checks.CHIP_N,
+                         "tiles": grid_checks.CHIP_NB,
+                         "launch_wall_s": wall, "bitwise_rank0": bitwise,
+                         "rel_diff_world_size_1": diffs,
+                         "pivots_equal_world_size_1": pivots,
+                         "max_rank_flops_share_of_solo": share}
+    return bitwise and pivots and max(diffs.values()) <= 1e-5 \
+        and max(share.values()) < 0.5
+
+
+def phase_grid(seed, results, system):
+    """The in-core distribution on the card. Leg A: a world of one rank
+    under NCCL (file:// rendezvous), make_grid(1, 1): gesv and posv at
+    N beside their one-device phases, a bf16 getrf at N_COLD (lu_panel),
+    summa_gemm at N, steqr2_qr_dist (bitwise, the chain kernels) and
+    stedc_solve_dist at N_GRID_TRI, gels_tsqr at M_GRID_TS x N_GRID_TS,
+    and the 4096 systems of leg B on this one rank. Leg B: four ranks on
+    the card (grid_four_ranks). The group is destroyed at the end."""
+    import torch.distributed as tdist
+    from slate_tpu_torch.testing import grid_checks
+    out = {"phase": "grid"}
+    rdzv = tempfile.mkdtemp(prefix="slate_grid_pg_")
+    tdist.init_process_group("nccl", init_method="file://%s/store" % rdzv,
+                             rank=0, world_size=1)
+    try:
+        grid = st.make_grid(1, 1)
+        out["grid"] = repr(grid)
+        st.collectives.reset_counts()
+        ok, launches = grid_solves(grid, system, out)
+        good, more = grid_bf16_getrf(grid, system, out)
+        ok &= good
+        launches = {k: launches[k] + more[k] for k in launches}
+        ok &= grid_summa(grid, seed, out)
+        good, more = grid_tridiagonal(grid, seed, out)
+        ok &= good
+        launches = {k: launches[k] + more[k] for k in launches}
+        ok &= grid_gels_tsqr(grid, seed, out)
+        fresh_tune_cache()
+        ref1 = grid_checks.chip_run(grid)
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    add_phase_launches(results, "grid", launches)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    ok &= grid_four_ranks(ref1, out)
+    out["ok"] = bool(ok)
+    return out
+
+
 # -- the out-of-core stream (linalg/stream.py, ooc.py, sched/) --------------
 
 #: posv_ooc's size: 8 panels of the frozen width 8192, 17.2 GB of f32 in
@@ -4450,6 +4708,7 @@ def main():
         ("spectral_dc", lambda: phase_spectral_dc(args.seed)),
         ("obs.resil", lambda: phase_obs_resil(args.seed, results, system)),
         ("serve", lambda: phase_serve(args.seed, results)),
+        ("grid", lambda: phase_grid(args.seed, results, system)),
         ("ooc", lambda: phase_ooc(args.seed, results, system)),
         ("profile", lambda: phase_profile(system)))
     try:

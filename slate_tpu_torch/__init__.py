@@ -35,7 +35,12 @@ of ``linalg.stream`` and the task-graph runtime of ``sched``); the
 serving daemon (``serve``: tenants and admission, a factor cache for
 repeated operators, a socket front end over the batch queue); and the
 LAPACK / ScaLAPACK layout import and export (``core.io`` over the C++
-``native`` layout engine).
+``native`` layout engine); and the in-core distribution (``parallel``:
+the p x q process grid over ``torch.distributed``, its collectives and
+the 2D block-cyclic layout; ``dist``: the tree engine, grid TSQR, the
+distributed steqr2 and stedc, the tuning share): the drivers' grid
+routes under ``Option.Grid``, with ``testing.multiproc`` as the
+multi-process launcher.
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -100,6 +105,10 @@ from .matgen import generate_matrix  # noqa: E402,F401
 from .utils import Timers, print_matrix, sprint_matrix  # noqa: E402,F401
 from . import (api, batch, matgen, obs, ops, resil,  # noqa: E402,F401
                sched, serve, tune)
+from . import dist, parallel  # noqa: E402,F401
+from .parallel import (ProcessGrid, collectives,  # noqa: E402,F401
+                       distribute_cyclic, make_grid, mesh, sharding,
+                       single_device_grid, undistribute)
 from .api import lapack_compat, simplified  # noqa: E402,F401
 
 __version__ = "0.1.0"

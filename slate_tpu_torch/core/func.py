@@ -2,11 +2,11 @@
 reference include/slate/func.hh:39-265).
 
 The reference parameterizes tile -> rank and tile -> device maps with
-lambdas; the defaults are 2D block-cyclic grids. On one device these
-functions serve API parity: a user can ask which grid coordinate owns
-a tile. The distributed slice (ROADMAP queue 1, item 10) will build
-its process groups' layouts from them. Pure Python, the same maps as
-the reference's.
+lambdas; the defaults are 2D block-cyclic grids. A user can ask which
+grid coordinate owns a tile; ``parallel.ProcessGrid.tile_rank_func``
+gives a grid's map, and the grid drivers' owner-computes loops
+(``parallel/owner.py``) divide their work by the same 2D block-cyclic
+rule. Pure Python, the same maps as the reference's.
 """
 
 from __future__ import annotations

@@ -1,9 +1,29 @@
-"""The distributed core (counterpart of ``slate_tpu/dist/``), so far
-only the remap-record mirror of ``elastic.py`` that the serving
-daemon's admission ladder reads. The tree engine, the mesh TSQR and
-eigensolvers, the tuning share (ROADMAP queue 1, item 10a), the
-sharded out-of-core stream and the elastic schedule (item 10b) are not
-ported yet.
+"""The distributed core (counterpart of ``slate_tpu/dist/``):
+algorithms whose communication schedule is itself the algorithm, the
+capability the reference builds on MPI rank trees (ttqrt binary
+reduction, geqrf.cc:161; rank-parallel stedc, stedc_solve.cc:97-171;
+row-local dsteqr2.f):
+
+  tree.py      - log-depth pairwise / grouped combine engine and the
+                 row-local apply shape
+  tsqr.py      - grid TSQR (chunk QR, tree R-combine, implicit-Q apply)
+  stedc.py     - distributed Cuppen divide & conquer
+  steqr2.py    - row-local QR-iteration transform accumulation
+  tuneshare.py - rank 0's tuning-table broadcast and best-entry merge
+  elastic.py   - the remap-record mirror the serving daemon's admission
+                 ladder reads
+
+Consumers: qr.gels_tsqr and the grid geqrf's tall-skinny route,
+eig.stedc and eig.steqr2 on a grid, testing.multiproc.startup. The
+sharded out-of-core stream (``shard_ooc.py``) and the elastic schedule
+are ROADMAP queue 1, item 10b.
 """
 
+from . import elastic, stedc, steqr2, tree, tsqr, tuneshare  # noqa: F401
 from .elastic import remap_records, reset_remap_records  # noqa: F401
+from .steqr2 import steqr2_qr_dist       # noqa: F401
+from .stedc import stedc_solve_dist      # noqa: F401
+from .tsqr import tsqr as tsqr_mesh      # noqa: F401
+from .tsqr import tsqr_qt                # noqa: F401
+from .tree import row_apply, tree_combine  # noqa: F401
+from .tuneshare import share_tuning_table  # noqa: F401

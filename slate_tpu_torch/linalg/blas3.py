@@ -5,11 +5,17 @@ one dense op on the logical matrix (``to_dense`` applies the structure),
 written back into the output's padded tiled storage. The band routines
 gbmm / hbmm (the batched window product ``band.band_mm`` on a narrow
 band) and tbsm (the windowed band solves, with either pivot
-convention) fall back to gemm / hemm / trsm on a wide band. The
-reference's grid routes (gemm's ``Option.Grid`` and
-``MethodGemm.Summa``, trsm's ``Option.Grid``) wait for the distributed
-slice (ROADMAP queue 1, item 10): gemm, gemmA, gemmC, trsm, trsmA and
-trsmB raise on them.
+convention) fall back to gemm / hemm / trsm on a wide band.
+
+Under ``Option.Grid`` (a ``parallel.ProcessGrid``), gemm's Auto is
+owner-computes: each rank forms its tiles of C (C's 2D block-cyclic
+map), and the tiles are gathered, so every rank gets all of C; a
+measured tune entry can promote it to SUMMA, as the reference's
+(blas3.py:63-73). ``MethodGemm.Summa`` runs
+``parallel.collectives.summa_gemm`` on the padded operands' local
+blocks (m and n padded to multiples of p*q, k by ``pad_k``), then
+gathers C. Without a grid, Summa is the one-device product. trsm runs
+the reference's blocked grid loop (``blocked._trsm_left_grid``).
 """
 
 from __future__ import annotations
@@ -39,33 +45,62 @@ def _store(C: TiledMatrix, new_logical: torch.Tensor) -> TiledMatrix:
     return dataclasses.replace(r, data=data)
 
 
-def _no_grid(what: str, opts: OptionsLike) -> None:
-    """Raise on a grid of devices: its routes come with item 10."""
-    from .lu import _not_ported
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("%s on a grid (mesh) of devices (item 10)"
-                          % what)
+def _gemm_summa(alpha, a: torch.Tensor, b: torch.Tensor, beta,
+                c: torch.Tensor, grid) -> torch.Tensor:
+    """MethodGemm.Summa on a grid (reference blas3.py:74-88): m and n
+    padded to multiples of p*q, k by pad_k, the per-step SUMMA on the
+    local blocks, C gathered."""
+    from ..core.tiles import round_up
+    from ..parallel import collectives as coll
+    from ..parallel.sharding import assemble, local_block
+    m, n = c.shape
+    pq = grid.p * grid.q
+    mp, np_ = round_up(max(m, 1), pq), round_up(max(n, 1), pq)
+    a, b = coll.pad_k(grid, a, b)
+    ap = torch.nn.functional.pad(a, (0, 0, 0, mp - m))
+    bp = torch.nn.functional.pad(b, (0, np_ - n))
+    blk = coll.summa_gemm(grid, local_block(grid, ap),
+                          local_block(grid, bp))
+    prod = assemble(grid, blk, (mp, np_))[:m, :n]
+    return alpha * prod + beta * c
 
 
 def gemm(alpha, A: TiledMatrix, B: TiledMatrix, beta, C: TiledMatrix,
          opts: OptionsLike = None) -> TiledMatrix:
     """C := alpha op(A) op(B) + beta C (reference src/gemm.cc:72).
     Full f32 precision: the package turns TF32 off at import.
-    ``MethodGemm`` A, C and Auto are the one-device product;
-    ``MethodGemm.Summa`` and ``Option.Grid`` raise (module doc)."""
+    ``MethodGemm`` A, C, Auto and Summa are the one-device product; on
+    a grid, Auto is owner-computes and Summa the SUMMA schedule (module
+    doc)."""
     from ..core.methods import MethodGemm
-    from .lu import _not_ported
+    from ..parallel.mesh import option_grid
     m, k = A.shape
     k2, n = B.shape
     if k != k2 or C.shape != (m, n):
         raise DimensionError(f"gemm: {A.shape} x {B.shape} -> {C.shape}")
-    _no_grid("gemm", opts)
-    if get_option(opts, Option.MethodGemm, MethodGemm.Auto) \
-            is MethodGemm.Summa:
-        raise _not_ported("gemm's MethodGemm.Summa (the grid SUMMA, "
-                          "item 10)")
-    c = alpha * (_logical(A) @ _logical(B)) + beta * _logical(C)
-    return _store(C, c)
+    grid = option_grid(opts, "gemm")
+    if grid is None:
+        c = alpha * (_logical(A) @ _logical(B)) + beta * _logical(C)
+        return _store(C, c)
+    method = get_option(opts, Option.MethodGemm, MethodGemm.Auto)
+    if method is MethodGemm.Auto:
+        from ..tune.select import tuned_method
+        from ..parallel.collectives import agree
+        cached = tuned_method("gemm", "gemm", opts=opts,
+                              option=Option.MethodGemm, n=min(m, n),
+                              dtype=C.dtype)
+        # the route decides the grid's collectives: grid rank 0's
+        if agree(grid, cached is MethodGemm.Summa)[0]:
+            method = MethodGemm.Summa
+    a, b, c = _logical(A), _logical(B), _logical(C)
+    if method is MethodGemm.Summa:
+        return _store(C, _gemm_summa(alpha, a, b, beta, c, grid))
+    # owner-computes: this rank's tiles of C (its block-cyclic rows and
+    # columns), then a gather over the grid
+    from ..parallel import owner as own
+    r = C.resolve()
+    o = own.Owner(grid, tuple(c.shape), r.mb, r.nb, c.device)
+    return _store(C, own.product(o, a, b, alpha, beta, c))
 
 
 def gemmA(alpha, A, B, beta, C, opts=None, **kw):
@@ -171,12 +206,13 @@ def trsm(side: Side, alpha, A: TiledMatrix, B: TiledMatrix,
     A triangular (reference src/trsm.cc). to_dense applies the
     triangle mask and bakes Diag.Unit ones onto the diagonal, so the
     solve always sees the logical matrix."""
+    from ..parallel.mesh import option_grid
     from .blocked import trsm_dense
-    _no_grid("trsm", opts)
-    ra = A.resolve()
-    b = _logical(B)
-    x = trsm_dense(ra.to_dense(), alpha * b, left=(side is Side.Left),
-                   lower=ra.uplo is Uplo.Lower, nb=ra.nb)
+    grid = option_grid(opts, "trsm")
+    ra, rb = A.resolve(), B.resolve()
+    x = trsm_dense(ra.to_dense(), alpha * _logical(B),
+                   left=(side is Side.Left), lower=ra.uplo is Uplo.Lower,
+                   nb=ra.nb, grid=grid, tiles=(rb.mb, rb.nb))
     return _store(B, x)
 
 

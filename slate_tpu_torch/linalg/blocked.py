@@ -11,18 +11,30 @@ diagonal-block Cholesky is :func:`chol_diag_factor` over
 ``torch.linalg.cholesky_ex``, the counterpart of XLA's ``cholesky``;
 the Hermitian eigensolver is :func:`library_eigh` over
 ``torch.linalg.eigh``, the counterpart of XLA's ``eigh``.
-The reference's grid (SPMD) paths wait for the distributed slice.
 Where the reference updates slices functionally, the loops here update
 a copy of the input in place (same values).
+
+Under a grid (``grid=``, a ``parallel.ProcessGrid``) the reference keeps
+its invert-then-matmul numerics: the triangular solve loop of
+``trsm_left`` and the Cholesky panel ``B L^{-H}`` as a product with the
+diagonal block's inverse (``_chol_panel_solve``'s grid branch). The
+port runs them as owner-computes loops (``parallel/owner.py``): per
+block step the current panel is gathered, the owner of the diagonal
+tile factors / inverts and broadcasts, and each rank updates only the
+tiles the 2D block-cyclic map gives it (``chol_loop_grid``,
+``_trsm_left_grid``). Every finished row block of X and column of L
+reaches every rank by that broadcast, so the result is the same on
+every rank, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from ..core.tiles import ceil_div, round_up
+from ..parallel import owner as _own
 
 #: block order up to which one direct solve against the identity is
 #: the inversion leaf; larger blocks recurse on halves
@@ -124,10 +136,17 @@ def solve_temps_bytes(other: int, tri: int, itemsize: int) -> int:
 
 
 def trsm_left(a: torch.Tensor, b: torch.Tensor, lower: bool, nb: int,
-              unit_diagonal: bool = False) -> torch.Tensor:
+              unit_diagonal: bool = False, grid=None,
+              tiles: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Solve A X = B with A (n, n) triangular, B (n, k): one direct
     solve, the RHS slabbed by columns above SOLVE_TEMP_CAP (each slab
-    is still a direct, backward-stable solve)."""
+    is still a direct, backward-stable solve). Under a grid: the
+    reference's blocked loop (:func:`_trsm_left_grid`; `tiles` is X's
+    (mb, nb) tiling, the unit of ownership)."""
+    if grid is not None:
+        return _trsm_left_grid(a, b, lower, nb, unit_diagonal, grid,
+                               tiles or (nb, nb))
+
     def direct(rhs):
         return solve_triangular(a, rhs, upper=not lower,
                                 unitriangular=unit_diagonal)
@@ -140,14 +159,50 @@ def trsm_left(a: torch.Tensor, b: torch.Tensor, lower: bool, nb: int,
     return direct(b)
 
 
+def _trsm_left_grid(a: torch.Tensor, b: torch.Tensor, lower: bool,
+                    nb: int, unit_diagonal: bool, grid,
+                    tiles: Tuple[int, int]) -> torch.Tensor:
+    """The reference's grid trsm (blocked.py:106-153, work::trsm row
+    pipeline, work_trsm.cc:70-110) owner-computes: per block step, the
+    current row block of X is gathered, the owner of A's diagonal tile
+    applies that tile's inverse and broadcasts the finished rows, and
+    each rank updates its own tiles of the rows still to solve. One
+    block step takes the reference's direct solve, on the owner."""
+    n = a.shape[0]
+    nt = ceil_div(n, nb)
+    own = _own.Owner(grid, tuple(b.shape), tiles[0], tiles[1], b.device)
+    if nt <= 1:
+        return _own.publish(own, 0, lambda: (solve_triangular(
+            a, b, upper=not lower, unitriangular=unit_diagonal),),
+            [(b.shape, b.dtype)])[0]
+    x = b.clone()
+    for k in (range(nt) if lower else reversed(range(nt))):
+        k0, k1 = k * nb, min((k + 1) * nb, n)
+        (xk,) = _own.step(
+            own, x, slice(k0, k1), slice(None),
+            lambda col: (invert_triangular(a[k0:k1, k0:k1], lower,
+                                           unit_diagonal) @ col,),
+            [((k1 - k0, x.shape[1]), x.dtype)],
+            src=((k % grid.p) * grid.q) + k % grid.q)
+        x[k0:k1] = xk
+        if lower and k1 < n:
+            _own.update(own, x, k1, n, 0, x.shape[1], a[k1:, k0:k1], xk)
+        elif not lower and k0 > 0:
+            _own.update(own, x, 0, k0, 0, x.shape[1], a[:k0, k0:k1], xk)
+    return x
+
+
 def trsm_dense(a: torch.Tensor, b: torch.Tensor, *, left: bool,
-               lower: bool, nb: int,
-               unit_diagonal: bool = False) -> torch.Tensor:
+               lower: bool, nb: int, unit_diagonal: bool = False,
+               grid=None, tiles: Optional[Tuple[int, int]] = None
+               ) -> torch.Tensor:
     """General entry: reduces the Right case to Left via conjugate
-    transposition (X A = B  <=>  A^H X^H = B^H)."""
+    transposition (X A = B  <=>  A^H X^H = B^H); `tiles` is B's (mb, nb)
+    tiling (ownership under a grid)."""
     if left:
-        return trsm_left(a, b, lower, nb, unit_diagonal)
-    xh = trsm_left(a.T.conj(), b.T.conj(), not lower, nb, unit_diagonal)
+        return trsm_left(a, b, lower, nb, unit_diagonal, grid, tiles)
+    xh = trsm_left(a.T.conj(), b.T.conj(), not lower, nb, unit_diagonal,
+                   grid, tiles[::-1] if tiles else None)
     return xh.T.conj()
 
 
@@ -206,8 +261,7 @@ def _chol_panel_solve(lkk: torch.Tensor, bpanel: torch.Tensor
                       ) -> torch.Tensor:
     """pan = B L^{-H}, the Cholesky panel step: one direct right-side
     library solve (the reference's single-device branch; its grid
-    branch, invert-then-matmul under sharding constraints, waits for
-    the distributed slice)."""
+    branch, invert-then-matmul, is in chol_loop_grid)."""
     return solve_triangular(lkk.mH, bpanel, upper=True, left=False)
 
 
@@ -280,12 +334,56 @@ def chol_loop_pipelined(a: torch.Tensor, nb: int, diag_factor: DiagFactor
     return a, info
 
 
+def chol_loop_grid(a: torch.Tensor, nb: int, diag_factor: DiagFactor,
+                   grid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's grid Cholesky (chol_loop under a grid, its
+    lookahead form computing the same products) owner-computes: per
+    step the current column block is gathered, the owner of the
+    diagonal tile factors it and forms the panel B L^{-H} by
+    invert-then-matmul (the reference's grid branch of
+    _chol_panel_solve) and broadcasts both with its failure index, and
+    each rank applies the dense trailing update to its own tiles.
+    Returns (L with its strict upper triangle zero, info)."""
+    n = a.shape[-1]
+    nt = ceil_div(n, nb)
+    a = a.clone()
+    own = _own.Owner(grid, tuple(a.shape), nb, nb, a.device)
+    info = torch.zeros((), dtype=torch.int32, device=a.device)
+    for k in range(nt):
+        k0, k1 = k * nb, min((k + 1) * nb, n)
+        w = k1 - k0
+
+        def factor(col):
+            lkk, bad = diag_factor(col[:w])
+            return (torch.cat([lkk, col[w:] @ invert_triangular(
+                lkk, True).mH]), bad.reshape(1).to(torch.int32))
+
+        blk, bad = _own.step(own, a, slice(k0, n), slice(k0, k1), factor,
+                             [((n - k0, w), a.dtype),
+                              ((1,), torch.int32)])
+        info = torch.where((info == 0) & (bad[0] > 0), k0 + bad[0], info)
+        a[k0:, k0:k1] = blk
+        if k1 < n:
+            pan = blk[w:]
+            _own.update(own, a, k1, n, k1, n, pan, pan.mH)
+    return torch.tril(a), info
+
+
+def _nan_diag_factor(s: torch.Tensor):
+    """chol_diag_factor with a failed block NaN (cholesky_blocked)."""
+    lkk, bad = _chol_diag_factor_ex(s)
+    lkk = torch.where((bad > 0)[..., None, None],
+                      torch.full_like(lkk, float("nan")), lkk)
+    return lkk, torch.zeros((), dtype=torch.int32, device=s.device)
+
+
 def cholesky_blocked(a: torch.Tensor, nb: int,
-                     lookahead: int = 1) -> torch.Tensor:
+                     lookahead: int = 1, grid=None) -> torch.Tensor:
     """Lower Cholesky of a padded (N, N) matrix whose padded diagonal
     is identity (or of each of a (..., N, N) stack on the pipelined
     loop): the pipelined loop (lookahead >= 1, Option.Lookahead)
-    or the plain right-looking one (0), at any number of block steps.
+    or the plain right-looking one (0), at any number of block steps,
+    or under a grid :func:`chol_loop_grid`.
     Diagonal blocks by the library (chol_diag_factor), panels by one
     direct solve, trailing updates dense. The reference's fixed-shape
     step past CHOL_SCAN_THRESHOLD steps (``cholesky_scan``) bounds XLA's
@@ -298,12 +396,7 @@ def cholesky_blocked(a: torch.Tensor, nb: int,
     batch cores' elements carry no info; their callers test
     finiteness). The library alone would leave a partial factor that
     looks valid."""
-
-    def diag_factor(s):
-        lkk, bad = _chol_diag_factor_ex(s)
-        lkk = torch.where((bad > 0)[..., None, None],
-                          torch.full_like(lkk, float("nan")), lkk)
-        return lkk, torch.zeros((), dtype=torch.int32, device=s.device)
-
+    if grid is not None:
+        return chol_loop_grid(a, nb, _nan_diag_factor, grid)[0]
     loop = chol_loop_pipelined if lookahead >= 1 else chol_loop
-    return loop(a, nb, diag_factor)[0]
+    return loop(a, nb, _nan_diag_factor)[0]

@@ -16,8 +16,14 @@ the reference's Cholesky paths call XLA, not its ``chol_panel`` or
 
 The band Cholesky pbtrf / pbtrs / pbsv runs the windowed band
 algorithms of ``band.py`` on a narrow band and the dense drivers on a
-wide one, as the reference. Not ported (raises ``NotImplementedError``
-naming ROADMAP queue 1): every grid (mesh) path.
+wide one, as the reference.
+
+Under ``Option.Grid`` (a ``parallel.ProcessGrid``) potrf takes the
+blocked grid loop whatever the method (the reference's Auto resolves
+to Tiled on a grid, chol.py:69; its Fused call is one replicated XLA
+program, which a process grid does not have): the owner-computes
+``blocked.chol_loop_grid``. potrs and posv pass the grid on to the
+grid trsm.
 """
 
 from __future__ import annotations
@@ -32,8 +38,8 @@ from ..core.methods import MethodFactor
 from ..core.options import Option, OptionsLike, get_option, get_option_tuned
 from ..core.tiles import TiledMatrix, ceil_div, pad_diag_identity, round_up
 from ..obs.events import instrument_driver
+from ..parallel.mesh import option_grid
 from .blas3 import _store, trsm
-from .lu import _not_ported
 
 
 @instrument_driver("potrf")
@@ -48,12 +54,13 @@ def potrf(A: TiledMatrix, opts: OptionsLike = None,
     slate_assert(A.mtype in (MatrixType.Hermitian, MatrixType.Symmetric,
                              MatrixType.HermitianBand),
                  "potrf: A must be Hermitian/symmetric")
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("potrf on a grid (mesh) of devices")
+    grid = option_grid(opts, "potrf")
     r = A.uniform().resolve()
     nb = r.nb
     method = get_option(opts, Option.MethodFactor, MethodFactor.Auto)
-    if method is MethodFactor.Auto:
+    if grid is not None:
+        method = MethodFactor.Tiled
+    elif method is MethodFactor.Auto:
         from ..tune.select import tuned_method
         cached = tuned_method("potrf", "factor", opts=opts,
                               option=Option.MethodFactor, n=r.n,
@@ -84,9 +91,10 @@ def potrf(A: TiledMatrix, opts: OptionsLike = None,
         lookahead = get_option_tuned(opts, Option.Lookahead, "potrf",
                                      n=r.n, dtype=r.dtype)
         if return_info:
-            L, info = cholesky_blocked_info(a, nb, lookahead=lookahead)
+            L, info = cholesky_blocked_info(a, nb, lookahead=lookahead,
+                                            grid=grid)
         else:
-            L = cholesky_blocked(a, nb, lookahead=lookahead)
+            L = cholesky_blocked(a, nb, lookahead=lookahead, grid=grid)
     data = L.mH if r.uplo is Uplo.Upper else L
     band = A.mtype is MatrixType.HermitianBand
     out = dataclasses.replace(

@@ -25,9 +25,12 @@ a TPU is ported as a public entry (``spectral_dc.eigh_dc``, with
 ``spectral_dc.check_polar``), and heev does not route to it on the
 card.
 
-Not ported (raise ``NotImplementedError`` naming ROADMAP queue 1):
-steqr2 and stedc under ``Option.Grid``, hegst's grid form. Left out on
-purpose: he2hb's fixed-shape step form (``_he2hb_scan``, past
+Under ``Option.Grid`` (a ``parallel.ProcessGrid``): steqr2 runs
+``dist.steqr2.steqr2_qr_dist`` (each rank's rows of Z, gathered), stedc
+``dist.stedc.stedc_solve_dist`` with the Q back-transform by
+``matmul_sharded``, and hegst (itype 1, lower) the owner-computes
+blocked transform. Left out on purpose: he2hb's fixed-shape step form
+(``_he2hb_scan``, past
 the reference's 64 panels), which bounds XLA's compile time; the
 loop takes every size.
 """
@@ -49,11 +52,11 @@ from ..core.tiles import TiledMatrix, ceil_div
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
 from ..ops.householder import reflect
+from ..parallel.mesh import option_grid
 from ..utils.backend import DeviceLike, resolve_device
 from .blas3 import _store
 from .blocked import library_eigh, solve_triangular
 from .chol import potrf
-from .lu import _not_ported
 from .qr import _larft, _panel_V, _qr_panel_blocked
 from .svd import _givens_chain_matrix, _select_chain_apply, _tm
 
@@ -96,6 +99,12 @@ def heev(A: TiledMatrix, opts: OptionsLike = None,
                               n=A.shape[0], dtype=A.dtype)
         if cached is not None and cached is not MethodEig.Auto:
             method = cached
+        grid = option_grid(opts, "heev")
+        if grid is not None:
+            # the route decides the grid's collectives: grid rank 0's
+            from ..parallel.collectives import agree
+            members = list(MethodEig)
+            method = members[agree(grid, members.index(method))[0]]
     if method is MethodEig.QRIteration:
         return _heev_two_stage(A, opts, want_vectors, use_dc=False)
     if method is MethodEig.DC:
@@ -160,20 +169,58 @@ def _hegst_blocked_lower(a: torch.Tensor, l: torch.Tensor, nb: int
     n = a.shape[0]
     for k0 in range(0, n, nb):
         k1 = min(k0 + nb, n)
-        L11 = l[k0:k1, k0:k1]
-        t = solve_triangular(L11, a[k0:k1, k0:k1], upper=False)
-        A11 = solve_triangular(L11, t.mH, upper=False).mH
+        A11, mid, A21 = _hegst_step(a[k0:, k0:k1], l, k0, k1)
+        a[k0:k1, k0:k1] = A11
+        if k1 < n:
+            upd = l[k1:, k0:k1] @ mid.mH
+            a[k1:, k1:] -= upd + upd.mH
+            a[k1:, k0:k1] = A21
+    return torch.tril(a) + torch.tril(a, -1).mH
+
+
+def _hegst_grid(a: torch.Tensor, l: torch.Tensor, nb: int, grid,
+                tiles) -> torch.Tensor:
+    """_hegst_blocked_lower owner-computes (reference eig.py:178-230
+    with its her2k constraint): the current column block is gathered,
+    the diagonal's owner runs the block's solves and both half
+    corrections and publishes A11, the mid A21 (the her2k operand) and
+    the finished A21; each rank applies the her2k update to its own
+    tiles (`tiles`: A's tiling)."""
+    from ..parallel import owner as own
+    a = a.clone()
+    n = a.shape[0]
+    o = own.Owner(grid, tuple(a.shape), tiles[0], tiles[1], a.device)
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        w = k1 - k0
+        A11, mid, A21 = own.step(
+            o, a, slice(k0, n), slice(k0, k1),
+            lambda col: _hegst_step(col, l, k0, k1),
+            [((w, w), a.dtype)] + [((n - k1, w), a.dtype)] * 2)
         a[k0:k1, k0:k1] = A11
         if k1 < n:
             L21 = l[k1:, k0:k1]
-            A21 = _solve_lh(L11, a[k1:, k0:k1], left=False)
-            corr = 0.5 * (L21 @ A11)
-            A21 = A21 - corr
-            upd = L21 @ A21.mH
-            a[k1:, k1:] -= upd + upd.mH
-            A21 = A21 - corr
-            a[k1:, k0:k1] = solve_triangular(l[k1:, k1:], A21, upper=False)
+            own.update(o, a, k1, n, k1, n, L21, mid.mH)
+            own.update(o, a, k1, n, k1, n, mid, L21.mH)
+            a[k1:, k0:k1] = A21
     return torch.tril(a) + torch.tril(a, -1).mH
+
+
+def _hegst_step(col: torch.Tensor, l: torch.Tensor, k0: int, k1: int):
+    """One block step of the two-sided reduction on the column block
+    col = a[k0:, k0:k1]: (A11 <- L11^-1 A11 L11^-H, the mid A21 that
+    the her2k update takes, the finished A21 <- L22^-1 (A21 - corr))."""
+    w = k1 - k0
+    L11 = l[k0:k1, k0:k1]
+    t = solve_triangular(L11, col[:w], upper=False)
+    A11 = solve_triangular(L11, t.mH, upper=False).mH
+    if col.shape[0] == w:
+        return A11, col[w:], col[w:]
+    L21 = l[k1:, k0:k1]
+    corr = 0.5 * (L21 @ A11)
+    mid = _solve_lh(L11, col[w:], left=False) - corr
+    A21 = solve_triangular(l[k1:, k1:], mid - corr, upper=False)
+    return A11, mid, A21
 
 
 def hegst(itype: int, A: TiledMatrix, B: TiledMatrix,
@@ -183,8 +230,7 @@ def hegst(itype: int, A: TiledMatrix, B: TiledMatrix,
     C = L^-1 A L^-H (the blocked form on an explicit BlockSize, else
     two whole-matrix solves); itype 2/3: C = L^H A L."""
     slate_assert(itype in (1, 2, 3), "hegst: itype in {1,2,3}")
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("hegst on a grid (mesh) of devices")
+    grid = option_grid(opts, "hegst")
     a = A.to_dense()
     rl = B.resolve()
     lower = rl.uplo is Uplo.Lower
@@ -192,8 +238,13 @@ def hegst(itype: int, A: TiledMatrix, B: TiledMatrix,
     if itype == 1:
         if lower:
             explicit_nb = int(get_option(opts, Option.BlockSize, 0))
-            if a.shape[0] > (explicit_nb or rl.nb) and explicit_nb:
-                c = _hegst_blocked_lower(a, l, explicit_nb)
+            nb = explicit_nb or rl.nb
+            # blocked where it buys something: under a grid (the her2k
+            # updates divide) or on explicit request
+            if a.shape[0] > nb and (grid is not None or explicit_nb):
+                ra = A.resolve()
+                c = _hegst_grid(a, l, nb, grid, (ra.mb, ra.nb)) \
+                    if grid is not None else _hegst_blocked_lower(a, l, nb)
             else:
                 t = solve_triangular(l, a, upper=False)
                 c = solve_triangular(l, t.mH, upper=False).mH
@@ -418,15 +469,22 @@ def steqr2(d, e, Q: Optional[TiledMatrix] = None,
                 "(stedc) runs instead. Spectra match; deflation "
                 "tolerances differ in ulps." % d.dtype, stacklevel=2)
         return stedc(d, e, Q, opts)
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("steqr2 under Option.Grid (the row-local "
-                          "distributed QR iteration)")
+    grid = option_grid(opts, "steqr2")
+    z0 = Q.to_dense() if Q is not None else None
+    if grid is not None:
+        from ..dist.steqr2 import steqr2_qr_dist
+        from ..parallel.sharding import assemble
+        w, Zl, _info = steqr2_qr_dist(grid, d, e, z0=z0)
+        rows = n if z0 is None else z0.shape[0]
+        Z = assemble(grid, Zl, (Zl.shape[0] * grid.nprocs, n),
+                     grid.row_sharding())[:rows]
+        return w, (_store(Q, Z) if Q is not None else Z)
     if n > 2048:
         warnings.warn(
             "steqr2: n=%d single-device QR iteration accumulates ~2n^3 "
             "flops PER SWEEP over O(n) sweeps. It runs as requested; "
             "stedc is the O(n^3) D&C." % n, stacklevel=2)
-    w, Z, _info = steqr2_qr(d, e, z0=Q.to_dense() if Q is not None else None)
+    w, Z, _info = steqr2_qr(d, e, z0=z0)
     if Q is not None:
         return w, _store(Q, Z)
     return w, Z
@@ -444,9 +502,17 @@ def stedc(d, e, Q: Optional[TiledMatrix] = None,
     d, e = _vec(d, device), _vec(e, device)
     leaf = tuned_int("stedc", "leaf", 32, opts=opts, n=d.shape[0],
                      dtype=d.dtype)
-    if get_option(opts, Option.Grid, None) is not None \
-            and d.shape[0] > leaf:
-        raise _not_ported("stedc under Option.Grid (the distributed D&C)")
+    grid = option_grid(opts, "stedc")
+    if grid is not None:
+        from ..parallel.collectives import agree
+        (leaf,) = agree(grid, leaf)         # the split is grid rank 0's
+    if grid is not None and d.shape[0] > leaf:
+        from ..dist.stedc import matmul_sharded, stedc_solve_dist
+        w, v = stedc_solve_dist(grid, d, e, leaf=leaf)
+        if Q is not None:
+            return w, _store(Q, matmul_sharded(grid, Q.to_dense(),
+                                               v.to(Q.dtype)))
+        return w, v
     w, v = stedc_solve(d, e, leaf=leaf)
     if Q is not None:
         return w, _store(Q, Q.to_dense() @ v.to(Q.dtype))

@@ -46,14 +46,16 @@ def _chol_block_guarded(s: torch.Tensor
     return s, bad
 
 
-def cholesky_blocked_info(a: torch.Tensor, nb: int, lookahead: int = 1
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def cholesky_blocked_info(a: torch.Tensor, nb: int, lookahead: int = 1,
+                          grid=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked lower Cholesky with exact failure reporting, the
-    return_info path of potrf: the blocked loops of the fast path with
-    the guarded diagonal-block factor, so the index of the first
-    leading minor that is not positive definite survives. Returns
-    (L, info); L is valid when info == 0."""
-    from .blocked import chol_loop, chol_loop_pipelined
+    return_info path of potrf: the blocked loops of the fast path (the
+    grid loop under a grid) with the guarded diagonal-block factor, so
+    the index of the first leading minor that is not positive definite
+    survives. Returns (L, info); L is valid when info == 0."""
+    from .blocked import chol_loop, chol_loop_grid, chol_loop_pipelined
+    if grid is not None:
+        return chol_loop_grid(a, nb, _chol_block_guarded, grid)
     loop = chol_loop_pipelined if lookahead >= 1 else chol_loop
     return loop(a, nb, _chol_block_guarded)
 

@@ -22,9 +22,14 @@ writes such entries where the kernel wins on the card).
 
 Above LU_SCAN_THRESHOLD block steps on a square, the reference runs
 a fixed-shape scan at a dividing width (an XLA program-size device);
-the port runs the same loops at that width. Not ported yet (each
-raises ``NotImplementedError`` naming its ROADMAP item rather than
-taking another route): the grid (mesh) paths.
+the port runs the same loops at that width.
+
+Under ``Option.Grid`` (a ``parallel.ProcessGrid``) every MethodLU route
+runs the owner-computes grid loop ``_getrf_grid`` at the storage tile
+size (the reference's ``_lu_nb`` on a grid), with the reference's grid
+numerics: U12 by the diagonal block's inverse times the row block
+(``_lu_u12``'s grid branch), the same products as its pipelined form.
+getrs and gesv pass the grid on to the grid trsm.
 gesv_rbt keeps the reference's resil sentinel: with
 ``resil.guard.enable_checks()`` a non-finite solution steps down to
 partial-pivot gesv (rung ``rbt_to_getrf``); off by default.
@@ -44,6 +49,7 @@ from ..core.options import Option, OptionsLike, get_option
 from ..core.tiles import TiledMatrix, ceil_div, pad_diag_identity
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
+from ..parallel.mesh import option_grid
 from ..resil import guard as _rguard
 from .blas3 import _store, trsm
 from .blocked import assemble_packed, solve_triangular
@@ -347,9 +353,91 @@ def _getrf_pipelined(a: torch.Tensor, nb: int
     return a, ipiv
 
 
+def _getrf_grid(a: torch.Tensor, nb: int, grid, tiles: Tuple[int, int],
+                pivot: bool = True, tournament: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blocked LU on a grid, owner-computes (parallel/owner.py), with the
+    values of the reference's grid loops (_getrf_pipelined for partial
+    pivoting, the unrolled loop for CALU and no pivoting). Per step k:
+
+      1. the current panel column is gathered (a masked all_reduce);
+      2. the owner of the diagonal element factors it (_lu_panel, the
+         tournament and calu_factor_sorted, or the no-pivot loop),
+         inverts its unit-lower diagonal block and broadcasts the panel,
+         its swaps and the inverse;
+      3. the <= 2 nb rows the swaps touch are gathered in the columns
+         right of the panel, then every rank applies the swaps to them
+         and to the finished L columns on its left (a row gather, the
+         same on every rank);
+      4. the owner computes U12 = L11^{-1} A12 (the reference's grid
+         invert-then-matmul) and broadcasts it;
+      5. each rank updates its own tiles of the trailing matrix.
+
+    Every L column and U row reaches every rank in steps 2 and 4, so
+    the packed result is the same on every rank. `tiles` is the
+    storage (mb, nb), the unit of ownership; `nb` the blocking."""
+    from ..parallel import owner as own
+    from .blocked import invert_triangular
+    M, N = a.shape
+    kmax = min(M, N)
+    nt = ceil_div(kmax, nb)
+    a = a.clone()
+    dev = a.device
+    o = own.Owner(grid, (M, N), tiles[0], tiles[1], dev)
+    ipiv = torch.arange(kmax, dtype=torch.int32, device=dev)
+    for k in range(nt):
+        k0, k1 = k * nb, min((k + 1) * nb, kmax)
+        w = k1 - k0
+
+        def factor(col):
+            if pivot and tournament:
+                from .ca import calu_factor_sorted, tournament_pivot_rows
+                piv, perm = _tnt_swap_sequence(
+                    tournament_pivot_rows(col), M - k0)
+                panel = calu_factor_sorted(_permute_rows(col, perm))
+            elif pivot:
+                panel, piv = _lu_panel(col)
+            else:
+                panel, piv = _nopiv_panel(col)
+            return panel, invert_triangular(panel[:w], lower=True,
+                                            unit_diagonal=True), \
+                piv.to(torch.int32)
+
+        src = o.rank_of(k0, k0)
+        panel, linv, piv = own.step(
+            o, a, slice(k0, M), slice(k0, k1), factor,
+            [((M - k0, w), a.dtype), ((w, w), a.dtype),
+             ((w,), torch.int32)], src=src)
+        a[k0:, k0:k1] = panel
+        if pivot:
+            ipiv[k0:k1] = k0 + piv
+            perm = _compose_swaps(piv, M - k0)
+            rows = k0 + torch.cat([torch.arange(w, device=dev),
+                                   piv.long()])
+        else:
+            rows = torch.arange(k0, k1, device=dev)
+        if k1 < N:
+            a[rows, k1:] = own.gather_rows(o, a, rows, slice(k1, N))
+        if pivot:
+            srcs = k0 + perm[rows - k0]
+            if k0 > 0:
+                a[rows, :k0] = a[srcs, :k0]
+            if k1 < N:
+                a[rows, k1:] = a[srcs, k1:]
+        if k1 >= N:
+            continue
+        (u12,) = own.publish(o, src, lambda: (linv @ a[k0:k1, k1:],),
+                             [((w, N - k1), a.dtype)])
+        a[k0:k1, k1:] = u12
+        if k1 < M:
+            own.update(o, a, k1, M, k1, N, panel[w:], u12)
+    return a, ipiv
+
+
 def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1,
                  tile_nb: Optional[int] = None, *, pivot: bool = True,
-                 tournament: bool = False
+                 tournament: bool = False, grid=None,
+                 tiles: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked right-looking LU on padded (M, N) dense; returns packed
     LU and global pivot swaps (length min(M, N); the identity without
@@ -359,7 +447,9 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1,
     on a square), the carry form (partial pivoting, library-LU dtypes),
     the pipelined form (partial pivoting, others, lookahead >= 1), and
     the unrolled loop, whose panel is the tournament's (`tournament`:
-    CALU), the no-pivot column loop (no `pivot`) or _lu_panel."""
+    CALU), the no-pivot column loop (no `pivot`) or _lu_panel. Under a
+    grid, after the width resolution, the owner-computes _getrf_grid
+    (`tiles`: the storage tiling)."""
     M, N = a.shape
     kmax = min(M, N)
     # the rank-1 kernel's width cap, resolved ONCE through the tune
@@ -403,6 +493,13 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1,
             if w < 8 or ceil_div(kmax, w) <= LU_SCAN_THRESHOLD:
                 w = nb
         nb, nt = w, ceil_div(kmax, w)
+    if grid is not None:
+        # the width cap and the scan width came from this rank's tune
+        # cache: grid rank 0's blocking runs on every rank
+        from ..parallel.collectives import agree
+        (nb,) = agree(grid, nb)
+        return _getrf_grid(a, nb, grid, tiles or (nb, nb), pivot,
+                           tournament)
     if pivot and not tournament and nt > 1 \
             and MethodFactor.native_lu_dtype_ok(a.dtype):
         # single-device fast path: carry-the-trailing-matrix form (the
@@ -473,11 +570,16 @@ def _prep(A: TiledMatrix) -> Tuple[TiledMatrix, torch.Tensor]:
     return r, pad_diag_identity(a, r.m, r.n)
 
 
-def _lu_nb(opts: OptionsLike, shape, dtype=None) -> int:
-    """Algorithmic LU blocking: an explicit Option.BlockSize wins,
+def _lu_nb(opts: OptionsLike, shape, grid=None, tile_nb: int = 0,
+           dtype=None) -> int:
+    """Algorithmic LU blocking. On a grid ALWAYS the storage tile size,
+    the unit the 2D block-cyclic map distributes (reference _lu_nb,
+    lu.py:667-680). On one device an explicit Option.BlockSize wins,
     then a measured tune-cache entry, then the reference's frozen
     n-scaled formula (a v5e measurement, kept so cold routing agrees
     with the reference)."""
+    if grid is not None:
+        return tile_nb
     n = min(shape)
     from ..tune.select import tuned_int
     nb_frozen = min(1024, max(512, n // 8))
@@ -496,8 +598,12 @@ def getrf(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
     if method is MethodLU.CALU:
         return getrf_tntpiv(A, opts)
     r, a = _prep(A)
-    _no_grid(opts, "getrf")
+    grid = option_grid(opts, "getrf")
     fmethod = get_option(opts, Option.MethodFactor, MethodFactor.Auto)
+    if grid is not None:
+        # the grid loop whatever the method: the reference's Fused is
+        # one replicated XLA program, which a process grid does not have
+        fmethod = MethodFactor.Tiled
     if fmethod is MethodFactor.Auto:
         from ..tune.select import tuned_method
         cached = tuned_method("getrf", "factor", opts=opts,
@@ -515,17 +621,14 @@ def getrf(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
     if fmethod is MethodFactor.Fused:
         lu, ipiv = _native_lu(a)
     else:
-        lu, ipiv = _getrf_dense(a, _lu_nb(opts, a.shape, dtype=a.dtype),
+        lu, ipiv = _getrf_dense(a, _lu_nb(opts, a.shape, grid,
+                                          tile_nb=r.nb, dtype=a.dtype),
                                 get_option(opts, Option.Lookahead),
-                                tile_nb=r.nb)
+                                tile_nb=r.nb, grid=grid,
+                                tiles=(r.mb, r.nb))
     return LUFactors(dataclasses.replace(r, data=lu,
                                          mtype=MatrixType.General),
                      ipiv, lu_info(lu, r.m, r.n))
-
-
-def _no_grid(opts: OptionsLike, what: str) -> None:
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("%s on a grid (mesh) of devices" % what)
 
 
 def _factors(r: TiledMatrix, lu: torch.Tensor, ipiv: torch.Tensor
@@ -539,8 +642,9 @@ def getrf_nopiv(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
     """LU without pivoting (reference src/getrf_nopiv.cc, slate.hh:608),
     blocked at A's tile size; the pivots are the identity."""
     r, a = _prep(A)
-    _no_grid(opts, "getrf_nopiv")
-    lu, _ = _getrf_dense(a, r.nb, tile_nb=r.nb, pivot=False)
+    lu, _ = _getrf_dense(a, r.nb, tile_nb=r.nb, pivot=False,
+                         grid=option_grid(opts, "getrf_nopiv"),
+                         tiles=(r.mb, r.nb))
     ipiv = torch.arange(min(a.shape), dtype=torch.int32, device=a.device)
     return _factors(r, lu, ipiv)
 
@@ -555,8 +659,9 @@ def getrf_tntpiv(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
     pivoting. Pivot growth is CALU's (bounded, weaker than partial
     pivoting: the documented trade)."""
     r, a = _prep(A)
-    _no_grid(opts, "getrf_tntpiv")
-    lu, ipiv = _getrf_dense(a, r.nb, tile_nb=r.nb, tournament=True)
+    lu, ipiv = _getrf_dense(a, r.nb, tile_nb=r.nb, tournament=True,
+                            grid=option_grid(opts, "getrf_tntpiv"),
+                            tiles=(r.mb, r.nb))
     return _factors(r, lu, ipiv)
 
 

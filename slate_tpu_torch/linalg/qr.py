@@ -15,9 +15,17 @@ the library geqrf where its dtype set allows, then the hand-written
 of reflections. Where the reference updates slices functionally, the
 loops here update a copy in place (same values).
 
-Not ported (raise ``NotImplementedError`` naming ROADMAP queue 1): the
-grid (mesh) routes, among them the mesh-TSQR geqrf; an explicit-Q
-``QRFactors`` from the JAX package is still applied by ``unmqr``.
+Under ``Option.Grid`` (a ``parallel.ProcessGrid``): a real tall-skinny
+geqrf (m >= the tuned ``('tsqr', 'panel_aspect')`` times n, every rank's
+chunk at least n rows) takes the grid TSQR tree (``_geqrf_tsqr_grid``,
+``dist/tsqr.py``: R packed, the thin Q explicit in ``QRFactors.Q``);
+elsewhere the owner-computes compact-WY loop ``_geqrf_grid`` at the tile
+size, panels by ``_qr_panel_blocked`` on the diagonal's owner.
+``MethodFactor.Fused`` on a grid warns and runs the loop, as the
+reference's. ``gels_tsqr`` on a grid is ``dist.tsqr.tsqr_qt`` and the
+grid trsm; ``MethodGels.select(on_grid=True)`` routes tall-skinny Auto
+there. unmqr and unmlq on a grid run whole on every rank (ROADMAP
+queue 3).
 
 Left out on purpose: the reference's fixed-shape step forms
 (``_geqrf_scan``, ``_unmqr_scan`` past ``QR_SCAN_THRESHOLD`` steps).
@@ -42,10 +50,10 @@ from ..core.tiles import TiledMatrix, ceil_div, round_up
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
 from ..ops.householder import reflect
+from ..parallel.mesh import option_grid
 from .blas3 import _store, trsm
 from .blocked import assemble_packed, invert_triangular
 from .chol import potrf
-from .lu import _not_ported
 
 
 class QRFactors(NamedTuple):
@@ -256,20 +264,108 @@ def geqrf_default_nb(kmax: int, tile_nb: int) -> int:
                min(round_up(ceil_div(kmax, 16), 128), 1024))
 
 
+def _geqrf_grid(a: torch.Tensor, nb: int, kmax: int, ib: int, grid,
+                tiles: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's grid geqrf loop (qr.py:486-503) owner-computes:
+    per step the current panel column is gathered, the diagonal's owner
+    factors it (_qr_panel_blocked), forms T and broadcasts panel, taus
+    and T; each rank applies C -= V T^H (V^H C) to its own tiles, the
+    V^H C sums completed down its grid column (an all_reduce over 'p');
+    the finished R row block is gathered to every rank."""
+    from ..parallel import owner as own
+    from ..parallel.collectives import all_reduce
+    M, N = a.shape
+    nt = ceil_div(kmax, nb)
+    a = a.clone()
+    dev = a.device
+    o = own.Owner(grid, (M, N), tiles[0], tiles[1], dev)
+    taus = torch.zeros((min(M, N),), dtype=a.dtype, device=dev)
+
+    def factor(col):
+        panel, ptau = _qr_panel_blocked(col, ib=ib)
+        return panel, ptau, _larft(_panel_V(panel, 0), ptau)
+
+    for k in range(nt):
+        k0, k1 = k * nb, min((k + 1) * nb, kmax)
+        w = k1 - k0
+        panel, ptau, T = own.step(
+            o, a, slice(k0, M), slice(k0, k1), factor,
+            [((M - k0, w), a.dtype), ((w,), a.dtype), ((w, w), a.dtype)])
+        a[k0:, k0:k1] = panel
+        taus[k0:k1] = ptau
+        if k1 >= N:
+            continue
+        ri, ci, C = own.owned_block(o, a, k0, M, k1, N)
+        if ci.numel():
+            V = _panel_V(panel, 0)[ri - k0]
+            W = all_reduce(grid, V.mH @ C, "p")
+            own.count_product(ri.numel(), ci.numel(), 2 * w,
+                              a.is_complex())
+            a[ri[:, None], ci[None, :]] = C - V @ (T.mH @ W)
+        a[k0:k1, k1:] = own.gather(o, a, slice(k0, k1), slice(k1, N))
+    return a, taus
+
+
+def _geqrf_tsqr_grid(grid, r: TiledMatrix, opts) -> QRFactors:
+    """Tall-skinny grid geqrf by the grid TSQR tree (dist/tsqr.py): R in
+    the packed slot (V region zero), the thin orthonormal factor in
+    QRFactors.Q (unmqr applies it as the isometry), taus zero (exact
+    identity reflectors), as the reference's qr.py:507-524."""
+    from ..dist import tsqr as dtsqr
+    from ..parallel.sharding import assemble
+    a = r.data[:, :r.n]          # padded rows stay: zero rows are exact
+    ql, R = dtsqr.tsqr(grid, a, opts=opts)
+    M, N = r.data.shape
+    mp = ql.shape[0] * grid.nprocs
+    q = assemble(grid, ql, (mp, r.n), grid.row_sharding())[:M]
+    packed = torch.zeros((M, N), dtype=a.dtype, device=a.device)
+    packed[:r.n, :r.n] = R
+    out = dataclasses.replace(r, data=packed, mtype=MatrixType.General)
+    taus = torch.zeros((min(M, N),), dtype=a.dtype, device=a.device)
+    return QRFactors(out, taus, Q=TiledMatrix.from_dense(
+        q, r.mb, r.nb, device=q.device))
+
+
 @instrument_driver("geqrf")
-def geqrf(A: TiledMatrix, opts: OptionsLike = None) -> QRFactors:
+def geqrf(A: TiledMatrix, opts: OptionsLike = None, *,
+          _allow_tsqr: bool = True) -> QRFactors:
     """Blocked Householder QR (reference src/geqrf.cc:26). Auto takes
     one library geqrf up to the tuned ("geqrf", "fused_max_n") size,
     the carry form above it, at every step count (the reference's
     fixed-shape step past its step cap is not ported: see the module
-    docstring)."""
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("geqrf on a grid (mesh) of devices")
+    docstring). On a grid: the TSQR tree for tall-skinny, else the
+    owner-computes loop (module doc). _allow_tsqr=False (gelqf's
+    conjugate dual) keeps the packed-Householder contract."""
+    grid = option_grid(opts, "geqrf")
     r = A.uniform().resolve()
     a = r.data
     M, N = a.shape
     method = get_option(opts, Option.MethodFactor, MethodFactor.Auto)
     requested = method
+    if grid is not None:
+        if method is MethodFactor.Fused:
+            warnings.warn("geqrf: MethodFactor.Fused is single-device; a "
+                          "Grid was given, so the Tiled blocked path runs "
+                          "instead", stacklevel=2)
+        from ..dist import tsqr as dtsqr
+        from ..tune.select import tuned_int
+        from ..parallel.collectives import agree
+        aspect = tuned_int("tsqr", "panel_aspect", 4, opts=opts, n=r.n,
+                           dtype=a.dtype)
+        kmax = max(min(r.m, r.n), 1)
+        ib = get_option_tuned(opts, Option.InnerBlocking, "geqrf",
+                              n=kmax, dtype=a.dtype)
+        # both came from this rank's tune cache: grid rank 0's run
+        aspect, ib = agree(grid, aspect, ib)
+        if _allow_tsqr and not a.is_complex() \
+                and method in (MethodFactor.Auto, MethodFactor.Tiled) \
+                and r.n >= 1 and r.m >= aspect * r.n \
+                and dtsqr.eligible(grid, (r.m, r.n)):
+            return _geqrf_tsqr_grid(grid, r, opts)
+        packed, taus = _geqrf_grid(a, r.nb, kmax, ib, grid, (r.mb, r.nb))
+        return QRFactors(dataclasses.replace(r, data=packed,
+                                             mtype=MatrixType.General),
+                         taus)
     if method is MethodFactor.Auto:
         from ..tune.select import resolve
         fused_max_n = int(resolve("geqrf", "fused_max_n", opts=opts,
@@ -362,7 +458,7 @@ def qr_multiply_by_q(*args, **kw):
 def gelqf(A: TiledMatrix, opts: OptionsLike = None) -> LQFactors:
     """LQ factorization A = L Q (reference src/gelqf.cc), the conjugate
     dual of QR on A^H; packed with V rows above the diagonal."""
-    F = geqrf(A.conj_transpose(), opts)
+    F = geqrf(A.conj_transpose(), opts, _allow_tsqr=False)
     r = F.QR.resolve()
     packed = dataclasses.replace(r, data=r.data.mH, m=r.n, n=r.m,
                                  mb=r.nb, nb=r.mb)
@@ -449,16 +545,25 @@ def gels_qr(A: TiledMatrix, B: TiledMatrix,
 @instrument_driver("gels_tsqr")
 def gels_tsqr(A: TiledMatrix, B: TiledMatrix,
               opts: OptionsLike = None) -> TiledMatrix:
-    """Least squares by the tree QR (linalg/ca.py), Q implicit: the
-    reference's single-device route (its mesh tree is not ported)."""
+    """Least squares by the tree QR, Q implicit: on a grid the grid tree
+    (dist.tsqr.tsqr_qt: each rank QRs its rows, Q^H B rides the R
+    exchanges) where every rank's chunk is at least n rows, else the
+    one-device tree (linalg/ca.py); then one triangular solve."""
     from ..utils.trace import phases
     from .ca import tsqr_factors, tsqr_qt_apply
-    if get_option(opts, Option.Grid, None) is not None:
-        raise _not_ported("gels_tsqr on a grid (mesh) of devices")
+    grid = option_grid(opts, "gels_tsqr")
     ph = phases(opts)
-    n = A.shape[1]
     r = A.resolve()
     a = A.to_dense()
+    if grid is not None:
+        from ..dist import tsqr as dtsqr
+        if dtsqr.eligible(grid, tuple(a.shape)):
+            with ph("gels_tsqr::tsqr_qt"):
+                R, qtb = dtsqr.tsqr_qt(grid, a, B.to_dense(), opts=opts)
+            Rt = TriangularMatrix(Uplo.Upper, R, mb=r.nb, device=R.device)
+            with ph("gels_tsqr::trsm"):
+                return trsm(Side.Left, 1.0, Rt, _rhs(qtb, B), opts)
+    n = A.shape[1]
     with ph("gels_tsqr::tree"):
         qs, R = tsqr_factors(a, chunk=max(r.mb, 4 * n))
         qtb = tsqr_qt_apply(qs, B.to_dense(), a.shape[0])

@@ -325,10 +325,12 @@ def _secular_finish(D, z, rho, keep, origin, delta, mu):
     return lam, U
 
 
-def stedc_merge(D1, V1, D2, V2, rho):
+def stedc_merge(D1, V1, D2, V2, rho, product=None):
     """Merge two solved subproblems across a rank-one coupling
     (reference stedc_merge.cc), per element of a leading batch (the
-    reference vmaps it). Returns (w, V) ascending."""
+    reference vmaps it). Returns (w, V) ascending. `product` forms the
+    back-transform's two matrix products of an unbatched merge (the
+    grid's dist.stedc.matmul_sharded); default the batched product."""
     squeeze, (D1, V1, D2, V2) = _batched(D1, V1, D2, V2)
     D = torch.cat([D1, D2], dim=-1)
     z = stedc_z_vector(V1, V2)
@@ -341,7 +343,11 @@ def stedc_merge(D1, V1, D2, V2, rho):
     Q[:, :n1, :n1] = V1
     Q[:, n1:, n1:] = V2
     Q = Q.gather(-1, perm[:, None, :].expand(B, n, n))
-    V = Q @ (G @ U)
+    if product is None:
+        V = Q @ (G @ U)
+    else:
+        V = torch.stack([product(q, product(g, u))
+                         for q, g, u in zip(Q, G, U)])
     order = torch.argsort(lam, dim=-1, stable=True)
     w = lam.gather(-1, order)
     V = V.gather(-1, order[:, None, :].expand(B, n, n))

@@ -14,10 +14,13 @@ analysis and HLO text. Eager PyTorch has no compiled program, so
     then ``max_memory_allocated``; None on the CPU);
   * that second run's wall time, after a synchronize on either side.
 
-:func:`collective_counts` keeps the reference's keys; the port has no
-collectives yet (``torch.distributed`` comes with ROADMAP queue 1,
-item 10), so every record's counts read zero. Left out on purpose: the
-compile wall, which has no eager counterpart.
+:func:`collective_counts` keeps the reference's keys. Given a
+program's text it parses it, as the reference does its HLO; without,
+it reads the collectives this process has issued on a grid
+(``parallel.collectives.counts``: each call counted under the
+reference's HLO kind), and :func:`analyze` records the ones of the
+timed run. Left out on purpose: the compile wall, which has no eager
+counterpart.
 """
 
 from __future__ import annotations
@@ -43,11 +46,21 @@ _analyses: Dict[str, Dict[str, Any]] = {}
 
 
 def collective_counts(text: str = "") -> Dict[str, int]:
-    """Count collectives by kind in a program's text (every kind
-    present, 0 when absent, plus "total")."""
-    counts = {k: 0 for k in COLLECTIVE_KINDS}
-    for m in _COLL_RE.finditer(text):
-        counts[m.group(1)] += 1
+    """Collectives by kind (every kind present, 0 when absent, plus
+    "total"): counted in a program's `text`, or without one the
+    collectives this process has issued on a grid since the last
+    ``parallel.collectives.reset_counts``."""
+    if text:
+        counts = {k: 0 for k in COLLECTIVE_KINDS}
+        for m in _COLL_RE.finditer(text):
+            counts[m.group(1)] += 1
+    else:
+        from ..parallel.collectives import counts as issued
+        counts = issued()
+    return _with_total(counts)
+
+
+def _with_total(counts: Dict[str, int]) -> Dict[str, int]:
     counts["total"] = sum(counts[k] for k in COLLECTIVE_KINDS)
     return counts
 
@@ -81,6 +94,8 @@ def analyze(label: str, fn: Callable, *args, **kwargs) -> Dict[str, Any]:
     if dev is not None:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
+    from ..parallel.collectives import counts, counts_delta
+    issued = counts()
     t0 = time.perf_counter()
     fn(*args, **kwargs)
     _sync(dev)
@@ -92,7 +107,7 @@ def analyze(label: str, fn: Callable, *args, **kwargs) -> Dict[str, Any]:
         else int(torch.cuda.max_memory_allocated(dev)),
         "temp_bytes": None if dev is None
         else int(torch.cuda.max_memory_allocated(dev)) - int(base),
-        "collectives": collective_counts(),
+        "collectives": _with_total(counts_delta(issued)),
     }
     with _lock:
         _analyses[label] = rec

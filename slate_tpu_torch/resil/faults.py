@@ -19,10 +19,11 @@ injection points threaded through the layers that can fail:
   ``serve_drain``  serve/server.py drain/shutdown   pending
 
 The table mirrors the :data:`SITES` registry, which keeps every row of
-the reference. The port has call sites for ``batch``,
+the reference. Every site has its call site in the port: ``batch``,
 ``batch_submit``, ``flusher`` (batch/queue.py), ``h2d``, ``d2h``
-(linalg/stream.py) and ``step`` (linalg/ooc.py); the others come with
-the modules that hold them (ROADMAP queue 1, items 10-11).
+(linalg/stream.py), ``step`` (linalg/ooc.py), ``ppermute``
+(dist/tree.py), ``worker`` (testing/multiproc.py) and the ``serve_*``
+sites (serve/server.py).
 
 Plan JSON schema (one object; ``FaultPlan.to_json`` / ``from_json``)::
 

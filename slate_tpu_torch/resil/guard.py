@@ -4,8 +4,8 @@ acts:
 
 * **Bounded retry with backoff** (:func:`retry`) around the operations
   that fail transiently: the batch queue's dispatches and the
-  out-of-core streams' transfers (linalg/stream.py; the tree
-  collectives come with item 10 of ROADMAP queue 1). The budget rides the tune subsystem: explicit
+  out-of-core streams' transfers (linalg/stream.py). The budget
+  rides the tune subsystem: explicit
   argument > measured entry > FROZEN ``resil/max_retries`` /
   ``resil/backoff_us``. Retries engage only on failure, so the steady
   state is untouched; every retry publishes a ``resil::retry`` instant

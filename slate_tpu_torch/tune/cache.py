@@ -227,6 +227,40 @@ class TuneCache:
             os.replace(tmp, path)
         return path
 
+    def entries(self) -> Dict[str, Dict[str, Any]]:
+        """Copy of every loaded entry (the payload dist/tuneshare.py
+        sends)."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._load().items()}
+
+    def merge(self, entries: Dict[str, Dict[str, Any]]) -> int:
+        """BEST-ENTRY merge of another rank's table (reference
+        TuneCache.merge). Per key: missing here -> adopt the incoming
+        entry; present on both sides -> the entry with the LOWER best
+        measured probe time (min over ``_meta.results[*].seconds``)
+        wins whole; an incoming entry without probe evidence never
+        replaces a local one. In memory only (save() persists).
+        Returns the number of keys adopted or replaced."""
+        def best_s(e) -> float:
+            try:
+                return min(float(r["seconds"])
+                           for r in e["_meta"]["results"]
+                           if "seconds" in r)
+            except Exception:
+                return float("inf")
+
+        changed = 0
+        with self._lock:
+            mine = self._load()
+            for key, inc in (entries or {}).items():
+                if not isinstance(inc, dict):
+                    continue
+                cur = mine.get(key)
+                if cur is None or best_s(inc) < best_s(cur):
+                    mine[key] = dict(inc)
+                    changed += 1
+        return changed
+
     def clear_memo(self) -> None:
         """Drop the in-process memo so the next access re-reads."""
         with self._lock:

@@ -124,8 +124,11 @@ def test_redistribute_retiles_and_rejects_a_grid():
     out = st.redistribute(T, Tb)
     assert (out.mb, out.nb) == (ref.mb, ref.nb) == (8, 12)
     assert np.array_equal(out.data.numpy(), _np(ref))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="ProcessGrid"):
         st.redistribute(T, Tb, {st.Option.Grid: object()})
+    grid = {st.Option.Grid: st.single_device_grid("cpu")}
+    assert np.array_equal(st.redistribute(T, Tb, grid).data.numpy(),
+                          _np(ref))
 
 
 @pytest.mark.parametrize("shape,m,n", [((8, 12), 5, 9), ((6, 6), 6, 6)])

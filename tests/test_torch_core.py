@@ -292,16 +292,10 @@ def test_instrumented_driver_publishes_when_enabled(rng):
 #: names dir(slate_tpu) has and dir(slate_tpu_torch) still lacks, with
 #: the ROADMAP queue 1 item that brings each
 STILL_MISSING = {
-    "dist": "item 10 (10a / 10b; only dist.elastic's remap mirror is "
-            "ported, not exported)",
-    "parallel": "item 10a", "ProcessGrid": "item 10a",
-    "collectives": "item 10a", "distribute_cyclic": "item 10a",
-    "make_grid": "item 10a", "mesh": "item 10a", "sharding": "item 10a",
-    "single_device_grid": "item 10a", "smap": "item 10a",
-    "undistribute": "item 10a",
-    "testing": "item 12, after 10a (the port's testing.py is its own "
-               "chip helpers)",
-    "c_api": "item 12, after 10a",
+    "smap": "never (a JAX-version shim of shard_map)",
+    "testing": "item 12 (the port's testing package holds its chip "
+               "helpers and the multi-process launcher)",
+    "c_api": "item 12",
     # JAX-only: they probe JAX's backend; the port takes a device
     "force_cpu": "never (JAX-only)", "probe_backend": "never (JAX-only)",
 }
@@ -325,11 +319,11 @@ def test_top_level_names_match_reference():
                  "normalize_options", "str2method", "slate_assert",
                  "slate_error_if", "ceil_div", "round_up", "Layout",
                  "TileKind", "MethodTrsm", "MethodGemm", "MethodHemm",
-                 "serve"):
+                 "serve", "parallel", "dist", "make_grid", "ProcessGrid",
+                 "single_device_grid", "distribute_cyclic"):
         assert hasattr(st, name), name
-    # dist (dist.elastic, which the admission ladder imports) and the
-    # port's own testing module bind their names once imported
-    for name in set(STILL_MISSING) - {"dist", "testing"}:
+    # the port's own testing package binds its name once imported
+    for name in set(STILL_MISSING) - {"testing"}:
         assert not hasattr(st, name), name
 
 
@@ -427,17 +421,25 @@ def test_gemm_methods_run_the_one_device_product(rng, method):
 @pytest.mark.parametrize("call", ["gemm", "gemmA", "gemmC", "trsm",
                                   "trsmA", "trsmB", "summa"])
 def test_grid_and_summa_raise(rng, call):
-    """gemm, gemmA, gemmC and the trsm family raise under Option.Grid,
-    and gemm under MethodGemm.Summa, naming item 10, the way potrf does
-    on a grid (chol.py)."""
+    """gemm, gemmA, gemmC and the trsm family take Option.Grid only as a
+    parallel.ProcessGrid and raise on anything else (the grid routes
+    themselves: tests/test_torch_grid.py); MethodGemm.Summa without a
+    grid is the one-device product, as the reference's."""
     a, b, c = _gemm_operands(rng)
     A, B, C = (st.Matrix(x, mb=16, device="cpu") for x in (a, b, c))
     grid = {st.Option.Grid: object()}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        if call == "summa":
-            st.gemm(1.0, A, B, 0.0, C,
-                    {st.Option.MethodGemm: st.MethodGemm.Summa})
-        elif call.startswith("gemm"):
+    if call == "summa":
+        got = st.gemm(1.0, A, B, 0.0, C,
+                      {st.Option.MethodGemm: st.MethodGemm.Summa})
+        J = [jst.Matrix(x, mb=16) for x in (a, b, c)]
+        ref = jst.gemm(1.0, J[0], J[1], 0.0, J[2],
+                       {jst.Option.MethodGemm: jst.MethodGemm.Summa})
+        np.testing.assert_allclose(got.to_numpy(),
+                                   np.asarray(ref.to_dense()),
+                                   rtol=1e-10, atol=1e-12)
+        return
+    with pytest.raises(TypeError, match="ProcessGrid"):
+        if call.startswith("gemm"):
             getattr(st, call)(1.0, A, B, 0.0, C, grid)
         else:
             L = st.TriangularMatrix(st.Uplo.Lower,

@@ -412,7 +412,8 @@ def test_steqr2_routed_chain_matches_cold():
 
 def test_steqr2_complex_takes_stedc_and_grid_raises(rng, monkeypatch):
     """The reference's routing: complex d warns and takes stedc; a grid
-    is not ported and raises naming ROADMAP queue 1."""
+    must be a parallel.ProcessGrid (the grid route itself:
+    tests/test_torch_dist.py)."""
     n = 8
     d = torch.as_tensor(rng.standard_normal(n) + 0j)
     e = torch.as_tensor(rng.standard_normal(n - 1) + 0j)
@@ -422,7 +423,7 @@ def test_steqr2_complex_takes_stedc_and_grid_raises(rng, monkeypatch):
     with pytest.warns(UserWarning, match="stedc"):
         assert teig.steqr2(d, e) == ("w", "v")
     assert calls
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(TypeError, match="ProcessGrid"):
         st.steqr2(d.real, e.real, opts={st.Option.Grid: object()})
 
 

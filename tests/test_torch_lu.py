@@ -217,11 +217,12 @@ def test_native_panel_pivots_match_xla(system):
     ({st.Option.Grid: object()}, "grid"),
 ])
 def test_unported_branches_raise(opts, match):
-    """Branches of the reference the port does not have yet (the grid
-    paths of every MethodLU route) raise, naming what is missing,
-    instead of taking another route."""
+    """The grid paths of every MethodLU route take Option.Grid only as a
+    parallel.ProcessGrid and raise naming the route on anything else,
+    instead of taking another route (the grid routes themselves:
+    tests/test_torch_grid.py)."""
     a = np.eye(1024, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         st.getrf(st.Matrix(a, mb=128, device="cpu"), opts)
 
 

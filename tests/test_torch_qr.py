@@ -402,13 +402,25 @@ def test_tune_entries_route_geqrf_and_potrf(monkeypatch):
 
 
 def test_grid_routes_not_ported():
+    """geqrf, gels_tsqr and potrf take Option.Grid only as a
+    parallel.ProcessGrid and raise naming the driver on anything else;
+    on the 1 x 1 grid their grid routes give the one-device results
+    (the routes on four ranks: tests/test_torch_grid.py,
+    tests/test_torch_dist.py)."""
     a = _shape_input("tall")
-    opts = {st.Option.Grid: object()}
-    for fn in (lambda: st.geqrf(st.Matrix(a, mb=NB, **CPU), opts),
-               lambda: st.gels_tsqr(st.Matrix(a, mb=NB, **CPU),
-                                    st.Matrix(a[:, :2], mb=NB, **CPU), opts),
-               lambda: st.potrf(st.HermitianMatrix(
-                   st.Uplo.Lower, np.eye(8, dtype=np.float32), mb=8, **CPU),
-                   opts)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    A = st.Matrix(a, mb=NB, **CPU)
+    B = st.Matrix(a[:, :2], mb=NB, **CPU)
+    S = st.HermitianMatrix(st.Uplo.Lower, np.eye(8, dtype=np.float32) * 4,
+                           mb=8, **CPU)
+    calls = {"geqrf": lambda o: st.geqrf(A, o),
+             "gels_tsqr": lambda o: st.gels_tsqr(A, B, o),
+             "potrf": lambda o: st.potrf(S, o)}
+    for name, fn in calls.items():
+        with pytest.raises(TypeError, match=name):
+            fn({st.Option.Grid: object()})
+    one = {st.Option.Grid: st.single_device_grid("cpu")}
+    np.testing.assert_allclose(calls["gels_tsqr"](one).to_numpy(),
+                               calls["gels_tsqr"](None).to_numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert torch.equal(calls["potrf"](one).to_dense(),
+                       calls["potrf"](None).to_dense())
