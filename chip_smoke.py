@@ -15,7 +15,11 @@ script exit non-zero without the final result line:
               version, one PyTorch library call computing the same
               function (timed only; the port never calls it) and the
               least time the card could take:
-                kernel.compose_swaps  the swap composition, bitwise, over
+                kernel.compose_swaps  the swap composition, bitwise
+                                      (first 2048 swaps over 10240
+                                      rows, the process's first
+                                      launch at the walk's shared-
+                                      memory boundary), then over
                                       16384 rows: LU sequences of 512,
                                       256, 128, 64 and 32 swaps, one
                                       of targets below their steps and
@@ -346,7 +350,34 @@ script exit non-zero without the final result line:
               with guard.counts() empty (the crash runs' checkpoint
               commits counted and cleared, the planned transfer
               faults' two retries counted and cleared);
- 24. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+ 24. shard_ooc  the sharded out-of-core stream and the elastic mesh
+              (dist/shard_ooc.py, dist/elastic.py). Leg A: a world of one
+              NCCL rank, make_grid(1, 1), at phase ooc's sizes:
+              shard_potrf_ooc at 65536 (panels of 8192) at budget 0 and
+              4 panels, shard_getrf_ooc at 32768 (2 panels), and
+              shard_geqrf_ooc at 65536 x 16384 (panels of 4096), each
+              bitwise its single-engine twin (potrf_ooc,
+              getrf_tntpiv_ooc with its pivots, geqrf_ooc with its taus)
+              run on the same matrix, walls side by side; at 16384
+              (panels of 2048, the size of phase ooc's scheduler runs)
+              shard_potrf_ooc bitwise potrf_ooc, lookahead 1, the graph
+              route and the fused visits bitwise it, bf16 frames of
+              exactly half its broadcast bytes, posv_ooc(grid=...)
+              routed Sharded to phase ooc's backward-error limit, and
+              the three drivers at leg B's budget for leg B. Leg B: four
+              gloo ranks on the card (testing.shard_checks suite
+              "chip", 2 x 2, a budget of 2 panels a rank): potrf, getrf
+              and geqrf, every rank's factor bitwise rank 0's and leg
+              A's at 16384, each rank's ooc.h2d_bytes its schedule's
+              staged_bytes, the ranks' panels disjoint with their union
+              all panels, the tree's rounds counted, lookahead 1 with
+              its overlap fraction, the elastic route with rank 3
+              slowed (at least one remap, bitwise); then shrink to fit:
+              a kill rule ends rank 3 at panel 3 (WorkerLost), and the
+              three survivors resume from the per-rank checkpoints,
+              bitwise. guard.counts() stays empty but for the planned
+              shrink's rung, counted and cleared;
+ 25. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
               n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               posv_ooc at 16384 (panels of 2048), the heev and
@@ -358,7 +389,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 25. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 26. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -653,7 +684,9 @@ def compose_row(piv, m, plain_reps=5):
 
 def phase_compose_swaps(rng, seed, results):
     """The swap composition over m = 16384 rows, bitwise against the
-    plain version: LU sequences of gesv's 512 swaps and of the recursive
+    plain version (first, as the process's first launch, 2048 swaps over
+    10240 rows, the shared-memory boundary of its walk): LU sequences of
+    gesv's 512 swaps and of the recursive
     panel's split sizes (the kernel's sorted path), then 512 targets
     below their steps (not an LU sequence) and 512 outside [0, m) (its
     in-order walk, XLA's semantics). No PyTorch call composes swaps
@@ -664,6 +697,14 @@ def phase_compose_swaps(rng, seed, results):
     come from a generator of their own (from `seed`)."""
     m = N
     out = {"phase": "kernel.compose_swaps", "ok": True}
+    # the process's first launch at m + w = 12288: 48 KiB of dynamic
+    # shared memory, which with the kernel's static flags needs the
+    # opt-in (the sharded stream's tournament met it on a fresh rank)
+    s = compose_row(torch.as_tensor(lu_swaps(
+        np.random.default_rng(seed + 2), 10240, 2048), device="cuda"),
+        10240)
+    out["first_launch.2048_over_10240"] = s
+    out["ok"] &= s["bitwise"]
     own = np.random.default_rng(seed + 1)
     cases = [("lu.512", lu_swaps(rng, m, 512))]
     cases += [("lu.%d" % w, lu_swaps(own, m, w)) for w in SWAP_WIDTHS[1:]]
@@ -3726,7 +3767,8 @@ def ooc_run(fn):
     c = snap["counters"]
     rep = {k: c.get(k, 0) for k in OOC_COUNTERS}
     rep.update({k: v for k, v in c.items()
-                if k.startswith("refine.ooc") or k.startswith("ooc.visit")})
+                if k.startswith("refine.ooc") or k.startswith("ooc.visit")
+                or k.startswith("ooc.shard.")})
     hist = snap.get("histograms", {})
     for k in ("ooc.prefetch.overlap_fraction", "ooc.d2h.overlap_fraction",
               "refine.ooc.iters"):
@@ -4172,6 +4214,327 @@ def phase_ooc(seed, results, system):
     import resource
     out["host_peak_rss_gib"] = resource.getrusage(
         resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    out["ok"] = bool(ok and guard.counts() == {})
+    return out
+
+
+# -- the sharded out-of-core stream and the elastic mesh (dist/) ------------
+
+#: leg B's launches: their time limit, and the grace the survivors of the
+#: planned kill get before the launch reaps them
+SHARD_LAUNCH_TIMEOUT, SHARD_DEATH_GRACE = 600, 5.0
+
+
+def shard_digest(r):
+    """shard_checks.digest of each part of a driver's result."""
+    from slate_tpu_torch.testing.shard_checks import digest
+    return "".join(digest(v) for v in (r if isinstance(r, tuple)
+                                       else (r,)))
+
+
+def host_rss_gib():
+    """This process's resident host memory, GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def shard_call(fn, launches):
+    """ooc_run of one sharded call, its kernel launches added to
+    `launches`. Collects first: leg A holds two 17.2 GB factors at a
+    time, and a third left to the collector would not fit the host."""
+    import gc
+    gc.collect()
+    pk.reset_launch_counts()
+    wall, r, rep = ooc_run(fn)
+    rep["host_rss_gib"] = host_rss_gib()
+    for k, v in pk.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    return wall, r, rep
+
+
+def same_result(x, y):
+    """Bitwise equality of two driver results (arrays or tuples)."""
+    x = x if isinstance(x, tuple) else (x,)
+    y = y if isinstance(y, tuple) else (y,)
+    return all(host_equal(u, v) for u, v in zip(x, y))
+
+
+def shard_twin(name, shard, twin, out, launches):
+    """One sharded call beside its single-engine twin on the same host
+    matrix: both walls, bitwise equality."""
+    import gc
+    gc.collect()
+    wall_t, rt, _ = ooc_run(twin)
+    wall_s_, rs, rep = shard_call(shard, launches)
+    same = same_result(rs, rt)
+    del rs, rt
+    out[name] = {"wall_s": wall_s_, "single_engine_wall_s": wall_t,
+                 "bitwise_single_engine": same,
+                 "bcast_bytes": rep.get("ooc.shard.bcast_bytes"),
+                 "h2d_bytes": rep["ooc.h2d_bytes"],
+                 "host_rss_gib": rep["host_rss_gib"],
+                 "ledger": rep["ledger"]}
+    return same
+
+
+def shard_variants(grid, s16, b16, w, out, launches):
+    """On s16 (n = 16384 on the card, the size of phase ooc's scheduler
+    runs) in panels of w: shard_potrf_ooc beside potrf_ooc at budget 0,
+    then lookahead 1, the graph route and the fused visits bitwise it,
+    bf16 frames at exactly half its broadcast bytes, and posv_ooc routed
+    Sharded to phase ooc's backward-error limit."""
+    n = s16.shape[0]
+    wall_t, L0, _ = ooc_run(lambda: st.potrf_ooc(s16, w, 0))
+    ok = True
+    for name, kw in (("potrf_16384", {}),
+                     ("potrf_d1", dict(lookahead=1)),
+                     ("potrf_graph", dict(scheduler="graph")),
+                     ("potrf_fused", dict(lookahead=1,
+                                          visit_fuse="fused")),
+                     ("potrf_bf16", dict(precision="bf16"))):
+        wall, L, rep = shard_call(lambda: st.dist.shard_potrf_ooc(
+            s16, grid, panel_cols=w, cache_budget_bytes=0, **kw),
+            launches)
+        rec = {"n": n, "panel_cols": w, "wall_s": wall,
+               "bcast_bytes": rep.get("ooc.shard.bcast_bytes")}
+        if name == "potrf_bf16":
+            rec["f32_bcast_bytes"] = out["potrf_16384"]["bcast_bytes"]
+            rec["max_abs_diff_f32"] = float(np.abs(L - L0).max())
+            ok &= 2 * rec["bcast_bytes"] == rec["f32_bcast_bytes"] \
+                and bool(np.isfinite(L).all())
+        else:
+            rec["bitwise_single_engine"] = host_equal(L, L0)
+            ok &= rec["bitwise_single_engine"]
+        out[name] = rec
+    out["potrf_16384"]["single_engine_wall_s"] = wall_t
+    wall, (_, X), rep = shard_call(lambda: st.posv_ooc(
+        s16, b16, panel_cols=w, grid=grid, method="sharded"), launches)
+    e = ooc_berr(torch.from_numpy(s16).cuda(), X, b16)
+    ok &= e <= OOC_BERR and rep["ooc.shard.bcast_panels"] == n // w
+    out["posv_ooc_sharded"] = {"n": n, "panel_cols": w, "wall_s": wall,
+                               "backward_error": e,
+                               "bcast_panels":
+                               rep["ooc.shard.bcast_panels"]}
+    return ok
+
+
+def shard_leg_a(seed, results, out):
+    """Leg A (module doc, phase 24): one NCCL rank at phase ooc's sizes,
+    then at 16384 the variants and the runs leg B is held to. Returns
+    (ok, leg B's reference digests)."""
+    import torch.distributed as tdist
+    from slate_tpu_torch.testing import shard_checks as sc
+    rdzv = tempfile.mkdtemp(prefix="slate_shard_pg_")
+    tdist.init_process_group("nccl", init_method="file://%s/store" % rdzv,
+                             rank=0, world_size=1)
+    launches, ok, ref = {}, True, {}
+    try:
+        grid = st.make_grid(1, 1)
+        out["grid"] = repr(grid)
+        gen = torch.Generator("cuda").manual_seed(seed + 24)
+        a = host(ooc_spd(gen, N_OOC))
+        free_card()
+        budget = 4 * N_OOC * W_OOC * 4
+        for name, bud in (("potrf_budget0", 0), ("potrf_budget4", budget)):
+            ok &= shard_twin(
+                name, lambda: st.dist.shard_potrf_ooc(
+                    a, grid, panel_cols=W_OOC, cache_budget_bytes=bud),
+                lambda: st.potrf_ooc(a, W_OOC, bud), out, launches)
+        del a
+        G, _ = permuted_boosted_system(gen, N_OOC_LU, 1)
+        g = host(G)
+        del G
+        lbud = 2 * N_OOC_LU * W_OOC * 4
+        ok &= shard_twin(
+            "getrf", lambda: st.dist.shard_getrf_ooc(
+                g, grid, panel_cols=W_OOC, cache_budget_bytes=lbud),
+            lambda: st.getrf_tntpiv_ooc(g, W_OOC,
+                                        cache_budget_bytes=lbud),
+            out, launches)
+        del g
+        G = torch.randn((GELS_M, GELS_N), generator=gen, device="cuda")
+        g = host(G)
+        del G
+        free_card()
+        ok &= shard_twin(
+            "geqrf", lambda: st.dist.shard_geqrf_ooc(
+                g, grid, panel_cols=GELS_W, cache_budget_bytes=0),
+            lambda: st.geqrf_ooc(g, GELS_W, cache_budget_bytes=0),
+            out, launches)
+        del g
+        free_card()
+        # at 16384: the variants, and leg B's references (one rank, the
+        # same matrices and budget)
+        n, w = sc.CHIP_N, sc.CHIP_W
+        s16 = sc.chip_matrix(n, torch.device("cuda"))
+        g16 = sc.chip_lu_matrix(n, torch.device("cuda"))
+        b16 = torch.randn((n, NRHS), generator=gen,
+                          device="cuda").cpu().numpy()
+        ok &= shard_variants(grid, s16, b16, w, out, launches)
+        cb = sc.CHIP_BUDGET_PANELS * n * w * 4
+        pk.reset_launch_counts()
+        walls = {}
+        for name, call in (
+                ("potrf", lambda: st.dist.shard_potrf_ooc(
+                    s16, grid, panel_cols=w, cache_budget_bytes=cb)),
+                ("getrf", lambda: st.dist.shard_getrf_ooc(
+                    g16, grid, panel_cols=w, cache_budget_bytes=cb)),
+                ("geqrf", lambda: st.dist.shard_geqrf_ooc(
+                    g16, grid, panel_cols=w, cache_budget_bytes=cb))):
+            walls[name], r = wall_s(call)
+            ref[name] = shard_digest(r)
+        for k, v in pk.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        out["one_rank_16384_wall_s"] = walls
+        del s16, g16
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    add_phase_launches(results, "shard_ooc", launches)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    ok &= launches.get("compose_swaps", 0) > 0
+    return ok, ref
+
+
+def shard_launch(suite, n, d, **kw):
+    """One launch of testing.shard_checks on the card under gloo:
+    (wall seconds, per-rank records)."""
+    from slate_tpu_torch.testing import grid_checks, multiproc
+    from slate_tpu_torch.testing import shard_checks as sc
+    extra = kw.pop("extra", [])
+    t0 = time.perf_counter()
+    procs, outs = multiproc.launch(
+        "slate_tpu_torch.testing.shard_checks", n,
+        extra_args=[suite, "--device", "cuda:0", "--backend", "gloo",
+                    "--n", str(sc.CHIP_N), "--w", str(sc.CHIP_W)]
+        + extra, outdir=d, timeout=SHARD_LAUNCH_TIMEOUT, **kw)
+    wall = time.perf_counter() - t0
+    bad = [i for i, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise RuntimeError("shard_checks %s: ranks %s exited nonzero\n%s" % (
+            suite, bad, "\n".join("-- rank %d --\n%s" % (i, outs[i][-2500:])
+                                  for i in bad)))
+    return wall, grid_checks.load(outs)
+
+
+def shard_leg_b(ref, out):
+    """Leg B (module doc, phase 24): four gloo ranks on the card, then
+    the planned kill and the survivors' resume."""
+    from slate_tpu_torch.dist import elastic
+    from slate_tpu_torch.dist.tree import schedule_ppermutes
+    from slate_tpu_torch.resil import faults
+    from slate_tpu_torch.testing import shard_checks as sc
+    d = tempfile.mkdtemp(prefix="slate_shard_")
+    ok = True
+    try:
+        wall, ranks = shard_launch("chip", 4, d)
+        recs = [r["2x2.chip"] for r in ranks]
+        nt = sc.CHIP_N // sc.CHIP_W
+        mine = [set(r["my_panels"]) for r in recs]
+        disjoint = sum(len(m_) for m_ in mine) == nt \
+            and set().union(*mine) == set(range(nt))
+        rounds = nt * schedule_ppermutes(4, 2)
+        runs = {}
+        for name in ("potrf", "potrf_d1", "getrf", "geqrf", "elastic"):
+            want = ref["potrf" if name in ("potrf_d1", "elastic")
+                       else name]
+            rs = [r[name] for r in recs]
+            runs[name] = {
+                "walls_s": [r_["wall_s"] for r_ in rs],
+                "bitwise_rank0": all(r_["sha"] == rs[0]["sha"]
+                                     for r_ in rs),
+                "bitwise_one_rank": rs[0]["sha"] == want,
+                "h2d_equals_staged_bytes": all(
+                    r_["h2d"] == r_["expect"] for r_ in rs),
+                "spills": [r_["spills"] for r_ in rs],
+                "rounds": [r_["permutes"] for r_ in rs],
+                "bcast_bytes": rs[0]["bcast_bytes"],
+                "gloo_host_staged_bytes": [r_["gloo_staged_bytes"]
+                                           for r_ in rs],
+                "overlap_fraction": [r_["overlap_fraction"] for r_ in rs]}
+            ok &= runs[name]["bitwise_rank0"] \
+                and runs[name]["bitwise_one_rank"] \
+                and all(r_["permutes"] == rounds for r_ in rs)
+            if name != "elastic":
+                ok &= runs[name]["h2d_equals_staged_bytes"] \
+                    and not any(runs[name]["spills"])
+        remaps = [r["elastic"]["records"] for r in recs]
+        runs["elastic"]["remap_records"] = remaps
+        ok &= disjoint and all(r_["remaps"] >= 1 for r_ in remaps)
+        out["four_ranks"] = {"grid": "2x2", "backend": "gloo",
+                             "n": sc.CHIP_N, "panel_cols": sc.CHIP_W,
+                             "budget_panels": sc.CHIP_BUDGET_PANELS,
+                             "launch_wall_s": wall,
+                             "panels_disjoint_cover": disjoint,
+                             "rounds_expected": rounds, "runs": runs}
+        # shrink to fit: rank 3 is killed at panel KILL_STEP; the three
+        # survivors resume from the per-rank checkpoints
+        ck = os.path.join(d, "ck")
+        os.makedirs(ck)
+        plan = faults.FaultPlan([{
+            "site": "step", "match": {"op": "shard_potrf_ooc",
+                                      "step": sc.KILL_STEP, "host": 3},
+            "times": 1, "kind": "kill"}])
+        lost, guard_seen = [], {}
+
+        def primary():
+            shard_launch("chip_shrink", 4, d, extra=["--ckpt", ck],
+                         death_grace=SHARD_DEATH_GRACE,
+                         lost_on_failure=True,
+                         env=faults.install_env_var(plan))
+            return None            # a run the kill missed fails below
+
+        def survivors(e):
+            lost.append((e.process_id, e.returncode))
+            guard_seen.update(guard.counts())
+            return shard_launch("chip_survivors", 3, d,
+                                extra=["--ckpt", ck])
+
+        assert guard.counts() == {}
+        elastic.reset_remap_records()
+        t0 = time.perf_counter()
+        res = elastic.shrink_to_fit(primary, survivors, op="shard_potrf_ooc")
+        shrink_wall = time.perf_counter() - t0
+        shrinks = elastic.remap_records()["shrinks"]
+        guard.reset_counts()
+        srecs = [r["1x3.survivors"] for r in res[1]] if res else []
+        out["shrink"] = {
+            "lost": lost, "guard_counts": guard_seen,
+            "shrinks": shrinks, "wall_s": shrink_wall,
+            "survivor_launch_wall_s": res[0] if res else None,
+            "resume_epochs": [r["resume_epoch"] for r in srecs],
+            "survivor_walls_s": [r["wall_s"] for r in srecs],
+            "bitwise_static": bool(srecs) and all(
+                r["sha"] == ref["potrf"] for r in srecs)}
+        ok &= lost == [(3, faults.KILL_EXIT_CODE)] and shrinks == 1 \
+            and guard_seen == {"resil.fallback.shard_shrink": 1,
+                               "resil.fallbacks": 1} \
+            and out["shrink"]["bitwise_static"] \
+            and out["shrink"]["resume_epochs"] == [sc.KILL_STEP] * 3
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return ok
+
+
+def phase_shard_ooc(seed, results):
+    """The sharded out-of-core stream and the elastic mesh (the module
+    doc's phase 24)."""
+    out = {"phase": "shard_ooc"}
+    fresh_tune_cache()
+    t0 = time.perf_counter()
+    ok, ref = shard_leg_a(seed, results, out)
+    out["leg_a_ok"] = bool(ok)
+    out["leg_a_seconds"] = round(time.perf_counter() - t0, 3)
+    out["leg_a_guard_counts"] = guard.counts()
+    ok &= guard.counts() == {}
+    free_card()
+    t0 = time.perf_counter()
+    out["leg_b_ok"] = shard_leg_b(ref, out)
+    ok &= out["leg_b_ok"]
+    out["leg_b_seconds"] = round(time.perf_counter() - t0, 3)
     out["ok"] = bool(ok and guard.counts() == {})
     return out
 
@@ -4710,6 +5073,7 @@ def main():
         ("serve", lambda: phase_serve(args.seed, results)),
         ("grid", lambda: phase_grid(args.seed, results, system)),
         ("ooc", lambda: phase_ooc(args.seed, results, system)),
+        ("shard_ooc", lambda: phase_shard_ooc(args.seed, results)),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:

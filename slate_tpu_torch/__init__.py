@@ -63,8 +63,9 @@ from .core import (BandMatrix, Diag, DimensionError,  # noqa: E402,F401
                    Matrix, MatrixType, Norm, NormScope, MethodBatchStrategy,
                    MethodCholQR, MethodEig, MethodFactor, MethodGels,
                    MethodGemm, MethodHemm, MethodLU, MethodLUPanel,
-                   MethodLUPivot, MethodOOC, MethodPrecision,
-                   MethodScheduler, MethodSVD, MethodTrsm, MethodVisitFuse,
+                   MethodLUPivot, MethodOOC, MethodOwnership,
+                   MethodPrecision, MethodScheduler, MethodSVD, MethodTrsm,
+                   MethodVisitFuse,
                    Op, Option, OptionError, Side, SlateError,
                    SymmetricMatrix, Target, TiledMatrix, TileKind,
                    TrapezoidMatrix, TriangularBandMatrix, TriangularMatrix,

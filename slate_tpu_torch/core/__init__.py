@@ -12,8 +12,9 @@ from .matrix import (BandMatrix, HermitianBandMatrix,  # noqa: F401
 from .methods import (MethodBatchStrategy, MethodCholQR,  # noqa: F401
                       MethodEig, MethodFactor, MethodGels, MethodGemm,
                       MethodHemm, MethodLU, MethodLUPanel, MethodLUPivot,
-                      MethodOOC, MethodPrecision, MethodScheduler,
-                      MethodSVD, MethodTrsm, MethodVisitFuse, str2method)
+                      MethodOOC, MethodOwnership, MethodPrecision,
+                      MethodScheduler, MethodSVD, MethodTrsm,
+                      MethodVisitFuse, str2method)
 from .options import (get_option, get_option_tuned,  # noqa: F401
                       normalize_options)
 from .tiles import TiledMatrix, ceil_div, next_pow2, round_up  # noqa: F401

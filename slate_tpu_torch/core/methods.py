@@ -246,8 +246,7 @@ class MethodOOC(enum.Enum):
     """Execution route of the out-of-core streams when a grid is
     supplied: ``Stream`` (the single-device host <-> device stream,
     linalg/ooc.py through linalg/stream.py) or ``Sharded`` (the
-    block-cyclic multi-process stream of the reference's
-    dist/shard_ooc.py, which comes with ROADMAP queue 1, item 10).
+    block-cyclic multi-process stream, dist/shard_ooc.py).
     ``Auto`` resolves through the tune cache (``ooc/shard_method``,
     FROZEN "stream"); a measured "sharded" entry is demoted to Stream
     below ``ooc/shard_min_panels`` panels per rank."""
@@ -383,6 +382,31 @@ class MethodVisitFuse(enum.Enum):
             if m is MethodVisitFuse.Auto else m
 
 
+class MethodOwnership(enum.Enum):
+    """Panel ownership of the sharded out-of-core stream:
+    ``Static`` is the block-cyclic ``CyclicSchedule`` (ownership is
+    arithmetic on the panel index, fixed for the stream); ``Elastic``
+    re-owns not-yet-factored panels away from slow ranks at segment
+    boundaries (dist/elastic.py), bitwise the static result. ``Auto``
+    resolves through ``mesh/ownership`` (FROZEN "static")."""
+    Auto = "auto"
+    Static = "static"
+    Elastic = "elastic"
+
+    @staticmethod
+    def resolve(n: int, dtype) -> "MethodOwnership":
+        """The tuned / frozen ``mesh/ownership`` route (an unknown value
+        demotes to Static)."""
+        from ..tune.select import resolve as _resolve
+        try:
+            m = str2method("ownership", str(_resolve(
+                "mesh", "ownership", n=n, dtype=dtype)))
+        except KeyError:
+            m = MethodOwnership.Static
+        return MethodOwnership.Static if m is MethodOwnership.Auto \
+            else m
+
+
 class MethodEig(enum.Enum):
     """Eigensolver backend: QR iteration vs divide & conquer."""
     Auto = "auto"
@@ -410,6 +434,7 @@ def str2method(family: str, s: str):
            "eig": MethodEig, "svd": MethodSVD, "ooc": MethodOOC,
            "lu_pivot": MethodLUPivot, "precision": MethodPrecision,
            "scheduler": MethodScheduler,
+           "ownership": MethodOwnership,
            "visit_fuse": MethodVisitFuse}[family]
     for mem in fam:
         if mem.value.lower() == s.lower() or mem.name.lower() == s.lower():

@@ -10,17 +10,24 @@ row-local dsteqr2.f):
   stedc.py     - distributed Cuppen divide & conquer
   steqr2.py    - row-local QR-iteration transform accumulation
   tuneshare.py - rank 0's tuning-table broadcast and best-entry merge
-  elastic.py   - the remap-record mirror the serving daemon's admission
-                 ladder reads
+  shard_ooc.py - the sharded out-of-core stream: block-cyclic panel
+                 ownership, each rank staging its own panels through
+                 linalg/stream.py, factor frames over the tree
+  elastic.py   - throughput-driven re-ownership of the sharded stream's
+                 panels, shrink-to-fit after a lost rank, and the
+                 remap-record mirror the serving daemon reads
 
 Consumers: qr.gels_tsqr and the grid geqrf's tall-skinny route,
-eig.stedc and eig.steqr2 on a grid, testing.multiproc.startup. The
-sharded out-of-core stream (``shard_ooc.py``) and the elastic schedule
-are ROADMAP queue 1, item 10b.
+eig.stedc and eig.steqr2 on a grid, the out-of-core drivers' grid route
+(linalg/ooc.py through MethodOOC), testing.multiproc.startup.
 """
 
-from . import elastic, stedc, steqr2, tree, tsqr, tuneshare  # noqa: F401
+from . import (elastic, shard_ooc, stedc, steqr2, tree,  # noqa: F401
+               tsqr, tuneshare)
 from .elastic import remap_records, reset_remap_records  # noqa: F401
+from .elastic import shrink_to_fit                        # noqa: F401
+from .shard_ooc import (shard_geqrf_ooc, shard_getrf_ooc,  # noqa: F401
+                        shard_potrf_ooc)
 from .steqr2 import steqr2_qr_dist       # noqa: F401
 from .stedc import stedc_solve_dist      # noqa: F401
 from .tsqr import tsqr as tsqr_mesh      # noqa: F401

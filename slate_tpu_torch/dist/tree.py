@@ -13,8 +13,8 @@ dist/tsqr.py) give the same bits on every rank without a broadcast
 down. `fanin` (the group size; reference ttqrt is 2) is a tunable.
 
 The exchanges are ``isend`` / ``irecv`` within the axis group, posted
-together (``torch.distributed.batch_isend_irecv``: NCCL on the card,
-gloo on the CPU) and counted as the reference's g-1
+together (``parallel.collectives.exchange``: NCCL on the card, gloo on
+the CPU, gloo with CUDA tensors through a host copy) and counted as the reference's g-1
 ``collective-permute`` a round. The functions that run inside the
 reference's ``shard_map`` take the grid here and run on this rank's
 block. ``row_apply`` is the row-local shape: this rank's row block,

@@ -43,9 +43,11 @@ walks or the sched/ task graphs, bitwise the same), ``visit_fuse``
 (MethodVisitFuse), ``pivot`` (MethodLUPivot). Drivers take and return
 numpy arrays and run on the card unless ``device`` names another.
 
-Not ported yet: the sharded stream. Any ``grid`` raises
-NotImplementedError naming ROADMAP queue 1, item 10, before any
-transfer. Left out on purpose (ROADMAP): the traced-k0 roll-and-mask of
+With a ``grid`` (a parallel.ProcessGrid; anything else raises TypeError
+before any transfer) the factor drivers arbitrate through MethodOOC
+(``method=``, FROZEN "stream") and may take the sharded stream of
+dist/shard_ooc.py; the composite drivers route their factor phase.
+Left out on purpose (ROADMAP): the traced-k0 roll-and-mask of
 the reference's panel factors and the ``dynamic_slice`` offsets of its
 visits (the port factors the live rows S[k0:] at their true size and
 slices its visits; the dead rows were exact zeros that never win a
@@ -178,15 +180,47 @@ def _precision_meta(lo) -> str:
     return dtype_name(lo)
 
 
-def _route_shard(n: int, nt: int, grid, method, dtype) -> bool:
-    """Grid arbitration: no grid is the stream path. The sharded stream
-    (the reference's dist/shard_ooc.py, MethodOOC.Sharded) is not
-    ported, so any grid raises, before any transfer."""
+def _grid_or_none(grid, what: str):
+    """`grid` as a ProcessGrid this rank belongs to, or None; anything
+    else raises TypeError naming the driver, before any transfer."""
+    if grid is None:
+        return None
+    from ..core.options import Option
+    from ..parallel.mesh import option_grid
+    return option_grid({Option.Grid: grid}, what)
+
+
+def _shard_escalate(primary, fallback, op: str, grid):
+    """The ``shard_to_stream`` rung, on a grid of one rank only: there
+    a transient failure of the sharded stream steps down to the
+    single-engine stream (guard.record_escalation). On more ranks the
+    failure propagates: one rank rerouting alone would desert the
+    collective its peers wait in."""
+    if grid.nprocs > 1:
+        return primary()
+    return _rguard.escalate(primary, fallback, "shard_to_stream", op=op)
+
+
+def _route_shard(n: int, nt: int, grid, method, dtype,
+                 what: str = "ooc") -> bool:
+    """Grid arbitration: True when the call takes the sharded stream
+    (dist/shard_ooc.py). No grid is the stream path; a grid that is not
+    a ProcessGrid raises TypeError before any transfer. Explicit
+    ``method`` (MethodOOC or its string) wins; Auto resolves through the
+    tune cache (MethodOOC.resolve: FROZEN "stream", so a cold cache keeps
+    the single-engine stream bitwise with a grid). The route is grid
+    rank 0's (collectives.agree): every rank takes the same one."""
+    grid = _grid_or_none(grid, what)
     if grid is None:
         return False
-    from .lu import _not_ported
-    raise _not_ported("the sharded out-of-core stream (grid=, "
-                      "dist/shard_ooc.py, item 10)")
+    from ..core.methods import MethodOOC, str2method
+    from ..parallel.collectives import agree
+    m = method if method is not None else MethodOOC.Auto
+    if isinstance(m, str):
+        m = str2method("ooc", m)
+    if m is MethodOOC.Auto:
+        m = MethodOOC.resolve(n, nt, grid.nprocs, dtype)
+    return bool(agree(grid, m is MethodOOC.Sharded)[0])
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -549,7 +583,20 @@ def potrf_ooc(a: np.ndarray, panel_cols: Optional[int] = None,
     n = a.shape[0]
     panel_cols = _panel_cols(panel_cols, n, a.dtype)
     nt = ceil_div(n, panel_cols)
-    _route_shard(n, nt, grid, method, a.dtype)
+    if _route_shard(n, nt, grid, method, a.dtype, "potrf_ooc"):
+        from ..dist.shard_ooc import shard_potrf_ooc
+        return _shard_escalate(
+            lambda: shard_potrf_ooc(
+                a, grid, panel_cols=panel_cols,
+                cache_budget_bytes=cache_budget_bytes,
+                ckpt_path=ckpt_path, ckpt_every=ckpt_every,
+                precision=precision, scheduler=scheduler,
+                visit_fuse=visit_fuse),
+            lambda: potrf_ooc(a, panel_cols, cache_budget_bytes,
+                              ckpt_path=ckpt_path, ckpt_every=ckpt_every,
+                              precision=precision, scheduler=scheduler,
+                              visit_fuse=visit_fuse, device=grid.device),
+            "potrf_ooc", grid)
     dev = resolve_device(device)
     lo = _resolve_precision(precision, n, a.dtype)
     ck = _rckpt.maybe_checkpointer(
@@ -805,7 +852,8 @@ def getrf_ooc(a: np.ndarray, panel_cols: Optional[int] = None,
     m, n = a.shape
     kmax = min(m, n)
     w = min(_panel_cols(panel_cols, n, a.dtype), n)
-    _route_shard(n, ceil_div(n, w), grid, method, a.dtype)
+    sharded = _route_shard(n, ceil_div(n, w), grid, method, a.dtype,
+                           "getrf_ooc")
     mode = pivot
     if isinstance(mode, str):
         mode = str2method("lu_pivot", mode)
@@ -829,6 +877,26 @@ def getrf_ooc(a: np.ndarray, panel_cols: Optional[int] = None,
             "partial-pivot walk has no graph route); drop "
             "pivot='partial' or visit_fuse='fused'")
         mode = MethodLUPivot.Tournament
+    if sharded:
+        slate_assert(
+            asked is None or asked is MethodLUPivot.Tournament,
+            "the sharded OOC LU is tournament-only (a partial-pivot "
+            "fixup rewrites panels every rank holds); drop "
+            "pivot='partial' or route method='stream'")
+        from ..dist.shard_ooc import shard_getrf_ooc
+        return _shard_escalate(
+            lambda: shard_getrf_ooc(
+                a, grid, panel_cols=w, incore_nb=incore_nb,
+                cache_budget_bytes=cache_budget_bytes, chunk=chunk,
+                ckpt_path=ckpt_path, ckpt_every=ckpt_every,
+                precision=precision, scheduler=scheduler,
+                visit_fuse=visit_fuse),
+            lambda: getrf_tntpiv_ooc(
+                a, w, incore_nb, cache_budget_bytes, chunk=chunk,
+                ckpt_path=ckpt_path, ckpt_every=ckpt_every,
+                precision=precision, scheduler=scheduler,
+                visit_fuse=visit_fuse, device=grid.device),
+            "getrf_ooc", grid)
     if mode is MethodLUPivot.Tournament:
         return getrf_tntpiv_ooc(a, w, incore_nb, cache_budget_bytes,
                                 chunk=chunk, ckpt_path=ckpt_path,
@@ -1238,7 +1306,24 @@ def geqrf_ooc(a: np.ndarray, panel_cols: Optional[int] = None,
     kmax = min(m, n)
     w = min(_panel_cols(panel_cols, n, a.dtype), n)
     if engine is None:
-        _route_shard(n, ceil_div(n, w), grid, method, a.dtype)
+        if _route_shard(n, ceil_div(n, w), grid, method, a.dtype,
+                        "geqrf_ooc"):
+            from ..dist.shard_ooc import shard_geqrf_ooc
+            return _shard_escalate(
+                lambda: shard_geqrf_ooc(
+                    a, grid, panel_cols=w, incore_ib=incore_ib,
+                    cache_budget_bytes=cache_budget_bytes,
+                    ckpt_path=ckpt_path, ckpt_every=ckpt_every,
+                    precision=precision, scheduler=scheduler,
+                    visit_fuse=visit_fuse),
+                lambda: geqrf_ooc(a, w, incore_ib, cache_budget_bytes,
+                                  ckpt_path=ckpt_path,
+                                  ckpt_every=ckpt_every,
+                                  precision=precision,
+                                  scheduler=scheduler,
+                                  visit_fuse=visit_fuse,
+                                  device=grid.device),
+                "geqrf_ooc", grid)
         lo = _resolve_precision(precision, n, a.dtype)
     else:
         # a shared engine holds one dtype's residents: an explicit
@@ -1463,12 +1548,24 @@ def gels_ooc(a: np.ndarray, b: np.ndarray,
                  "back-substitution sweep indexes n factor rows")
     panel_cols = _panel_cols(panel_cols, n, a.dtype)
     w = min(panel_cols, n)
-    _route_shard(n, ceil_div(n, w), grid, method, a.dtype)
+    sharded = _route_shard(n, ceil_div(n, w), grid, method, a.dtype,
+                           "gels_ooc")
     eng = stream.engine_for(m, w, a.dtype,
                             budget_bytes=cache_budget_bytes,
                             device=device)
     try:
-        qr_p, taus = geqrf_ooc(a, panel_cols, engine=eng)
+        if sharded:
+            # the factor on the grid; the apply and the R sweep on this
+            # rank's engine
+            from ..dist.shard_ooc import shard_geqrf_ooc
+            qr_p, taus = _shard_escalate(
+                lambda: shard_geqrf_ooc(
+                    a, grid, panel_cols=w,
+                    cache_budget_bytes=cache_budget_bytes),
+                lambda: geqrf_ooc(a, panel_cols, engine=eng),
+                "gels_ooc", grid)
+        else:
+            qr_p, taus = geqrf_ooc(a, panel_cols, engine=eng)
         y = unmqr_ooc(qr_p, taus, np.asarray(b), trans=True,
                       panel_cols=panel_cols, engine=eng)
         X = _to_dev(y[:n], eng.device)

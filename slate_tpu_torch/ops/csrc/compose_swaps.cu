@@ -281,7 +281,10 @@ int compose_swaps(const int* piv, int batch, int w, int m, long long* perm,
     size_t dyn = sort_ok ? sizeof(unsigned) * ((size_t)P + w) : 0;
     const size_t walk = sizeof(int) * ((size_t)m + w);
     if (walk_in_smem && walk > dyn) dyn = walk;
-    if (dyn > 48 * 1024) {
+    // the opt-in is needed once dynamic plus static shared memory (the
+    // fill flags) pass the default 48 KiB, and must not rest on an
+    // earlier, larger call having raised the attribute
+    if (dyn + sizeof(unsigned) * (CS_FILL_SPAN / 32) > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             compose_swaps_kernel,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);

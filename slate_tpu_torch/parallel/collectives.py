@@ -19,7 +19,8 @@ operation carries it: the gathers and the scatter are masked
 elsewhere; ``x + 0`` is exact), because ``broadcast`` and
 ``all_reduce`` are the operations gloo also takes on CUDA tensors.
 ``ring_shift`` and the tree engine (``dist/tree.py``) exchange by
-``isend`` / ``irecv`` (NCCL on the card, gloo on the CPU). The drivers'
+``isend`` / ``irecv`` (:func:`exchange`: NCCL on the card, gloo on the
+CPU; gloo with a CUDA tensor through a host copy). The drivers'
 own gathers and owner broadcasts (``parallel/owner.py``) go through
 :func:`all_reduce` and :func:`broadcast` here and count as
 ``all-reduce``: the reference broadcasts a panel by a masked psum.
@@ -136,16 +137,50 @@ def agree(grid: ProcessGrid, *values: int) -> Tuple[int, ...]:
     return tuple(int(v) for v in broadcast(grid, t, 0).tolist())
 
 
+#: host staging of exchange(): None stages exactly when gloo carries a
+#: CUDA tensor (gloo posts no point-to-point operation on one), True
+#: forces it for any tensor (the tests' check that both paths agree)
+STAGE_ON_HOST = None
+
+_STAGED = {"bytes": 0}
+
+
+def staged_bytes() -> int:
+    """Bytes exchange() copied between the device and the host since
+    the last reset_staged_bytes()."""
+    with _lock:
+        return _STAGED["bytes"]
+
+
+def reset_staged_bytes() -> None:
+    with _lock:
+        _STAGED["bytes"] = 0
+
+
+def _stages(grid: ProcessGrid, x: torch.Tensor) -> bool:
+    if STAGE_ON_HOST is not None:
+        return bool(STAGE_ON_HOST)
+    return grid.backend == "gloo" and x.device.type == "cuda"
+
+
 def exchange(grid: ProcessGrid, x: torch.Tensor, send_to: Sequence[int],
              recv_from: Sequence[int], axis: Axis) -> List[torch.Tensor]:
     """Point-to-point round: send `x` to each position of `send_to` and
     receive one tensor like `x` from each position of `recv_from`
     (positions along `axis`), posted together by ``batch_isend_irecv``
     (one NCCL group, so no pair of ranks waits on each other's send).
-    Not counted here: callers count their rounds."""
+    Under gloo a CUDA `x` travels through a host copy and the received
+    tensors are copied back to its device (:data:`STAGE_ON_HOST`; the
+    bytes copied each way are counted, :func:`staged_bytes` and
+    ``comms.host_staged_bytes``); the values are the same bits. Not
+    counted here: callers count their rounds."""
     g = grid.group(axis)
     peers = grid.axis_ranks(axis)
     x = x.contiguous()
+    dev = x.device
+    staged = _stages(grid, x)
+    if staged:
+        x = x.to("cpu", copy=True)
     bufs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
             for _ in recv_from]
     ops = [dist.P2POp(dist.isend, x, peers[d], g) for d in send_to]
@@ -153,7 +188,16 @@ def exchange(grid: ProcessGrid, x: torch.Tensor, send_to: Sequence[int],
             for b, s in zip(bufs, recv_from)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return bufs
+    if not staged:
+        return bufs
+    nb = x.numel() * x.element_size() * (1 + len(bufs))
+    with _lock:
+        _STAGED["bytes"] += nb
+    from ..obs import events as obs_events
+    if obs_events.enabled():
+        from ..obs import metrics as obs_metrics
+        obs_metrics.inc("comms.host_staged_bytes", nb)
+    return [b.to(dev, copy=True) for b in bufs]
 
 
 def _gather(grid: ProcessGrid, x: torch.Tensor, axis: str, dim: int

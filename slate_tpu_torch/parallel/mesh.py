@@ -25,8 +25,10 @@ group's, chosen at ``init_process_group`` (``testing.multiproc.init``:
 NCCL for a CUDA device, gloo for ``device="cpu"``, or ``backend=``);
 ``grid.backend`` reads it and nothing switches it. Under gloo a CUDA
 device works too (several ranks on one card, which NCCL refuses): the
-drivers use only ``broadcast`` and ``all_reduce``, the two operations
-gloo takes on CUDA tensors.
+in-core drivers use only ``broadcast`` and ``all_reduce``, the two
+operations gloo takes on CUDA tensors, and the point-to-point rounds of
+the tree engine and ``ring_shift`` go through a host copy
+(``collectives.exchange``).
 
 :func:`single_device_grid` is 1 x 1 and needs no process group; its
 collectives are the identity.

@@ -112,12 +112,15 @@ def launch(worker: str, num_processes: int = 2,
            extra_args: Sequence[str] = (),
            env: Optional[Dict[str, str]] = None, timeout: float = 420,
            death_grace: float = DEATH_GRACE_S,
-           outdir: Optional[str] = None
+           outdir: Optional[str] = None, lost_on_failure: bool = False
            ) -> Tuple[List[subprocess.Popen], List[str]]:
     """Run `worker` as `num_processes` ranks of one process group and
     collect their outputs, bounded by `timeout` (module doc). Workers
     write their files into `outdir` (passed as ``SLATE_MP_OUTDIR``;
-    default: the launch's temporary directory, removed on return)."""
+    default: the launch's temporary directory, removed on return).
+    ``lost_on_failure``: a worker that exits nonzero raises WorkerLost
+    naming the first to fail, even when its siblings exit too (a peer
+    that sees the closed connection fails its collective and exits)."""
     from ..resil.guard import WorkerLost
     rdzv = tempfile.mkdtemp(prefix="slate_torch_mp_")
     env = dict(env or {})
@@ -153,6 +156,13 @@ def launch(worker: str, num_processes: int = 2,
         outs = _read_logs(logs)
     finally:
         shutil.rmtree(rdzv, ignore_errors=True)
+    if lost is None and lost_on_failure:
+        codes = [p.returncode for p in procs]
+        bad = [(pid, c) for pid, c in enumerate(codes) if c]
+        # several may have exited between two polls: the one that did
+        # not die of an uncaught exception (exit code 1) failed first
+        lost = failed or next((b for b in bad if b[1] != 1),
+                              bad[0] if bad else None)
     if lost is not None:
         pid, rc = lost
         raise WorkerLost(pid, rc, tail=outs[pid], outs=outs)

@@ -355,8 +355,8 @@ def test_normalize_options_matches_reference():
             jopt.normalize_options(bad)
 
 
-#: str2method families the port still lacks, with their item
-FAMILIES_MISSING = {"ownership": "item 10b (the sharded stream)"}
+#: str2method families the port still lacks, with their item (none)
+FAMILIES_MISSING = {}
 
 
 def test_str2method_every_family_matches_reference():

@@ -7,7 +7,8 @@ residency refined to f32 accuracy. Then the port's own contracts:
 budget 0 bitwise an evicting budget, the prefetch and policy knobs,
 stale L panels retired by the row-swap fixups, the step fault log equal
 to the reference's, the refinement sentinel, checkpoint meta
-mismatches, the tournament / partial rules, and any grid raising."""
+mismatches, the tournament / partial rules, and a grid that is not a
+ProcessGrid raising."""
 
 import json
 
@@ -411,12 +412,14 @@ DRIVERS_WITH_GRID = {
 
 @pytest.mark.parametrize("name", sorted(DRIVERS_WITH_GRID))
 def test_any_grid_raises_before_a_transfer(name):
+    """A grid that is not a parallel.ProcessGrid raises TypeError naming
+    the driver, before any transfer."""
     a = _spd(np.random.default_rng(0), 64)
     b = np.ones((64, 1))
     obs_events.enable()
     metrics.reset()
     try:
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(TypeError, match="ProcessGrid"):
             DRIVERS_WITH_GRID[name](a, b)
         assert "ooc.h2d_bytes" not in metrics.snapshot()["counters"]
     finally:

@@ -146,10 +146,46 @@ def test_kind_tables_equal_reference():
             if s is not None} <= set(faults.SITES)
 
 
-def test_sharded_stream_waits_for_item_10():
-    assert "sharded_stream" not in tsched.__all__
-    with pytest.raises(NotImplementedError, match="item 10"):
-        policies.sharded_stream("shard_potrf_ooc")
+SHARDED_CASES = [dict(depth=d, epoch=e, fused=f, segmented=seg)
+                 for d in (0, 1, 2) for e in (0, 2) for f in (False, True)
+                 for seg in (False, True)]
+
+
+@pytest.mark.parametrize("case", SHARDED_CASES,
+                         ids=lambda c: "d%(depth)d-e%(epoch)d-f%(fused)d-"
+                         "s%(segmented)d" % c)
+def test_sharded_stream_graph_matches_reference(case):
+    """The exported sharded_stream builds the reference's graph: the
+    same nodes (kind, panel, step, owner, key) and edges, for every
+    depth, a resume epoch, fused sweeps and a segment of the elastic
+    route, from one rank's schedule on a 2 x 2 grid."""
+    import torch
+    from slate_tpu.sched import policies as jpol
+    from slate_tpu_torch.core.enums import GridOrder
+    from slate_tpu_torch.dist.shard_ooc import CyclicSchedule
+    from slate_tpu_torch.parallel.mesh import ProcessGrid
+    assert "sharded_stream" in tsched.__all__
+    grid = ProcessGrid(2, 2, GridOrder.Col, range(4), 1,
+                       torch.device("cpu"), None)
+    sched = CyclicSchedule(10, grid)
+    noop = (lambda *a: None)
+    kw = dict(sched=sched, bc=None, st=None, depth=case["depth"],
+              epoch=case["epoch"], factor_panels=list(range(8)),
+              tail_panels=[8, 9], payload_shape=noop,
+              make_payload=noop, complete=noop, replay=noop, apply=noop,
+              tail=noop, fused_apply=noop if case["fused"] else None)
+    if case["segmented"]:
+        kw.update(applied_through=lambda p: min(p, 3), trailing_to=10)
+
+    def shape(g):
+        return [(n.kind, n.panel, n.step, n.owner, n.key,
+                 [d.seq for d in n.deps]) for n in g.nodes]
+
+    got = policies.sharded_stream("shard_potrf_ooc", **kw)
+    want = jpol.sharded_stream("shard_potrf_ooc", **kw)
+    got.validate()
+    assert shape(got) == shape(want)
+    assert got.counts() == want.counts()
 
 
 # -- arbitration --------------------------------------------------------------
