@@ -377,7 +377,34 @@ script exit non-zero without the final result line:
               three survivors resume from the per-rank checkpoints,
               bitwise. guard.counts() stays empty but for the planned
               shrink's rung, counted and cleared;
- 25. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
+ 25. harness  the sweep tester (testing/tester.py, run_tests.py), the
+              tune cache routing the f32 LU as phase gesv: gemm, potrf,
+              posv, getrf, gesv, geqrf and gels at n = 16384, f32, nb
+              512, --check y (the error ratios on the card): every row
+              pass, with its time and GFLOP/s; the launches of
+              lu_panel_rec, _rank_update and compose_swaps under the
+              tester's gesv equal to a direct st.gesv's on the same
+              matrix; the seven at 2048 with --ref y (numpy / scipy on
+              the host); run_tests --quick (all groups), its junit
+              written and read back;
+ 26. c_api    the C API: the library built, a C program (C_PROGRAM)
+              compiled against the port's header and run with
+              slate_tpu_init("cuda"): posv, gesv and gemm at 8192 and
+              gels at 16384 x 2048 in s and d, residuals computed in C
+              (f64 solves: the reference C test's bound scaled by n;
+              f32: backward error <= 1e-6; gels: the tester's ratio;
+              gemm: 64 entries within the rounding bound), two non-SPD
+              posv reporting their exact failing minor, heev and
+              svd_vals at 1024 against numpy; then the same calls'
+              walls through the bridge in this process;
+ 27. nonuniform  TiledMatrix.from_func tiles 4 x 2048 + 8 x 1024 at
+              n = 16384: gemm, potrf, getrf and gesv on the non-uniform
+              matrices beside the same calls on uniform() (in turns,
+              two walls each): residuals
+              <= 1e-6, pivots, factors and X bitwise the uniform
+              route's, the LU kernels launched;
+ 28. examples  examples/torch/run_all.py --device cuda (the 17 twins);
+ 29. profile  gesv on both routes, gesv_mixed, gesv_mixed cold at
               n = 4096, posv on both routes, gbsv and the f32 hesv, the
               square gels, the bf16 gels, one ragged posv flush of 64,
               posv_ooc at 16384 (panels of 2048), the heev and
@@ -389,7 +416,7 @@ script exit non-zero without the final result line:
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
               sweeps, and the LU base case's mean bound a segment;
- 26. the {"kernels": [...]} summary, then the card's nvidia-smi line,
+ 30. the {"kernels": [...]} summary, then the card's nvidia-smi line,
      then {"ok": true, "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
@@ -399,9 +426,11 @@ rate. Needs a CUDA card: without one it exits 2 and prints no result.
 """
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import os
 import shutil
@@ -463,6 +492,7 @@ GELS_BF16_LIMIT = 0.05
 PUBLIC_ENTRY = "public entry (no driver call site in the reference)"
 
 SRC = "slate_tpu_torch/ops/csrc/"
+REPO = os.path.dirname(os.path.abspath(__file__))
 PK = "slate_tpu/ops/pallas_kernels.py:"
 DTYPES = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
 
@@ -4892,6 +4922,601 @@ def phase_svd(seed, results, system):
     return out
 
 
+# -- item 12: the sweep tester, the C API, non-uniform tiles, examples ----
+
+#: the sweep tester's routines at full width (the same gesv / posv /
+#: gels as phases gesv, posv and gels, reached through the harness)
+HARNESS_ROUTINES = ("gemm", "potrf", "posv", "getrf", "gesv", "geqrf",
+                    "gels")
+HARNESS_REF_N = 2048
+#: the LU kernels whose launches under the tester's gesv must equal a
+#: direct gesv's
+HARNESS_KERNELS = ("lu_panel_rec", "rank_update", "compose_swaps")
+
+
+def harness_tune_cache():
+    """Phase gesv's routes for the tester's calls, which pass no
+    options: every f32 LU panel to the recursive kernel, and getrf's
+    blocking at N the 512 of phase gesv's Option.BlockSize (the frozen
+    blocking, 1024, is wider than the recursive kernel takes)."""
+    fresh_tune_cache([torch.float32])
+    cache = tcache.get_cache()
+    cache.put("getrf", torch.float32, N, {"nb": NB})
+    cache.save()
+
+
+def harness_direct_gesv(seed=42, nrhs=10):
+    """The tester's gesv inputs (run_one's generator, seed and order:
+    A, then B, drawn in f64 and cast), solved by a direct st.gesv on
+    the same tiles."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    a = torch.randn((N, N), generator=gen, dtype=torch.float64,
+                    device="cuda").float()
+    b = torch.randn((N, nrhs), generator=gen, dtype=torch.float64,
+                    device="cuda").float()
+    return st.gesv(st.Matrix(a, mb=NB, device="cuda"),
+                   st.Matrix(b, mb=NB, device="cuda"))
+
+
+def phase_harness(results):
+    """The sweep tester (testing/tester.py, run_tests.py) on the card:
+    the seven routines at n = N, f32, nb = NB with --check y (every row
+    pass), the launches of the LU kernels under its gesv equal to a
+    direct gesv's on the same matrix; the seven at HARNESS_REF_N with
+    --ref y; run_tests --quick (all groups) with its junit read back.
+    The f32 LU panels route to the recursive kernel, as in phase
+    gesv."""
+    import xml.etree.ElementTree as ET
+    from slate_tpu_torch.testing import run_tests as trun
+    from slate_tpu_torch.testing import tester
+    harness_tune_cache()
+    out = {"phase": "harness", "n": N, "nb": NB}
+    tester.run_one("gesv", N, np.float32, NB, True, False,
+                   device="cuda")                       # warm-up
+    torch.cuda.synchronize()
+    pk.reset_launch_counts()
+    row = tester.run_one("gesv", N, np.float32, NB, True, False,
+                         device="cuda")
+    via_tester = pk.launch_counts()
+    pk.reset_launch_counts()
+    harness_direct_gesv()
+    torch.cuda.synchronize()
+    direct = pk.launch_counts()
+    out["gesv_launches"] = {k: [via_tester[k], direct[k]]
+                            for k in HARNESS_KERNELS}
+    launches_equal = all(via_tester[k] == direct[k] > 0
+                         for k in HARNESS_KERNELS)
+    t_wall = time.perf_counter()
+    pk.reset_launch_counts()
+    table = io.StringIO()
+    rows = tester.sweep(HARNESS_ROUTINES, str(N), "s", str(NB), "1x1",
+                        check=True, ref=False, out=table, device="cuda")
+    add_phase_launches(results, "harness", pk.launch_counts())
+    out["rows"] = [{k: r[k] for k in ("routine", "time", "gflops",
+                                      "error", "status")} for r in rows]
+    out["sweep_s"] = time.perf_counter() - t_wall
+    t_wall = time.perf_counter()
+    ref_rows = tester.sweep(HARNESS_ROUTINES, str(HARNESS_REF_N), "s",
+                            str(NB), "1x1", check=True, ref=True,
+                            out=table, device="cuda")
+    out["ref_rows"] = [{k: r[k] for k in ("routine", "time", "error",
+                                          "status")} for r in ref_rows]
+    out["ref_sweep_s"] = time.perf_counter() - t_wall
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "quick.xml")
+        t_wall = time.perf_counter()
+        with contextlib.redirect_stdout(table):
+            rc = trun.main(["--quick", "--xml", path, "--device", "cuda"])
+        out["quick_s"] = time.perf_counter() - t_wall
+        suite = ET.parse(path).getroot()
+        cases = suite.findall("testcase")
+        out["quick"] = {"rc": rc, "tests": int(suite.get("tests")),
+                        "failures": int(suite.get("failures"))}
+    print(table.getvalue(), flush=True)
+    out["ok"] = bool(
+        row["status"] == "pass" and launches_equal
+        and all(r["status"] == "pass" for r in rows + ref_rows)
+        and len(rows) == len(ref_rows) == len(HARNESS_ROUTINES)
+        and rc == 0 and out["quick"]["failures"] == 0
+        and len(cases) == out["quick"]["tests"] == 2 * len(trun.ALL))
+    return out
+
+
+#: sizes of the C program (phase c_api)
+C_N, C_M_GELS, C_N_GELS, C_N_EIG = 8192, 16384, 2048, 1024
+#: the reference C test's bound on max |A x - b| (tests/test_c_api.py,
+#: f64 at N = 24), scaled by n; f32 solves are held to the normwise
+#: backward error the other phases hold them to (1e-6); gels to the
+#: sweep tester's ratio (< 100 n eps); gemm entries to the product's
+#: rounding bound 2 k eps (|alpha| |A| |B| + |beta| |C|)
+C_REF_BOUND, C_REF_N = 1e-8, 24
+C_PROGRAM = r"""
+#include <math.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <time.h>
+#include "slate_c.h"
+
+static unsigned long long rs = 88172645463325252ULL;
+static double urand(void) {          /* xorshift64, uniform [0, 1) */
+    rs ^= rs << 13; rs ^= rs >> 7; rs ^= rs << 17;
+    return (double)(rs >> 11) / 9007199254740992.0;
+}
+static double now(void) {
+    struct timespec t; clock_gettime(CLOCK_MONOTONIC, &t);
+    return t.tv_sec + 1e-9 * t.tv_nsec;
+}
+static double ld(const void* p, char dt, size_t i) {
+    return dt == 's' ? ((const float*)p)[i] : ((const double*)p)[i];
+}
+static void sv(void* p, char dt, size_t i, double v) {
+    if (dt == 's') ((float*)p)[i] = (float)v; else ((double*)p)[i] = v;
+}
+static void* mat(char dt, size_t count) {
+    void* p = malloc(count * (dt == 's' ? 4 : 8));
+    if (!p) { printf("OUT OF MEMORY\n"); exit(2); }
+    return p;
+}
+static double eps_of(char dt) { return dt == 's' ? 0x1p-23 : 0x1p-52; }
+static int all_ok = 1;
+static void report(const char* op, char dt, long long n, double wall,
+                   double maxres, double berr, double bound, int ok) {
+    printf("{\"op\": \"%s\", \"dtype\": \"%c\", \"n\": %lld, "
+           "\"wall_s\": %.6f, \"maxres\": %.6e, \"berr\": %.6e, "
+           "\"bound\": %.6e, \"ok\": %s}\n", op, dt, n, wall, maxres, berr,
+           bound, ok ? "true" : "false");
+    fflush(stdout);
+    all_ok &= ok;
+}
+/* max |A x - b| over the columns, and ||A x - b||_inf / (||A||_inf
+ * ||x||_inf) */
+static void residual(char dt, long long n, long long nrhs, const void* a,
+                     const void* x, const void* b, double* maxres,
+                     double* berr) {
+    double anorm = 0, xnorm = 0, rnorm = 0;
+    for (long long i = 0; i < n; i++) {
+        double rowsum = 0;
+        for (long long j = 0; j < n; j++)
+            rowsum += fabs(ld(a, dt, (size_t)i * n + j));
+        if (rowsum > anorm) anorm = rowsum;
+        for (long long r = 0; r < nrhs; r++) {
+            double s = 0;
+            for (long long j = 0; j < n; j++)
+                s += ld(a, dt, (size_t)i * n + j) * ld(x, dt, j * nrhs + r);
+            double d = fabs(s - ld(b, dt, i * nrhs + r));
+            if (d > rnorm) rnorm = d;
+            if (fabs(ld(x, dt, i * nrhs + r)) > xnorm)
+                xnorm = fabs(ld(x, dt, i * nrhs + r));
+        }
+    }
+    *maxres = rnorm;
+    *berr = rnorm / (anorm * xnorm);
+}
+static double solve_bound(char dt, long long n) {
+    return dt == 'd' ? REF_BOUND * n / REF_N : 1e-6;
+}
+
+static void solves(char dt, long long n) {
+    const long long nrhs = 2;
+    size_t nn = (size_t)n * n;
+    void *a = mat(dt, nn), *acpy = mat(dt, nn), *b = mat(dt, n * nrhs),
+         *x = mat(dt, n * nrhs);
+    int32_t* ipiv = malloc(n * sizeof(int32_t));
+    for (long long i = 0; i < n; i++)
+        for (long long j = 0; j <= i; j++) {
+            double v = urand() - 0.5;
+            sv(acpy, dt, i * n + j, v); sv(acpy, dt, j * n + i, v);
+        }
+    for (long long i = 0; i < n; i++)
+        sv(acpy, dt, i * n + i, ld(acpy, dt, i * n + i) + n);
+    for (long long i = 0; i < n * nrhs; i++) sv(b, dt, i, urand());
+    double wall = 0, maxres, berr;
+    int info = 0;
+    for (int rep = 0; rep < 2; rep++) {       /* the second is timed */
+        memcpy(a, acpy, nn * (dt == 's' ? 4 : 8));
+        memcpy(x, b, n * nrhs * (dt == 's' ? 4 : 8));
+        double t0 = now();
+        info = slate_posv(dt, n, nrhs, a, n, x, nrhs);
+        wall = now() - t0;
+    }
+    residual(dt, n, nrhs, acpy, x, b, &maxres, &berr);
+    report("posv", dt, n, wall, maxres, berr, solve_bound(dt, n),
+           info == 0 && (dt == 'd' ? maxres : berr) <= solve_bound(dt, n));
+    /* gesv: a general matrix, the same diagonal shift */
+    for (long long i = 0; i < n; i++)
+        for (long long j = 0; j < n; j++)
+            sv(acpy, dt, i * n + j, urand() - 0.5 + (i == j ? n : 0));
+    for (int rep = 0; rep < 2; rep++) {
+        memcpy(a, acpy, nn * (dt == 's' ? 4 : 8));
+        memcpy(x, b, n * nrhs * (dt == 's' ? 4 : 8));
+        double t0 = now();
+        info = slate_gesv(dt, n, nrhs, a, n, ipiv, x, nrhs);
+        wall = now() - t0;
+    }
+    residual(dt, n, nrhs, acpy, x, b, &maxres, &berr);
+    int piv_ok = 1;
+    for (long long j = 0; j < n; j++)
+        piv_ok &= ipiv[j] >= j && ipiv[j] < n;
+    report("gesv", dt, n, wall, maxres, berr, solve_bound(dt, n),
+           info == 0 && piv_ok
+           && (dt == 'd' ? maxres : berr) <= solve_bound(dt, n));
+    /* a non-SPD matrix: posv reports the exact failing minor */
+    for (long long i = 0; i < n; i++)
+        for (long long j = 0; j <= i; j++) {
+            double v = urand() - 0.5;
+            sv(acpy, dt, i * n + j, v); sv(acpy, dt, j * n + i, v);
+        }
+    for (long long i = 0; i < n; i++)
+        sv(acpy, dt, i * n + i, ld(acpy, dt, i * n + i) + n);
+    long long ks[2] = {5, n / 2 + 4};
+    for (int t = 0; t < 2; t++) {
+        memcpy(a, acpy, nn * (dt == 's' ? 4 : 8));
+        sv(a, dt, ks[t] * n + ks[t], -1000.0);
+        memcpy(x, b, n * nrhs * (dt == 's' ? 4 : 8));
+        info = slate_posv(dt, n, nrhs, a, n, x, nrhs);
+        report("posv_nonspd", dt, ks[t] + 1, 0.0, (double)info, 0.0, 0.0,
+               info == ks[t] + 1);
+    }
+    /* gemm: C = 1.5 A B - 0.5 C, 64 sampled entries held in f64 */
+    void *A = mat(dt, nn), *B = mat(dt, nn), *C0 = mat(dt, nn);
+    for (size_t i = 0; i < nn; i++) {
+        sv(A, dt, i, urand() - 0.5); sv(B, dt, i, urand() - 0.5);
+        sv(C0, dt, i, urand() - 0.5);
+    }
+    for (int rep = 0; rep < 2; rep++) {
+        memcpy(a, C0, nn * (dt == 's' ? 4 : 8));
+        double t0 = now();
+        info = slate_gemm(dt, n, n, n, 1.5, A, n, B, n, -0.5, a, n);
+        wall = now() - t0;
+    }
+    double worst = 0;
+    for (int s = 0; s < 64; s++) {
+        long long i = (long long)(urand() * n), j = (long long)(urand() * n);
+        double ref = 0, mag = 0;
+        for (long long k = 0; k < n; k++) {
+            double p = ld(A, dt, i * n + k) * ld(B, dt, k * n + j);
+            ref += p; mag += fabs(p);
+        }
+        double c0 = ld(C0, dt, i * n + j);
+        double d = fabs(ld(a, dt, i * n + j) - (1.5 * ref - 0.5 * c0));
+        double r = d / (2.0 * n * eps_of(dt) * (1.5 * mag + 0.5 * fabs(c0)));
+        if (r > worst) worst = r;
+    }
+    report("gemm", dt, n, wall, worst, 0.0, 1.0, info == 0 && worst <= 1.0);
+    free(A); free(B); free(C0);
+    free(a); free(acpy); free(b); free(x); free(ipiv);
+}
+
+static void least_squares(char dt, long long m, long long n) {
+    const long long nrhs = 2;
+    void *a = mat(dt, (size_t)m * n), *acpy = mat(dt, (size_t)m * n),
+         *b = mat(dt, m * nrhs), *x = mat(dt, m * nrhs);
+    for (size_t i = 0; i < (size_t)m * n; i++) sv(acpy, dt, i, urand() - 0.5);
+    for (long long i = 0; i < m * nrhs; i++) sv(b, dt, i, urand() - 0.5);
+    double wall = 0;
+    int info = 0;
+    for (int rep = 0; rep < 2; rep++) {
+        memcpy(a, acpy, (size_t)m * n * (dt == 's' ? 4 : 8));
+        memcpy(x, b, m * nrhs * (dt == 's' ? 4 : 8));
+        double t0 = now();
+        info = slate_gels(dt, m, n, nrhs, a, n, x, nrhs);
+        wall = now() - t0;
+    }
+    /* the tester's ratio ||A^T (A x - b)|| / (||A||^2 ||x|| n eps) */
+    double* r = calloc(m * nrhs, sizeof(double));
+    double anorm2 = 0, xnorm2 = 0, gnorm2 = 0;
+    for (long long i = 0; i < m; i++)
+        for (long long c = 0; c < nrhs; c++) {
+            double s = -ld(b, dt, i * nrhs + c);
+            for (long long j = 0; j < n; j++)
+                s += ld(acpy, dt, (size_t)i * n + j) * ld(x, dt, j * nrhs + c);
+            r[i * nrhs + c] = s;
+        }
+    for (size_t i = 0; i < (size_t)m * n; i++)
+        anorm2 += ld(acpy, dt, i) * ld(acpy, dt, i);
+    for (long long j = 0; j < n * nrhs; j++)
+        xnorm2 += ld(x, dt, j) * ld(x, dt, j);
+    for (long long j = 0; j < n; j++)
+        for (long long c = 0; c < nrhs; c++) {
+            double s = 0;
+            for (long long i = 0; i < m; i++)
+                s += ld(acpy, dt, (size_t)i * n + j) * r[i * nrhs + c];
+            gnorm2 += s * s;
+        }
+    double ratio = sqrt(gnorm2) / (anorm2 * sqrt(xnorm2) * n * eps_of(dt));
+    report("gels", dt, m, wall, ratio, 0.0, 100.0, info == 0 && ratio < 100);
+    free(r); free(a); free(acpy); free(b); free(x);
+}
+
+/* heev and svd_vals: the inputs and outputs go to files in `dir` for
+ * the comparison with numpy */
+static void spectra(char dt, long long n, const char* dir) {
+    size_t nn = (size_t)n * n, es = dt == 's' ? 4 : 8;
+    void *h = mat(dt, nn), *g = mat(dt, nn), *w = mat(dt, n),
+         *s = mat(dt, n), *work = mat(dt, nn);
+    for (long long i = 0; i < n; i++)
+        for (long long j = 0; j <= i; j++) {
+            double v = urand() - 0.5;
+            sv(h, dt, i * n + j, v); sv(h, dt, j * n + i, v);
+        }
+    for (size_t i = 0; i < nn; i++) sv(g, dt, i, urand() - 0.5);
+    memcpy(work, h, nn * es);
+    double t0 = now();
+    int info = slate_heev(dt, n, work, n, w);
+    double wall = now() - t0;
+    report("heev", dt, n, wall, 0.0, 0.0, 0.0, info == 0);
+    memcpy(work, g, nn * es);
+    t0 = now();
+    info = slate_svd_vals(dt, n, n, work, n, s);
+    wall = now() - t0;
+    report("svd_vals", dt, n, wall, 0.0, 0.0, 0.0, info == 0);
+    const char* names[4] = {"h", "w", "g", "s"};
+    void* bufs[4] = {h, w, g, s};
+    size_t counts[4] = {nn, (size_t)n, nn, (size_t)n};
+    for (int f = 0; f < 4; f++) {
+        char path[4096];
+        snprintf(path, sizeof path, "%s/%s_%c.bin", dir, names[f], dt);
+        FILE* fp = fopen(path, "wb");
+        if (!fp || fwrite(bufs[f], es, counts[f], fp) != counts[f]) {
+            printf("WRITE FAILED %s\n", path); exit(2);
+        }
+        fclose(fp);
+    }
+    free(h); free(g); free(w); free(s); free(work);
+}
+
+int main(int argc, char** argv) {
+    if (argc < 6) {
+        printf("usage: c_smoke DIR N M_GELS N_GELS N_EIG\n");
+        return 2;
+    }
+    double t0 = now();
+    if (slate_tpu_init("cuda") != 0) { printf("INIT FAIL\n"); return 1; }
+    printf("{\"op\": \"init\", \"wall_s\": %.6f}\n", now() - t0);
+    const char dts[2] = {'s', 'd'};
+    for (int t = 0; t < 2; t++) {
+        solves(dts[t], atoll(argv[2]));
+        least_squares(dts[t], atoll(argv[3]), atoll(argv[4]));
+        spectra(dts[t], atoll(argv[5]), argv[1]);
+    }
+    printf(all_ok ? "C API OK\n" : "C API FAILED\n");
+    return all_ok ? 0 : 1;
+}
+"""
+
+
+
+def c_direct_walls(seed):
+    """The walls of the C program's posv / gesv / gemm / gels calls
+    made in this process through the same bridge functions (no C shim,
+    no embedded interpreter), on inputs of the same shapes and types;
+    the second of two calls each, the input copies outside the clock as
+    in the C program."""
+    from slate_tpu_torch.c_api import bridge
+    bridge.set_platform("cuda")
+    rng = np.random.default_rng(seed)
+    walls = {}
+    for dt, npt in (("s", np.float32), ("d", np.float64)):
+        n, nrhs, m, w = C_N, 2, C_M_GELS, C_N_GELS
+        g = (rng.random((n, n)) - 0.5).astype(npt)
+        inputs = {
+            "posv": ((g + g.T) / 2 + n * np.eye(n, dtype=npt),
+                     rng.random((n, nrhs)).astype(npt)),
+            "gesv": (g + n * np.eye(n, dtype=npt),
+                     np.zeros(n, np.int32),
+                     rng.random((n, nrhs)).astype(npt)),
+            "gemm": (g, np.zeros((n, n), npt)),
+            "gels": ((rng.random((m, w)) - 0.5).astype(npt),
+                     (rng.random((m, nrhs)) - 0.5).astype(npt))}
+        shape_args = {
+            "posv": lambda p: (n, nrhs, p[0], n, p[1], nrhs),
+            "gesv": lambda p: (n, nrhs, p[0], n, p[1], p[2], nrhs),
+            "gemm": lambda p: (n, n, n, 1.5, p[0], n, p[0], n, -0.5,
+                               p[1], n),
+            "gels": lambda p: (m, w, nrhs, p[0], w, p[1], nrhs)}
+        for op, arrays in inputs.items():
+            for _ in range(2):
+                # fresh copies, alive through the call: the bridge
+                # writes through their addresses
+                bufs = [x.copy() for x in arrays]
+                args = shape_args[op]([x.ctypes.data for x in bufs])
+                t0 = time.perf_counter()
+                info = getattr(bridge, op)(dt, *args)
+                walls[op + "." + dt] = time.perf_counter() - t0
+                if info != 0:
+                    raise RuntimeError("bridge.%s(%r): info %d"
+                                       % (op, dt, info))
+            del bufs
+    return walls
+
+
+def phase_c_api(seed):
+    """The C API (slate_tpu_torch/c_api): build the library, compile a C
+    program (C_PROGRAM) against the port's header and run it with
+    slate_tpu_init("cuda"), its embedded interpreter handed this
+    interpreter's sys.path: posv, gesv and gemm at C_N and gels at
+    C_M_GELS x C_N_GELS in s and d, residuals computed in C against
+    the bounds above; two non-SPD posv reporting their exact failing
+    minor; heev and svd_vals at C_N_EIG held here against numpy's f64
+    eigvalsh / svd of the same matrices (4 n eps of the largest). Then
+    the same calls' walls made in this process through the bridge."""
+    from slate_tpu_torch import c_api
+    out = {"phase": "c_api"}
+    t0 = time.perf_counter()
+    so = c_api.build_library(force=True)
+    out["build_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        src, exe = os.path.join(d, "c_smoke.c"), os.path.join(d, "c_smoke")
+        with open(src, "w") as f:
+            f.write(C_PROGRAM)
+        subprocess.run(["gcc", "-O2", src, "-o", exe,
+                        f"-I{c_api.HEADER.parent}",
+                        f"-DREF_BOUND={C_REF_BOUND!r}",
+                        f"-DREF_N={C_REF_N}", str(so),
+                        f"-Wl,-rpath,{so.parent}", "-lm"],
+                       check=True, capture_output=True, timeout=180)
+        t0 = time.perf_counter()
+        run = subprocess.run([exe, d, str(C_N), str(C_M_GELS),
+                              str(C_N_GELS), str(C_N_EIG)],
+                             env=c_api.embed_env(), capture_output=True,
+                             text=True, timeout=600)
+        out["program_s"] = time.perf_counter() - t0
+        rows = [json.loads(line) for line in run.stdout.splitlines()
+                if line.startswith("{")]
+        spectra = {}
+        for dt, npt in (("s", np.float32), ("d", np.float64)):
+            if not os.path.exists(os.path.join(d, "s_%s.bin" % dt)):
+                continue
+            buf = {k: np.fromfile(os.path.join(d, "%s_%s.bin" % (k, dt)),
+                                  npt) for k in "hwgs"}
+            n = C_N_EIG
+            wr = np.linalg.eigvalsh(buf["h"].reshape(n, n).astype(
+                np.float64))
+            sr = np.linalg.svd(buf["g"].reshape(n, n).astype(np.float64),
+                               compute_uv=False)
+            eps = float(np.finfo(npt).eps)
+            spectra[dt] = {
+                "heev": float(np.abs(buf["w"] - wr).max()
+                              / np.abs(wr).max()),
+                "svd_vals": float(np.abs(buf["s"] - sr).max() / sr.max()),
+                "limit": 4.0 * n * eps}
+    out["rows"] = rows
+    out["spectra"] = spectra
+    if run.returncode != 0:
+        out["stdout_tail"] = run.stdout[-2000:]
+        out["stderr_tail"] = run.stderr[-2000:]
+    out["direct_walls_s"] = c_direct_walls(seed)
+    out["ok"] = bool(
+        run.returncode == 0 and "C API OK" in run.stdout
+        and rows and all(r.get("ok", True) for r in rows)
+        and len([r for r in rows if r["op"] != "init"]) == 2 * 8
+        and len(spectra) == 2
+        and all(v[k] <= v["limit"] for v in spectra.values()
+                for k in ("heev", "svd_vals")))
+    return out
+
+
+#: non-uniform tiles at N: four tiles of 2048, then eight of 1024 (the
+#: largest divides N, so uniform() re-tiles without padding and getrf
+#: takes phase gesv's blocking; 3072 would pad to 18432, whose blocking
+#: and panel route are another cell's)
+NU_SIZES = [2048] * 4 + [1024] * 8
+
+
+def nu_pair(walls, name, nu_call, u_call):
+    """The non-uniform call and its uniform() twin in turns (nu, u, u,
+    nu), each's two walls; returns the last results of both."""
+    w_nu, w_u = [], []
+    w, _ = wall_s(nu_call)
+    w_nu.append(w)
+    for _ in range(2):
+        w, u = wall_s(u_call)
+        w_u.append(w)
+    w, nu = wall_s(nu_call)
+    w_nu.append(w)
+    walls[name], walls[name + ".uniform"] = w_nu, w_u
+    return nu, u
+
+
+def phase_nonuniform(seed, results):
+    """Non-uniform tiles (TiledMatrix.from_func) at N: gemm on
+    non-uniform operands against the same product on uniform() and
+    against torch.matmul (1e-6); potrf and getrf / gesv on the
+    non-uniform matrices (the drivers re-tile at entry) beside the same
+    calls on uniform(): the residuals within the uniform route's bound
+    (1e-6), getrf's pivots equal, the factors and X bitwise. The tune
+    cache routes the f32 LU as phase gesv (harness_tune_cache)."""
+    harness_tune_cache()
+    TM = st.TiledMatrix
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    g = torch.randn((N, N), generator=gen, device="cuda")
+    h = torch.randn((N, N), generator=gen, device="cuda")
+    A = TM.from_func(g, NU_SIZES, device="cuda")
+    B = TM.from_func(h, NU_SIZES, device="cuda")
+    C0 = TM.from_func(torch.zeros_like(g), NU_SIZES, device="cuda")
+    out = {"phase": "nonuniform", "n": N, "tiles": NU_SIZES,
+           "uniform_tile": A.uniform().mb}
+    walls = {}
+    C, Cu = nu_pair(walls, "gemm", lambda: st.gemm(1.0, A, B, 0.0, C0),
+                    lambda: st.gemm(1.0, A.uniform(), B.uniform(), 0.0,
+                                    C0.uniform()))
+    ref = g @ h
+    out["gemm_rel_diff"] = [rel_diff(C.to_dense(), Cu.to_dense()),
+                            rel_diff(C.to_dense(), ref)]
+    del C, Cu, ref
+    s = g @ g.T / N + torch.eye(N, device="cuda")
+    S = dataclasses.replace(TM.from_func(s, NU_SIZES, device="cuda"),
+                            mtype=st.MatrixType.Hermitian,
+                            uplo=st.Uplo.Lower)
+    L, Lu = nu_pair(walls, "potrf", lambda: st.potrf(S),
+                    lambda: st.potrf(S.uniform()))
+
+    def chol_res(F):
+        l64 = F.to_dense().double()
+        return float(torch.linalg.norm(l64 @ l64.T - s.double())
+                     / torch.linalg.norm(s.double()))
+
+    out["potrf_residual"] = [chol_res(L), chol_res(Lu)]
+    out["potrf_equal"] = torch.equal(L.to_dense(), Lu.to_dense())
+    del L, Lu, S, s
+    a = g + 2.0 * float(np.sqrt(N)) * torch.eye(N, device="cuda")
+    Anu = TM.from_func(a, NU_SIZES, device="cuda")
+    st.getrf(Anu)                                    # warm-up
+    pk.reset_launch_counts()
+    st.getrf(Anu)
+    torch.cuda.synchronize()
+    launches = pk.launch_counts()
+    add_phase_launches(results, "nonuniform", launches)
+    F, Fu = nu_pair(walls, "getrf", lambda: st.getrf(Anu),
+                    lambda: st.getrf(Anu.uniform()))
+    out["getrf_residual"] = [
+        lu_residual(a, F.LU.data[:N, :N], F.pivots[:N]),
+        lu_residual(a, Fu.LU.data[:N, :N], Fu.pivots[:N])]
+    out["pivots_equal"] = torch.equal(F.pivots, Fu.pivots)
+    out["factors_equal"] = torch.equal(F.LU.data, Fu.LU.data)
+    del F, Fu
+    b = torch.randn((N, NRHS), generator=gen, device="cuda")
+    Bnu = TM.from_func(b, NU_SIZES, [NRHS], device="cuda")
+    (_, X), (_, Xu) = nu_pair(walls, "gesv", lambda: st.gesv(Anu, Bnu),
+                              lambda: st.gesv(Anu.uniform(),
+                                              Bnu.uniform()))
+    out["gesv_backward_error"] = [berr_dense(a, X.to_dense(), b),
+                                  berr_dense(a, Xu.to_dense(), b)]
+    out["x_equal"] = torch.equal(X.to_dense(), Xu.to_dense())
+    out["walls_s"] = walls
+    out["launches"] = launches
+    out["ok"] = bool(
+        max(out["gemm_rel_diff"]) <= 1e-6
+        and max(out["potrf_residual"]) <= 1e-6
+        and max(out["getrf_residual"]) <= 1e-6
+        and max(out["gesv_backward_error"]) <= 1e-6
+        and out["pivots_equal"] and out["factors_equal"]
+        and out["potrf_equal"] and out["x_equal"]
+        and all(launches[k] > 0 for k in HARNESS_KERNELS))
+    return out
+
+
+def phase_examples():
+    """The example twins: examples/torch/run_all.py --device cuda in a
+    process of its own (every twin's own assertions; ex13 on a world of
+    one rank)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch",
+                                      "run_all.py"), "--device", "cuda"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    ran = run.stdout.count("=== ex")
+    return {"phase": "examples", "ok": bool(
+        run.returncode == 0 and "All examples passed" in run.stdout
+        and ran == 17), "examples": ran, "wall_s": wall,
+        "tail": run.stdout[-1500:] if run.returncode else
+        run.stdout.splitlines()[-1]}
+
+
 #: trace categories of work on the card; other rows of a profiler trace
 #: (operators, runtime calls, the profiler's own buffer flushes) are not
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -5074,6 +5699,10 @@ def main():
         ("grid", lambda: phase_grid(args.seed, results, system)),
         ("ooc", lambda: phase_ooc(args.seed, results, system)),
         ("shard_ooc", lambda: phase_shard_ooc(args.seed, results)),
+        ("harness", lambda: phase_harness(results)),
+        ("c_api", lambda: phase_c_api(args.seed)),
+        ("nonuniform", lambda: phase_nonuniform(args.seed, results)),
+        ("examples", phase_examples),
         ("profile", lambda: phase_profile(system)))
     try:
         for name, fn in phases:

@@ -40,7 +40,10 @@ the p x q process grid over ``torch.distributed``, its collectives and
 the 2D block-cyclic layout; ``dist``: the tree engine, grid TSQR, the
 distributed steqr2 and stedc, the tuning share): the drivers' grid
 routes under ``Option.Grid``, with ``testing.multiproc`` as the
-multi-process launcher.
+multi-process launcher; the parameter-sweep tester and its junit
+orchestrator (``testing.tester``, ``testing.run_tests``), the C API
+(``c_api``: ``slate_c.h`` over an embedded interpreter) and
+non-uniform tiles (``TiledMatrix.from_func``).
 
 Entry points that create data put it on the CUDA card unless the
 caller passes ``device="cpu"``; without a card they raise.
@@ -106,7 +109,7 @@ from .matgen import generate_matrix  # noqa: E402,F401
 from .utils import Timers, print_matrix, sprint_matrix  # noqa: E402,F401
 from . import (api, batch, matgen, obs, ops, resil,  # noqa: E402,F401
                sched, serve, tune)
-from . import dist, parallel  # noqa: E402,F401
+from . import c_api, dist, parallel, testing  # noqa: E402,F401
 from .parallel import (ProcessGrid, collectives,  # noqa: E402,F401
                        distribute_cyclic, make_grid, mesh, sharding,
                        single_device_grid, undistribute)

@@ -5,14 +5,19 @@ are multiples of the tile sizes (mb, nb); tiles are a logical indexing
 concept. Transposition travels as a flag (``op``) and is materialised
 by ``resolve``; ``uplo``/``diag``/``mtype`` tag the structure.
 
-Padding invariant: out-of-range rows/cols of ``data`` are zero.
-Routines that need a nonsingular padded diagonal (getrf) patch it to
-identity with :func:`pad_diag_identity`.
+Padding invariant (uniform matrices only): out-of-range rows/cols of
+``data`` are zero. Routines that need a nonsingular padded diagonal
+(getrf) patch it to identity with :func:`pad_diag_identity`.
+
+Non-uniform tiles (reference BaseMatrix.hh:80-101 per-index tile-size
+lambdas): ``from_func`` sets ``rb`` / ``cb``, the tile boundary
+offsets (0 = b_0 < ... < b_mt = m). Their storage is the EXACT (m, n)
+tensor with no padding; ``tileMb`` / ``tileNb``, ``tile``, ``sub``
+follow the boundaries, and ``uniform()`` re-tiles to the padded layout
+the factorization drivers take.
 
 ``sub``/``slice`` are copies of the selected tiles or elements, as the
-reference's functional views. Not ported: non-uniform tiles (the
-reference's ``rb``/``cb`` boundaries, ``from_func``); ``uniform`` is
-therefore the identity.
+reference's functional views.
 """
 
 from __future__ import annotations
@@ -58,7 +63,8 @@ class TiledMatrix:
     data : (m_pad, n_pad) tensor, m_pad = mt*mb, n_pad = nt*nb,
            zero outside [:m, :n]. If ``op != NoTrans`` the stored
            tensor is the un-transposed original; the logical shape is
-           (n, m).
+           (n, m). With non-uniform tiles (``rb`` / ``cb``) it is the
+           exact (m, n) tensor and mb / nb are the largest tile sizes.
     """
 
     data: torch.Tensor
@@ -72,14 +78,20 @@ class TiledMatrix:
     diag: Diag = Diag.NonUnit
     kl: int = -1          # band lower bandwidth (band types only)
     ku: int = -1          # band upper bandwidth
+    rb: Optional[Tuple[int, ...]] = None   # non-uniform row boundaries
+    cb: Optional[Tuple[int, ...]] = None   # non-uniform col boundaries
 
     # -- basic geometry ----------------------------------------------------
     @property
     def mt(self) -> int:
+        if self.rb is not None:
+            return len(self.rb) - 1
         return self.data.shape[0] // self.mb
 
     @property
     def nt(self) -> int:
+        if self.cb is not None:
+            return len(self.cb) - 1
         return self.data.shape[1] // self.nb
 
     @property
@@ -102,9 +114,15 @@ class TiledMatrix:
         return self.data.is_complex()
 
     def tileMb(self, i: int) -> int:
+        """Rows of tile i: the ragged last tile, or the span between
+        two boundaries when non-uniform."""
+        if self.rb is not None:
+            return self.rb[i + 1] - self.rb[i]
         return min(self.mb, self.m - i * self.mb)
 
     def tileNb(self, j: int) -> int:
+        if self.cb is not None:
+            return self.cb[j + 1] - self.cb[j]
         return min(self.nb, self.n - j * self.nb)
 
     # -- construction ------------------------------------------------------
@@ -127,11 +145,64 @@ class TiledMatrix:
         return cls(data=a, m=m, n=n, mb=mb, nb=nb, mtype=mtype, uplo=uplo,
                    diag=diag, kl=kl, ku=ku)
 
+    @staticmethod
+    def _boundaries(extent: int, sizes) -> Tuple[int, ...]:
+        """Boundary offsets covering `extent` exactly, from a per-index
+        size spec: a ``func.TileSizeFunc`` or a sequence of sizes."""
+        bounds = [0]
+        if callable(sizes):
+            i = 0
+            while bounds[-1] < extent:
+                s = int(sizes(i))
+                slate_assert(s > 0, f"tile size func gave {s} at {i}")
+                bounds.append(min(bounds[-1] + s, extent))
+                i += 1
+        else:
+            for s in sizes:
+                s = int(s)
+                slate_assert(s > 0, f"tile sizes must be positive, "
+                                    f"got {s}")
+                bounds.append(bounds[-1] + s)
+            slate_assert(bounds[-1] == extent,
+                         f"tile sizes sum to {bounds[-1]}, "
+                         f"expected {extent}")
+        return tuple(bounds)
+
+    @classmethod
+    def from_func(cls, a, tileMb, tileNb=None,
+                  mtype: MatrixType = MatrixType.General,
+                  uplo: Uplo = Uplo.General, diag: Diag = Diag.NonUnit,
+                  device: DeviceLike = None) -> "TiledMatrix":
+        """Wrap a dense array with NON-UNIFORM tiles from per-index
+        sizes, each a ``func.TileSizeFunc`` or a list (reference
+        BaseMatrix.hh:80-101 lambda constructors; ``uniform_blocksize``
+        is the uniform special case). The storage is the exact tensor;
+        the boundaries are metadata."""
+        a = _as_tensor(a, device)
+        if a.ndim != 2:
+            raise DimensionError(f"expected 2D, got {tuple(a.shape)}")
+        m, n = a.shape
+        if m == 0 or n == 0:
+            raise DimensionError(
+                f"from_func: zero-sized matrix {tuple(a.shape)} not "
+                f"tileable")
+        rb = cls._boundaries(m, tileMb)
+        cb = cls._boundaries(n, tileNb if tileNb is not None else tileMb)
+        return cls(data=a, m=m, n=n,
+                   mb=max(y - x for x, y in zip(rb, rb[1:])),
+                   nb=max(y - x for x, y in zip(cb, cb[1:])),
+                   mtype=mtype, uplo=uplo, diag=diag, rb=rb, cb=cb)
+
     def uniform(self) -> "TiledMatrix":
-        """The uniform padded layout the factorization drivers assume:
-        every port matrix already has it (non-uniform tiles are not
-        ported)."""
-        return self
+        """Re-tile to the uniform padded layout (mb x nb, the largest
+        tile sizes) the factorization drivers assume; a uniform matrix
+        is returned as it is."""
+        if self.rb is None and self.cb is None:
+            return self
+        r = self.resolve()
+        return TiledMatrix.from_dense(
+            r.data[:r.m, :r.n], r.mb, r.nb, mtype=r.mtype, uplo=r.uplo,
+            diag=r.diag, kl=r.kl, ku=r.ku, device=r.data.device)
 
     @classmethod
     def zeros(cls, m: int, n: int, mb: int = 256, nb: Optional[int] = None,
@@ -142,6 +213,17 @@ class TiledMatrix:
                             round_up(max(n, 1), nb)),
                            dtype=dtype, device=resolve_device(device))
         return cls(data=data, m=m, n=n, mb=mb, nb=nb, **kw)
+
+    def emptyLike(self, m: Optional[int] = None, n: Optional[int] = None,
+                  dtype=None) -> "TiledMatrix":
+        """Reference emptyLike (Matrix.hh:117): zeros of the same tile
+        sizes and structure metadata (mtype/uplo/diag/band), uniform,
+        on the same device."""
+        return TiledMatrix.zeros(
+            self.m if m is None else m, self.n if n is None else n,
+            self.mb, self.nb, dtype or self.dtype, device=self.device,
+            mtype=self.mtype, uplo=self.uplo, diag=self.diag, kl=self.kl,
+            ku=self.ku)
 
     # -- transpose-by-flag -------------------------------------------------
     def transpose(self) -> "TiledMatrix":
@@ -167,14 +249,32 @@ class TiledMatrix:
         return self.conj_transpose()
 
     def tile(self, i: int, j: int) -> torch.Tensor:
-        """Tile (i, j) of the stored tensor, padding included."""
-        return self.data[i * self.mb:(i + 1) * self.mb,
-                         j * self.nb:(j + 1) * self.nb]
+        """Tile (i, j) of the stored tensor, padding included;
+        non-uniform tiles slice at their boundaries (exact size)."""
+        r0, r1 = ((self.rb[i], self.rb[i + 1]) if self.rb is not None
+                  else (i * self.mb, (i + 1) * self.mb))
+        c0, c1 = ((self.cb[j], self.cb[j + 1]) if self.cb is not None
+                  else (j * self.nb, (j + 1) * self.nb))
+        return self.data[r0:r1, c0:c1]
 
     def sub(self, i1: int, i2: int, j1: int, j2: int) -> "TiledMatrix":
         """Tile-index submatrix [i1..i2] x [j1..j2] inclusive (reference
-        sub()), a General matrix; a transposed view resolves first."""
+        sub()), a General matrix; a transposed view resolves first.
+        Non-uniform boundaries are kept, re-based to the sub's
+        origin."""
         base = self if self.op is Op.NoTrans else self.resolve()
+        if base.rb is not None or base.cb is not None:
+            rb = base.rb or tuple(min(k * base.mb, base.m)
+                                  for k in range(base.mt + 1))
+            cb = base.cb or tuple(min(k * base.nb, base.n)
+                                  for k in range(base.nt + 1))
+            data = base.data[rb[i1]:rb[i2 + 1], cb[j1]:cb[j2 + 1]]
+            new_rb = tuple(b - rb[i1] for b in rb[i1:i2 + 2])
+            new_cb = tuple(b - cb[j1] for b in cb[j1:j2 + 2])
+            return dataclasses.replace(
+                base, data=data, m=new_rb[-1], n=new_cb[-1],
+                mtype=MatrixType.General, uplo=Uplo.General,
+                rb=new_rb, cb=new_cb)
         mm = min((i2 + 1) * base.mb, base.m) - i1 * base.mb
         nn = min((j2 + 1) * base.nb, base.n) - j1 * base.nb
         data = base.data[i1 * base.mb:(i2 + 1) * base.mb,
@@ -210,7 +310,7 @@ class TiledMatrix:
         return dataclasses.replace(
             self, data=d.contiguous(), m=self.n, n=self.m, mb=self.nb,
             nb=self.mb, op=Op.NoTrans, uplo=self.uplo.flip(), kl=self.ku,
-            ku=self.kl)
+            ku=self.kl, rb=self.cb, cb=self.rb)
 
     def to_dense(self) -> torch.Tensor:
         """The logical matrix as a dense tensor: applies op, mirrors

@@ -6,7 +6,10 @@ JAX side. A bf16 array arrives as numpy's view of JAX's bfloat16 type
 (``ml_dtypes``, which the port does not import): it is recognised by
 its dtype name and taken bit for bit. The metadata of a matrix are the TiledMatrix fields
 ``m, n, mb, nb`` and, optionally, ``mtype, uplo, op, diag`` (enum
-names or values, which the two packages share) and ``kl, ku``.
+names or values, which the two packages share), ``kl, ku`` and a
+non-uniform matrix's tile boundaries ``rb, cb`` (sequences of ints;
+its storage is the exact (m, n) array, as ``TiledMatrix.from_func``
+makes it on both sides).
 """
 
 from __future__ import annotations
@@ -51,13 +54,13 @@ def _tensor(arr, device: torch.device) -> torch.Tensor:
 
 def _matrix(data: np.ndarray, meta: Mapping, device: torch.device
             ) -> TiledMatrix:
-    if meta.get("rb") is not None or meta.get("cb") is not None:
-        raise SlateError("from_jax_state: non-uniform tiles are not "
-                         "ported")
     kw = {k: _enum(cls, meta[k]) for k, cls in _ENUMS.items() if k in meta}
     for k in ("kl", "ku"):
         if k in meta:
             kw[k] = int(meta[k])
+    for k in ("rb", "cb"):
+        if meta.get(k) is not None:
+            kw[k] = tuple(int(b) for b in meta[k])
     t = _tensor(data, device)
     return TiledMatrix(data=t, m=int(meta["m"]), n=int(meta["n"]),
                        mb=int(meta["mb"]), nb=int(meta["nb"]), **kw)

@@ -560,7 +560,7 @@ def _scan_nb(N: int, nb: int, mult: int = 1) -> int:
 
 
 def _prep(A: TiledMatrix) -> Tuple[TiledMatrix, torch.Tensor]:
-    r = A.resolve()
+    r = A.uniform().resolve()    # non-uniform tiles re-tile at entry
     if r.mtype is MatrixType.General:
         a = r.data
     else:

@@ -293,9 +293,6 @@ def test_instrumented_driver_publishes_when_enabled(rng):
 #: the ROADMAP queue 1 item that brings each
 STILL_MISSING = {
     "smap": "never (a JAX-version shim of shard_map)",
-    "testing": "item 12 (the port's testing package holds its chip "
-               "helpers and the multi-process launcher)",
-    "c_api": "item 12",
     # JAX-only: they probe JAX's backend; the port takes a device
     "force_cpu": "never (JAX-only)", "probe_backend": "never (JAX-only)",
 }
@@ -322,9 +319,9 @@ def test_top_level_names_match_reference():
                  "serve", "parallel", "dist", "make_grid", "ProcessGrid",
                  "single_device_grid", "distribute_cyclic"):
         assert hasattr(st, name), name
-    # the port's own testing package binds its name once imported
-    for name in set(STILL_MISSING) - {"testing"}:
+    for name in STILL_MISSING:
         assert not hasattr(st, name), name
+    assert {"testing", "c_api"} <= _public(st)
 
 
 def test_enums_and_exceptions_match_reference():
