@@ -150,6 +150,7 @@ class _Stager:
         self._next ^= 1
         if self._events[i] is not None:
             self._events[i].synchronize()
+            # slate-lint: exempt[SL301] callers h2d/d2h hold self._lock
             self._events[i] = None
         buf = self._bufs[i]
         if buf is None or buf.numel() < nbytes:

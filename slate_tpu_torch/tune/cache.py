@@ -34,7 +34,12 @@ FROZEN: Dict[tuple, Any] = {
     ("*", "nb"): 256,
     ("*", "ib"): 128,
     ("*", "lookahead"): 1,
+    # the reference's spectral D&C routing rows, kept as mirrors with no
+    # reader: its route runs on a TPU only, and heev's Auto on the card
+    # takes the library eigensolver, never eigh_dc (linalg/eig.py:112)
+    # slate-lint: exempt[SL202] card heev never takes eigh_dc (eig.py:112)
     ("heev", "spectral_dc_min_n"): 2048,
+    # slate-lint: exempt[SL202] card heev never takes eigh_dc (eig.py:112)
     ("heev", "dc_leaf"): 256,
     ("geqrf", "fused_max_n"): 4096,
     ("ooc", "panel_cols"): 8192,
@@ -182,6 +187,7 @@ class TuneCache:
 
     def _load(self) -> Dict[str, Dict[str, Any]]:
         if self._entries is None:
+            # slate-lint: exempt[SL301] every caller holds self._lock
             self._entries = self._parse(self.path)
         return self._entries
 

@@ -1,0 +1,173 @@
+"""Analyzer: the elastic-mesh ownership contract (SL901/SL902/
+SL903).
+
+Re-owning panels at runtime is only safe while three cross-file
+agreements hold — each invisible from any single call site:
+
+  SL901  ``dist/elastic.ElasticSchedule`` is the SINGLE source of
+         ownership truth: it overrides BOTH primitive queries
+         (``owner_flat`` and ``owner_coords``) and both read the
+         ``owners`` table, whose ``__init__`` validation rejects any
+         entry outside the mesh. Every derived query
+         (owner_device/is_mine/my_panels/update_order) dispatches
+         through those two primitives, so "every panel owned exactly
+         once" is exactly "one validated table read by both" — a
+         schedule overriding only one primitive splits ownership
+         between the table and the base class's arithmetic, and two
+         hosts silently both (or neither) factor a panel.
+  SL902  ``ElasticSchedule.remap`` guards the committed prefix: the
+         method must compare the old and new ``owners[:boundary]``
+         slices and raise on mismatch — re-ownership is restricted
+         to not-yet-factored panels, because a relabel of a factored
+         panel orphans its broadcast frames, durable mirrors, and
+         checkpoint bookkeeping.
+  SL903  the ownership arbitration ships whole: the FROZEN
+         ``("mesh", "ownership")`` row exists in tune/cache.py with a
+         literal key read in the package (the MethodOwnership.resolve
+         route), and every companion ``("mesh", *)`` knob row
+         (remap_every / remap_threshold / throughput_alpha) likewise
+         has a literal reader — a row without its reader keeps
+         shipping a default nobody consults (the SL703 failure mode
+         carried into the mesh layer).
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+from typing import List, Optional
+
+from . import astutil
+from .core import Finding, PKG, pkg_path, register
+
+ELASTIC_PATH = pkg_path("dist/elastic.py")
+TUNE_CACHE_PATH = pkg_path("tune/cache.py")
+OWNERSHIP_ROW = ("mesh", "ownership")
+#: the companion knob rows the controller resolves (SL903 checks
+#: each ships with a literal reader like the gate row itself)
+MESH_ROWS = (OWNERSHIP_ROW, ("mesh", "remap_every"),
+             ("mesh", "remap_threshold"), ("mesh", "throughput_alpha"))
+
+
+def _class(tree, name: str) -> Optional[ast.ClassDef]:
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == name:
+            return node
+    return None
+
+
+def _method(cls: ast.ClassDef, name: str) -> Optional[ast.FunctionDef]:
+    for node in cls.body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return node
+    return None
+
+
+def _reads_owners(fn: ast.FunctionDef) -> bool:
+    """Whether `fn` reads the ``owners`` attribute (or a local bound
+    from it) — the table-as-single-source check."""
+    for sub in ast.walk(fn):
+        if isinstance(sub, ast.Attribute) and sub.attr == "owners":
+            return True
+    return False
+
+
+def _boundary_slices(fn: ast.FunctionDef) -> int:
+    """Count of ``...[:boundary]`` subscripts inside `fn` — the
+    committed-prefix comparison needs one on each side."""
+    n = 0
+    for sub in ast.walk(fn):
+        if isinstance(sub, ast.Subscript) \
+                and isinstance(sub.slice, ast.Slice) \
+                and sub.slice.lower is None \
+                and isinstance(sub.slice.upper, ast.Name) \
+                and sub.slice.upper.id == "boundary":
+            n += 1
+    return n
+
+
+@register("elastic-mesh", ("SL901", "SL902", "SL903"),
+          "elastic ownership stays single-sourced (both schedule "
+          "primitives read the validated owners table), remap never "
+          "relabels the committed prefix, and the FROZEN mesh/* "
+          "ownership rows ship with literal readers")
+def analyze(repo: str) -> List[Finding]:
+    findings: List[Finding] = []
+    epath = os.path.join(repo, ELASTIC_PATH)
+    tree = astutil.parse(epath)
+
+    cls = _class(tree, "ElasticSchedule") if tree is not None else None
+    if cls is None:
+        findings.append(Finding(
+            "SL901", ELASTIC_PATH, 0,
+            "ElasticSchedule class missing — the elastic route has "
+            "no ownership source"))
+    else:
+        # SL901: both primitives overridden, both reading the table,
+        # and the table validated at construction
+        for prim in ("owner_flat", "owner_coords"):
+            fn = _method(cls, prim)
+            if fn is None:
+                findings.append(Finding(
+                    "SL901", ELASTIC_PATH, cls.lineno,
+                    "ElasticSchedule does not override %s() — the "
+                    "base class's arithmetic answers for it, so the "
+                    "owners table is no longer the single source of "
+                    "ownership (a panel can be owned twice or not at "
+                    "all)" % prim))
+            elif not _reads_owners(fn):
+                findings.append(Finding(
+                    "SL901", ELASTIC_PATH, fn.lineno,
+                    "ElasticSchedule.%s() does not read the owners "
+                    "table — the override answers from somewhere "
+                    "else, splitting ownership truth" % prim))
+        init = _method(cls, "__init__")
+        if init is None or not any(
+                isinstance(sub, ast.Raise)
+                for sub in ast.walk(init)):
+            findings.append(Finding(
+                "SL901", ELASTIC_PATH,
+                init.lineno if init is not None else cls.lineno,
+                "ElasticSchedule.__init__ does not validate the "
+                "owners table (no raise) — an out-of-mesh or "
+                "wrong-length table must be rejected at construction, "
+                "not discovered as a missing panel mid-stream"))
+
+        # SL902: the committed-prefix guard in remap()
+        remap = _method(cls, "remap")
+        if remap is None:
+            findings.append(Finding(
+                "SL902", ELASTIC_PATH, cls.lineno,
+                "ElasticSchedule.remap() missing — re-ownership has "
+                "no guarded entry point"))
+        else:
+            has_raise = any(isinstance(sub, ast.Raise)
+                            for sub in ast.walk(remap))
+            if not has_raise or _boundary_slices(remap) < 2:
+                findings.append(Finding(
+                    "SL902", ELASTIC_PATH, remap.lineno,
+                    "ElasticSchedule.remap() does not compare the "
+                    "old and new owners[:boundary] prefixes and "
+                    "raise on mismatch — re-ownership must be "
+                    "restricted to not-yet-factored panels (a "
+                    "relabel of a committed panel orphans its "
+                    "mirrors and checkpoint bookkeeping)"))
+
+    # SL903: the FROZEN mesh rows + their literal readers
+    tpath = os.path.join(repo, TUNE_CACHE_PATH)
+    frozen = astutil.frozen_keys(tpath)
+    unread = astutil.unread_rows(os.path.join(repo, PKG), MESH_ROWS)
+    for row in MESH_ROWS:
+        if row not in frozen:
+            findings.append(Finding(
+                "SL903", TUNE_CACHE_PATH, 0,
+                "FROZEN row %r missing — the elastic-mesh %s must "
+                "ship in the tune table"
+                % (row, "gate" if row == OWNERSHIP_ROW else "knob")))
+        if row in unread:
+            findings.append(Finding(
+                "SL903", TUNE_CACHE_PATH, 0,
+                "no literal %r key read anywhere in %s/ — the FROZEN "
+                "row has no reader, so the arbitration is dead"
+                % (row, PKG)))
+    return findings

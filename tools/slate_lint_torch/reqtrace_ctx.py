@@ -1,0 +1,181 @@
+"""Analyzer: request-trace context integrity (SL801/SL802/SL803).
+
+obs/reqtrace.py's value is the JOIN: an escalation, a cache outcome,
+a flush record and a latency sample all carrying the same trace id.
+That join is a cross-file agreement — each publish site compiles and
+runs fine with the trace dropped, and the Perfetto/ledger view then
+silently shows orphaned records. These rules keep the serving tier's
+publishers honest:
+
+  SL801  trace context reaches the serving tier's records: every
+         ``record_escalation("serve_*", ...)`` call in the
+         package's ``serve/`` carries a ``trace=`` keyword (the
+         thread-local ``current_trace_id()`` — None with tracing off,
+         which the funnel's ctx filter drops), and every literal
+         ``inc("serve.*")`` counter bump in ``serve/``
+         lives in a function that propagates trace context (calls
+         ``current_trace_id`` or passes a ``trace=`` keyword to some
+         call) — a serve-tier record published from a context-blind
+         function cannot be joined to the request that caused it.
+  SL802  series literals ride the obs-literals machinery: the
+         ``sample`` publisher is registered in
+         :data:`..obs_literals.WRITERS` under the ``series`` kind
+         (so ``serve.latency_s`` et al. get the SL401 near-miss
+         check and a docs/OBS_REFERENCE_TORCH.md section), and at
+         least one static ``sample("serve.…")`` publish site exists
+         in the package — a writer entry without publishers (or
+         publishers invisible to the collector) is drift either way.
+  SL803  the tracing/metrics arbitration ships whole: the FROZEN
+         ``("obs", "reqtrace")`` and ``("serve", "metrics")`` rows
+         exist in tune/cache.py AND each has a literal two-arg key
+         read in the package (the gates' ``resolve()`` memos) —
+         a row without its reader ships a default nobody consults, a
+         reader without the row silently falls back (the SL703
+         contract, carried to the observability gates).
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+from typing import Iterator, List, Tuple
+
+from . import astutil
+from .core import Finding, PKG, pkg_path, register
+from .obs_literals import WRITERS
+
+TUNE_CACHE_PATH = pkg_path("tune/cache.py")
+SERIES_PATH = pkg_path("obs/series.py")
+#: the two FROZEN gate rows the tracing/metrics subsystem rides
+GATE_ROWS = (("obs", "reqtrace"), ("serve", "metrics"))
+
+
+def _has_trace_kwarg(call: ast.Call) -> bool:
+    return any(kw.arg == "trace" for kw in call.keywords)
+
+
+def _propagates_trace(fn) -> bool:
+    """A function participates in trace propagation when it reads the
+    thread-local trace id or hands a ``trace=`` to anything."""
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        if astutil.call_name(node) == "current_trace_id":
+            return True
+        if _has_trace_kwarg(node):
+            return True
+    return False
+
+
+def _functions(tree) -> Iterator[ast.AST]:
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield node
+
+
+def _serve_counter_calls(fn) -> Iterator[Tuple[int, str]]:
+    """(line, name) of literal ``inc("serve.…")`` bumps directly
+    inside `fn` (nested defs are visited as their own functions)."""
+    stack = list(ast.iter_child_nodes(fn))
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Call) \
+                and astutil.call_name(node) == "inc" and node.args:
+            name = astutil.const_str(node.args[0])
+            if name is not None and name.startswith("serve."):
+                yield node.lineno, name
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@register("reqtrace-ctx", ("SL801", "SL802", "SL803"),
+          "serve-tier escalations and counters carry trace context; "
+          "series literals ride the obs-literals registry; the "
+          "FROZEN reqtrace/metrics gate rows ship with literal "
+          "readers")
+def analyze(repo: str) -> List[Finding]:
+    findings: List[Finding] = []
+
+    # SL801: trace context through the serving tier's publishers
+    serve_dir = os.path.join(repo, PKG, "serve")
+    for path in astutil.py_files(serve_dir):
+        tree = astutil.parse(path)
+        if tree is None:
+            continue
+        rel = astutil.rel(repo, path)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call) or not node.args:
+                continue
+            if astutil.call_name(node) != "record_escalation":
+                continue
+            rung = astutil.const_str(node.args[0])
+            if rung is None or not rung.startswith("serve_"):
+                continue
+            if not _has_trace_kwarg(node):
+                findings.append(Finding(
+                    "SL801", rel, node.lineno,
+                    "escalation %r has no trace= keyword — the "
+                    "resil funnel's record cannot be joined to the "
+                    "request that caused it (pass reqtrace."
+                    "current_trace_id(); None is filtered with "
+                    "tracing off)" % rung))
+        for fn in _functions(tree):
+            if _propagates_trace(fn):
+                continue
+            for line, name in _serve_counter_calls(fn):
+                findings.append(Finding(
+                    "SL801", rel, line,
+                    "serve counter %r is published from %s(), which "
+                    "neither reads current_trace_id() nor passes a "
+                    "trace= keyword — a context-blind serve-tier "
+                    "record" % (name, fn.name)))
+
+    # SL802: the series publisher rides the obs-literals registry
+    if WRITERS.get("sample") != "series":
+        findings.append(Finding(
+            "SL802", "tools/slate_lint_torch/obs_literals.py", 0,
+            "WRITERS has no 'sample' -> 'series' entry — series "
+            "names escape the SL401 near-miss check and the "
+            "OBS_REFERENCE_TORCH doc"))
+    else:
+        pkg = os.path.join(repo, PKG)
+        found = False
+        for path in astutil.py_files(pkg):
+            tree = astutil.parse(path)
+            if tree is None:
+                continue
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Call) and node.args \
+                        and astutil.call_name(node) == "sample":
+                    name = astutil.const_str(node.args[0])
+                    if name is not None \
+                            and name.startswith("serve."):
+                        found = True
+                        break
+            if found:
+                break
+        if not found:
+            findings.append(Finding(
+                "SL802", SERIES_PATH, 0,
+                "no literal sample(\"serve.…\") publish site in "
+                "%s/ — the series registry entry has no collectable "
+                "publisher (span closure should feed the "
+                "serve.latency_s family)" % PKG))
+
+    # SL803: gate rows + literal readers (the SL703 pattern)
+    tpath = os.path.join(repo, TUNE_CACHE_PATH)
+    frozen = astutil.frozen_keys(tpath)
+    for row in GATE_ROWS:
+        if row not in frozen:
+            findings.append(Finding(
+                "SL803", TUNE_CACHE_PATH, 0,
+                "FROZEN row %r missing — the gate's cold route must "
+                "ship in the tune table" % (row,)))
+    for row in astutil.unread_rows(os.path.join(repo, PKG), GATE_ROWS):
+        findings.append(Finding(
+            "SL803", TUNE_CACHE_PATH, 0,
+            "no literal %r key read anywhere in %s/ — the FROZEN gate "
+            "row has no reader, so the arbitration is dead"
+            % (row, PKG)))
+    return findings

@@ -1,0 +1,126 @@
+"""Analyzer: the task-graph runtime contract (SL701/SL702/SL703).
+
+The sched/ runtime only attributes and faults correctly when its
+static tables agree with the obs and resil vocabularies — cross-file
+agreements no single call site can see:
+
+  SL701  ``sched/graph.PHASE_OF_KIND`` maps EVERY node kind in
+         ``NODE_KINDS`` and maps only into obs/ledger.py's ``PHASES``
+         tuple — an unmapped kind crashes the executor's frame()
+         lookup at issue time, and an off-vocabulary phase is a
+         silently-empty attribution column (the SL602 failure mode
+         carried into the graph runtime).
+  SL702  ``sched/graph.FAULT_SITE_OF_KIND`` covers every node kind
+         and its non-None values name registered fault sites
+         (resil/faults.SITES) — a kind mapped to an unknown site
+         advertises an injection point that can never fire.
+  SL703  the scheduler arbitration ships: the FROZEN
+         ``("ooc", "scheduler")`` row exists in tune/cache.py AND at
+         least one literal ``("ooc", "scheduler")`` key read exists
+         in the package (the MethodScheduler.resolve route) — a row
+         without its reader keeps shipping a default nobody
+         consults, a reader without the row silently falls back.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List
+
+from . import astutil
+from .core import Finding, PKG, pkg_path, register
+
+GRAPH_PATH = pkg_path("sched/graph.py")
+LEDGER_PATH = pkg_path("obs/ledger.py")
+FAULTS_PATH = pkg_path("resil/faults.py")
+TUNE_CACHE_PATH = pkg_path("tune/cache.py")
+SCHED_ROW = ("ooc", "scheduler")
+
+
+@register("sched-graph", ("SL701", "SL702", "SL703"),
+          "task-graph node kinds map completely onto ledger phases "
+          "and registered fault sites; the FROZEN ooc/scheduler "
+          "arbitration row ships with a literal reader")
+def analyze(repo: str) -> List[Finding]:
+    findings: List[Finding] = []
+
+    gpath = os.path.join(repo, GRAPH_PATH)
+    kinds = astutil.assigned_literal(gpath, "NODE_KINDS")
+    if not isinstance(kinds, tuple) or not kinds:
+        findings.append(Finding(
+            "SL701", GRAPH_PATH, 0,
+            "NODE_KINDS literal missing or not a plain tuple — the "
+            "kind vocabulary is the runtime's dispatch contract"))
+        kinds = ()
+    kind_set = set(kinds)
+
+    # SL701: phase map total over kinds, values in the ledger set
+    phases = astutil.assigned_literal(
+        os.path.join(repo, LEDGER_PATH), "PHASES")
+    phase_set = set(phases) if isinstance(phases, tuple) else set()
+    phase_of = astutil.assigned_literal(gpath, "PHASE_OF_KIND")
+    if not isinstance(phase_of, dict):
+        findings.append(Finding(
+            "SL701", GRAPH_PATH, 0,
+            "PHASE_OF_KIND literal missing or not a plain dict"))
+        phase_of = {}
+    for k in kind_set - set(phase_of):
+        findings.append(Finding(
+            "SL701", GRAPH_PATH, 0,
+            "node kind %r has no PHASE_OF_KIND entry — the executor's "
+            "ledger frame() lookup crashes at issue time" % k))
+    for k, v in phase_of.items():
+        if k not in kind_set:
+            findings.append(Finding(
+                "SL701", GRAPH_PATH, 0,
+                "PHASE_OF_KIND key %r is not a NODE_KINDS kind" % k))
+        if phase_set and v not in phase_set:
+            findings.append(Finding(
+                "SL701", GRAPH_PATH, 0,
+                "PHASE_OF_KIND[%r] = %r is not in obs/ledger.PHASES "
+                "%r — a silently-empty attribution column"
+                % (k, v, tuple(sorted(phase_set)))))
+
+    # SL702: fault-site map total over kinds, values registered
+    sites = astutil.assigned_literal(
+        os.path.join(repo, FAULTS_PATH), "SITES")
+    site_set = set(sites) if isinstance(sites, dict) else set()
+    site_of = astutil.assigned_literal(gpath, "FAULT_SITE_OF_KIND")
+    if not isinstance(site_of, dict):
+        findings.append(Finding(
+            "SL702", GRAPH_PATH, 0,
+            "FAULT_SITE_OF_KIND literal missing or not a plain dict"))
+        site_of = {}
+    for k in kind_set - set(site_of):
+        findings.append(Finding(
+            "SL702", GRAPH_PATH, 0,
+            "node kind %r has no FAULT_SITE_OF_KIND entry (use None "
+            "for kinds with no injection point)" % k))
+    for k, v in site_of.items():
+        if k not in kind_set:
+            findings.append(Finding(
+                "SL702", GRAPH_PATH, 0,
+                "FAULT_SITE_OF_KIND key %r is not a NODE_KINDS "
+                "kind" % k))
+        if v is not None and site_set and v not in site_set:
+            findings.append(Finding(
+                "SL702", GRAPH_PATH, 0,
+                "FAULT_SITE_OF_KIND[%r] = %r is not a registered "
+                "fault site (resil/faults.SITES %r) — an injection "
+                "point that can never fire"
+                % (k, v, tuple(sorted(site_set)))))
+
+    # SL703: the arbitration row plus a literal reader
+    tpath = os.path.join(repo, TUNE_CACHE_PATH)
+    if SCHED_ROW not in astutil.frozen_keys(tpath):
+        findings.append(Finding(
+            "SL703", TUNE_CACHE_PATH, 0,
+            "FROZEN row %r missing — the scheduler cold route must "
+            "ship in the tune table" % (SCHED_ROW,)))
+    if astutil.unread_rows(os.path.join(repo, PKG), (SCHED_ROW,)):
+        findings.append(Finding(
+            "SL703", TUNE_CACHE_PATH, 0,
+            "no literal %r key read anywhere in %s/ — the FROZEN "
+            "scheduler row has no reader, so the arbitration is dead"
+            % (SCHED_ROW, PKG)))
+    return findings
