@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Parent against change on one card, in one run: the swap composition
-(`compose_swaps`), the tridiagonal QR pass (`steqr_sweep`), and the
-calls on their paths.
+(`compose_swaps`), the tridiagonal and bidiagonal QR passes
+(`steqr_sweep`, `bdsqr_sweep`), and the calls on their paths.
 
     git archive <parent> | tar -x -C smoke_archive/parent
     python3 chip_compare.py --parent smoke_archive/parent
@@ -20,12 +20,12 @@ calls on their paths.
               request, factored by ragged_getrf), each tree BITWISE
               against compose_swaps_plain (the parent skips targets
               outside the rows, XLA does not: there it is reported, not
-              held); one full-width steqr_sweep pass at n = 2048, each
-              tree bitwise against steqr_sweep_plain over 3 passes, and
-              this tree's multi-pass launch of STEQR_PASSES_PER_LAUNCH
-              passes, a pass; each row with its bound and latency floor
-              (the sweep's: the 4-operation one and the bitwise floor,
-              chip_smoke.sweep_floor_ms);
+              held); one full-width steqr_sweep pass at n = 2048 and one
+              bdsqr_sweep pass at n = 512, each tree bitwise against the
+              plain version over 3 passes, and this tree's multi-pass
+              launch of the path's cap (32 passes), a pass; each row with
+              its bound and latency floor (the sweep's: the 4-operation
+              one and the bitwise floor, chip_smoke.sweep_floor_ms);
   2. solves   in one process per tree, in the order parent, change,
               change, parent: gesv_mixed at n = 16384 (tiles 512, f32
               and bf16 panels routed to the recursive kernel, as
@@ -35,10 +35,14 @@ calls on their paths.
               n = 2048 (chip_smoke.py's matrix, the chain routed to
               givens_chain_apply) once warm and once under the profiler:
               the wall, the sweep's device time, passes (the chain's
-              launches, one a pass), sweep launches and host reads (the
-              parent reads the count once a pass and once more at the
-              end), and digests of the eigenvalues, the eigenvectors and
-              info, equal between the trees.
+              launches, one a pass), sweep launches and host reads, and
+              digests of the eigenvalues and the eigenvectors, equal
+              between the trees; svd QRIteration at n = 512 (chip_smoke's
+              matrix, the chain routed) the same way: passes (half the
+              chain's launches), sweep launches, host reads and digests
+              of s, U and Vh. A tree that reads the count once a pass
+              reads it once more before the first (host reads = passes
+              + 1); one that reads once a launch, once a launch.
 
 Prints one JSON line a phase and the card's nvidia-smi line; exits 1
 when a check fails and 2 without a CUDA card.
@@ -57,7 +61,7 @@ import torch
 from slate_tpu_torch.ops import _build
 from slate_tpu_torch.ops import kernels as pk
 
-from chip_smoke import (N, N_EIG, SWAP_WIDTHS, bound_ms, compose_latency_ms,
+from chip_smoke import (N, SWAP_WIDTHS, SWEEPS, bound_ms, compose_latency_ms,
                         cuda_ms, graph_ms, largest_flush, latency_ms,
                         lu_swaps, path_stacks, sweep_bound, sweep_floor_ms,
                         to_card, tridiag, DEP_OP_CYCLES)
@@ -68,7 +72,9 @@ ORDER = ("parent", "change", "change", "parent")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 PARENT_LIBS = {
     "compose_swaps": {"compose_swaps": [_P, _I, _I, _I, _P, _P]},
-    "qr_sweep": {"steqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P]},
+    "qr_sweep": {"steqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+                 "bdsqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P,
+                                 _P]},
 }
 
 
@@ -114,20 +120,19 @@ def parent_compose(lib, piv, m):
     return perm
 
 
-def parent_steqr(lib, d, e):
-    """One pass through the parent's kernel, as its wrapper called it."""
+def parent_sweep(lib, name, d, e):
+    """One pass through the parent's `name` kernel (steqr_sweep: 2
+    rotation vectors, bdsqr_sweep: 4), as its wrapper called it."""
     n = d.shape[0]
     dout, eout = torch.empty_like(d), torch.empty_like(e)
-    cs, sn = (torch.empty(n - 1, dtype=torch.float32, device=d.device)
-              for _ in range(2))
+    rots = [torch.empty(n - 1, dtype=torch.float32, device=d.device)
+            for _ in range(2 if name == "steqr_sweep" else 4)]
     cnt = torch.empty((), dtype=torch.int32, device=d.device)
-    _build.check(lib.steqr_sweep(d.data_ptr(), e.data_ptr(), n,
-                                 float(torch.finfo(torch.float32).eps),
-                                 dout.data_ptr(), eout.data_ptr(),
-                                 cs.data_ptr(), sn.data_ptr(),
-                                 cnt.data_ptr(), _stream()),
-                 "parent steqr_sweep")
-    return dout, eout, cs, sn, cnt
+    _build.check(getattr(lib, name)(
+        d.data_ptr(), e.data_ptr(), n, float(torch.finfo(torch.float32).eps),
+        dout.data_ptr(), eout.data_ptr(), *[r.data_ptr() for r in rots],
+        cnt.data_ptr(), _stream()), "parent " + name)
+    return (dout, eout, *rots, cnt)
 
 
 def timed(row, fns, reps):
@@ -182,40 +187,43 @@ def compose_rows(lib, seed):
     return ok, rows
 
 
-def steqr_rows(lib, seed):
-    d0, e0 = tridiag(np.random.default_rng(seed), N_EIG)
-    fns = {"parent": lambda: parent_steqr(lib, d0, e0),
-           "change": lambda: pk.steqr_sweep(d0, e0)}
-    row = {"kernel": "steqr_sweep", "shape": "n = %d, one pass" % N_EIG}
+def sweep_rows(lib, seed, name):
+    """The sweep `name` (a key of chip_smoke.SWEEPS) at its path's
+    order, the parent's kernel beside this tree's."""
+    run, plain, multi, _mp, k, floor, n, _path, _line = SWEEPS[name]
+    d0, e0 = tridiag(np.random.default_rng(seed), n)
+    fns = {"parent": lambda: parent_sweep(lib, name, d0, e0),
+           "change": lambda: run(d0, e0)}
+    row = {"kernel": name, "shape": "n = %d, one pass" % n}
     ok = True
-    for who, run in (("parent", lambda d, e: parent_steqr(lib, d, e)),
-                     ("change", pk.steqr_sweep)):
+    for who, step in (("parent", lambda d, e: parent_sweep(lib, name, d, e)),
+                      ("change", run)):
         d, e, same = d0, e0, []
         for _ in range(3):
-            got = run(d, e)
+            got = step(d, e)
             same.append(all(torch.equal(a, b) for a, b in
-                            zip(got, pk.steqr_sweep_plain(d, e))))
+                            zip(got, plain(d, e))))
             d, e = got[0], got[1]
         row["bitwise_plain_" + who] = same
         ok &= all(same)
     timed(row, fns, 20)
-    k = pk.STEQR_PASSES_PER_LAUNCH
-    ran = pk.steqr_sweeps(d0, e0, k)[4].tolist()
+    ran = multi(d0, e0, k)[-1].tolist()
     row["multi_pass_graph_ms_a_pass"] = graph_ms(
-        lambda: pk.steqr_sweeps(d0, e0, k), 3) / max(ran[0], 1)
+        lambda: multi(d0, e0, k), 3) / max(ran[0], 1)
     row["multi_pass_ran"] = ran
-    b, by = sweep_bound(N_EIG - 1, N_EIG, 2)
+    b, by = sweep_bound(n - 1, n, len(got) - 3)
     row.update(bound_ms=b, bound_by=by, library_ms=None,
-               latency_bound_ms=latency_ms(N_EIG - 1, 4 * DEP_OP_CYCLES))
+               latency_bound_ms=latency_ms(n - 1, 4 * DEP_OP_CYCLES))
     row["bitwise_floor_ms"], row["floor_cycles_per_step"] = \
-        sweep_floor_ms(d0, e0)
+        sweep_floor_ms(floor, d0, e0)
     return ok, [row]
 
 
 def phase_kernels(libs, seed):
     ok, rows = True, []
     for part in (lambda: compose_rows(libs["compose_swaps"], seed),
-                 lambda: steqr_rows(libs["qr_sweep"], seed)):
+                 lambda: sweep_rows(libs["qr_sweep"], seed, "steqr_sweep"),
+                 lambda: sweep_rows(libs["qr_sweep"], seed, "bdsqr_sweep")):
         p_ok, p_rows = part()
         ok &= p_ok
         rows += p_rows
@@ -224,7 +232,8 @@ def phase_kernels(libs, seed):
 
 #: run in each tree (only what both trees' chip_smoke.py have): gesv_mixed
 #: at n = 16384 warm and under the profiler, then heev QRIteration at
-#: n = 2048 warm and under the profiler
+#: n = 2048 and svd QRIteration at n = 512, each warm and under the
+#: profiler
 SOLVES = """
 import hashlib
 import json
@@ -288,6 +297,26 @@ out["heev_qr_iteration"] = {
                 "idle_share": prof["idle_share"], "top": prof["top"][:6]},
     "sweep": share(prof, ("steqr_sweep",)),
     "chain": share(prof, ("givens_chain",))}
+del E, w, V
+gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+S = st.Matrix(torch.randn((cs.N_SVD, cs.N_SVD), generator=gen,
+                          device="cuda"), mb=cs.MB_SVD)
+cs.route_chain("bdsqr", torch.float32, cs.N_SVD)
+sopts = {st.Option.MethodSVD: st.MethodSVD.QRIteration}
+st.svd(S, sopts)
+pk.reset_launch_counts()
+wall, res = cs.wall_s(lambda: st.svd(S, sopts))
+launches = pk.launch_counts()
+prof = cs.profile_call(lambda: st.svd(S, sopts), top=400)
+out["svd_qr_iteration"] = {
+    "wall_s": wall, "passes": launches["givens_chain_apply"] // 2,
+    "sweep_launches": launches["bdsqr_sweep"],
+    "s_digest": digest(res.s), "u_digest": digest(res.U.to_dense()),
+    "vh_digest": digest(res.Vh.to_dense()),
+    "profile": {"wall_s": prof["wall_s"], "busy_s": prof["device_busy_s"],
+                "idle_share": prof["idle_share"], "top": prof["top"][:6]},
+    "sweep": share(prof, ("bdsqr_sweep",)),
+    "chain": share(prof, ("givens_chain",))}
 print("SOLVES " + json.dumps(out))
 """
 
@@ -307,17 +336,22 @@ def phase_solves(trees, seed):
             continue
         rec = json.loads(line[-1][len("SOLVES "):])
         rec["tree"] = who
-        h = rec["heev_qr_iteration"]
-        # the parent reads the count after every pass and once before;
-        # the change once a launch
-        h["host_reads"] = h["passes"] + 1 if who == "parent" \
-            else h["sweep_launches"]
-        ok &= rec["gesv_mixed"]["backward_error"] <= 1e-6 and h["passes"] > 0
+        for part in ("heev_qr_iteration", "svd_qr_iteration"):
+            h = rec[part]
+            # one launch a pass: the count read after every pass and
+            # once before; multi-pass launches: once a launch
+            h["host_reads"] = h["passes"] + 1 \
+                if h["sweep_launches"] == h["passes"] else h["sweep_launches"]
+            ok &= h["passes"] > 0
+        ok &= rec["gesv_mixed"]["backward_error"] <= 1e-6
         runs.append(rec)
     same = {k: len({r.get(part, {}).get(k) for r in runs}) == 1
             for part, k in (("gesv_mixed", "pivots_digest"),
                             ("heev_qr_iteration", "w_digest"),
-                            ("heev_qr_iteration", "v_digest"))}
+                            ("heev_qr_iteration", "v_digest"),
+                            ("svd_qr_iteration", "s_digest"),
+                            ("svd_qr_iteration", "u_digest"),
+                            ("svd_qr_iteration", "vh_digest"))}
     return {"phase": "solves", "ok": bool(ok and all(same.values())),
             "equal_between_trees": same, "runs": runs}
 

@@ -96,12 +96,12 @@ script exit non-zero without the final result line:
                                       bitwise in d, e, the rotations and
                                       the count over 3 passes at
                                       n = 2048 and 512; the multi-pass
-                                      steqr_sweeps bitwise against its
-                                      plain twin over several launches
-                                      (a stop at the cap, one at a
-                                      count of 0); replayed from a CUDA
-                                      graph, with the sweep's bitwise
-                                      floor;
+                                      steqr_sweeps and bdsqr_sweeps
+                                      bitwise against their plain twins
+                                      over several launches (a stop at
+                                      the cap, one at a count of 0);
+                                      replayed from a CUDA graph, with
+                                      each sweep's bitwise floor;
               chol_panel and trtri_lower have no driver call site (as
               in the reference): their launches are counted over a run
               of their public entries on the random cases;
@@ -227,9 +227,11 @@ script exit non-zero without the final result line:
               (Auto) or STAGED_EIG_LIMIT (the staged routes);
  18. svd      512 x 512 Gaussian, tiles 64: Auto (the library SVD) and
               MethodSVD.QRIteration with ('bdsqr', 'chain') routed to
-              the chain kernel (ge2tb -> tb2bd -> bdsqr_qr, two chain
-              launches a pass); reconstruction and values within
-              EIG_LIMIT;
+              the chain kernel (ge2tb -> tb2bd -> bdsqr_qr: the passes
+              in bdsqr_sweeps launches of up to 32, one host read a
+              launch, two givens_chain_apply launches a pass; passes
+              and launches counted apart); reconstruction and values
+              within EIG_LIMIT;
  19. spectral_dc  the spectral divide & conquer eigensolver
               (linalg/spectral_dc.py, polar.py; library calls, no hand
               kernel): the library eigensolver at the leaves' orders
@@ -318,11 +320,11 @@ script exit non-zero without the final result line:
               timeout);
  23. ooc      the out-of-core stream (linalg/stream.py, ooc.py, sched/;
               host-resident numpy matrices made on the card from
-              --seed): the engine's transfer pieces on one 2 GiB panel
+              --seed): the engine's transfer pieces on one 1 GiB panel
               (the host gather into pinned memory, also from never-
               touched pages, each DMA, a staged upload and writeback);
-              posv_ooc f32 at n = 65536 (8 panels of 8192,
-              64 rhs, S = G G^T / 2048 + I) at budget 0 and at 4 panels
+              posv_ooc f32 at n = 32768 (4 panels of 8192,
+              64 rhs, S = G G^T / 2048 + I) at budget 0 and at 3 panels
               (mru, evicting): factors bitwise, backward error <= 1e-6,
               the transfer counters, walls beside the in-core posv;
               gesv_ooc at 32768 with its panels on the recursive kernel
@@ -334,7 +336,7 @@ script exit non-zero without the final result line:
               the timed run's) and at the default incore_nb (library
               panels, pivots equal to the kernel route's), beside the
               in-core gesv; getrf_tntpiv_ooc + getrs_ooc at
-              a budget of 2 panels (no invalidation); gels_ooc 65536 x
+              a budget of 2 panels (no invalidation); gels_ooc 32768 x
               16384 (panels of 4096) against the in-core gels (1e-4)
               and gemm_ooc against torch.matmul (1e-5); posv_ooc and
               gesv_ooc under bf16 residency at 32768, refined to 1e-6,
@@ -353,9 +355,9 @@ script exit non-zero without the final result line:
  24. shard_ooc  the sharded out-of-core stream and the elastic mesh
               (dist/shard_ooc.py, dist/elastic.py). Leg A: a world of one
               NCCL rank, make_grid(1, 1), at phase ooc's sizes:
-              shard_potrf_ooc at 65536 (panels of 8192) at budget 0 and
-              4 panels, shard_getrf_ooc at 32768 (2 panels), and
-              shard_geqrf_ooc at 65536 x 16384 (panels of 4096), each
+              shard_potrf_ooc at 32768 (panels of 8192) at budget 0 and
+              3 panels, shard_getrf_ooc at 32768 (2 panels), and
+              shard_geqrf_ooc at 32768 x 16384 (panels of 4096), each
               bitwise its single-engine twin (potrf_ooc,
               getrf_tntpiv_ooc with its pivots, geqrf_ooc with its taus)
               run on the same matrix, walls side by side; at 16384
@@ -415,9 +417,12 @@ script exit non-zero without the final result line:
               update (rank_update's kernels), of the LU base case, of
               the rank-1 panel's trailing-column updates, of qr_panel,
               of ragged_trsm, of compose_swaps and of the tridiagonal
-              sweeps, and the LU base case's mean bound a segment;
- 30. the {"kernels": [...]} summary, then the card's nvidia-smi line,
-     then {"ok": true, "device": {...}}.
+              and bidiagonal sweeps, and the LU base case's mean bound a
+              segment;
+ 30. the {"phase_walls": {...}} line (each phase's wall, also its
+     line's "wall_s", and the script's), the {"kernels": [...]}
+     summary, then the card's nvidia-smi line, then {"ok": true,
+     "device": {...}}.
 
 Bounds: the larger of bytes over the memory rate and operations over
 the peak rate of their type: a panel's per-column recurrence at the
@@ -430,6 +435,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import importlib
 import io
 import json
 import os
@@ -463,6 +469,9 @@ from slate_tpu_torch.tune import autotune
 from slate_tpu_torch.tune import cache as tcache
 from slate_tpu_torch.tune import select as tselect
 from slate_tpu_torch.tune import stats as tstats
+
+# the package re-exports the svd function under the module's name
+tsvd = importlib.import_module("slate_tpu_torch.linalg.svd")
 
 #: published H100 SXM peaks (NVIDIA data sheet): f32 outside the
 #: tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth
@@ -1339,8 +1348,9 @@ def phase_gesv(seed, results, system):
     system.update(A=A, B=B, X=X, opts=opts, wall=wall, wall_cold=wall_cold,
                   piv=F.pivots)
     return {"phase": "gesv", "ok": bool(ok), "n": N, "nrhs": NRHS,
-            "nb": NB, "dtype": "float32", "seed": seed, "wall_s": wall,
-            "launches": launches, "backward_error": e,
+            "nb": NB, "dtype": "float32", "seed": seed,
+            "driver_wall_s": wall, "launches": launches,
+            "backward_error": e,
             "x_rel_diff_cold": xdiff,
             "pivots_equal_cold": torch.equal(F.pivots, Fc.pivots),
             "wall_s_cold_route": wall_cold,
@@ -1363,7 +1373,8 @@ def mixed_check(name, A, B, call, ref_x, factor="LU"):
     ok = (iters >= 0 and e <= 1e-6 and xdiff <= 1e-5
           and fdt == torch.bfloat16
           and bool(torch.isfinite(X.data).all()))
-    return ok, launches, {"driver": name, "wall_s": wall, "iters": iters,
+    return ok, launches, {"driver": name, "driver_wall_s": wall,
+                          "iters": iters,
                           "launches": launches, "backward_error": e,
                           "x_rel_diff_f32": xdiff,
                           "factor_dtype": str(fdt)}
@@ -1410,7 +1421,7 @@ def phase_mixed(results, system):
     ok &= all(launches[k] > 0 for k in ("lu_panel_rec", "rank_update",
                                         "compose_swaps"))
     set_launches(results, "gesv_mixed", launches)
-    system["mixed_wall"] = rep["wall_s"]
+    system["mixed_wall"] = rep["driver_wall_s"]
     return {"phase": "gesv_mixed", "ok": bool(ok), "n": N, "nrhs": NRHS,
             "nb": NB, **rep, "gesv_f32_wall_s": system["wall"],
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -2259,7 +2270,7 @@ def phase_gels_bf16(seed, results, system):
           and bool(torch.isfinite(X.data).all()))
     system["gels_bf16"] = (Ab, Bb)
     return {"phase": "gels_bf16", "ok": bool(ok), "n": N_QR_BF16,
-            "nrhs": NRHS, "tiles": NB, "wall_s": wall,
+            "nrhs": NRHS, "tiles": NB, "driver_wall_s": wall,
             "gels_f32_wall_s": wall_f32, "launches": launches,
             "qr_panel_launches_expected": expected,
             "x_rel_diff_f32": xdiff, "limit": GELS_BF16_LIMIT}
@@ -3713,15 +3724,20 @@ def phase_grid(seed, results, system):
 
 # -- the out-of-core stream (linalg/stream.py, ooc.py, sched/) --------------
 
-#: posv_ooc's size: 8 panels of the frozen width 8192, 17.2 GB of f32 in
-#: host memory; the SPD matrix is S = G G^T / k + I with G of n x k
-N_OOC, W_OOC, K_OOC = 65536, 8192, 2048
+#: posv_ooc's size: 4 panels of the frozen width 8192, 4.3 GB of f32 in
+#: host memory (cut from 65536, 17.2 GB, to keep the script's wall
+#: under 900 s: PERF.md section 4); the SPD matrix is S = G G^T / k + I
+#: with G of n x k. The cache budget of its runs that must evict (also
+#: leg A of shard_ooc's), in panels: 3 of the 4 (at 2 the cache keeps
+#: fewer panels and never evicts: 7 hits, 7 misses)
+N_OOC, W_OOC, K_OOC = 32768, 8192, 2048
+OOC_BUDGET_PANELS = 3
 #: the LU, bf16 and tuner runs (4 panels), and the scheduler / fused /
 #: resilience runs (8 panels of 2048)
 N_OOC_LU, N_OOC_SCHED, W_OOC_SCHED = 32768, 16384, 2048
-#: gels_ooc / gemm_ooc: 65536 x 16384, panels of 4096; gemm's B 16384 x
-#: 4096
-GELS_M, GELS_N, GELS_W, GEMM_N = 65536, 16384, 4096, 4096
+#: gels_ooc / gemm_ooc: 32768 x 16384 (cut from 65536 rows, as N_OOC),
+#: panels of 4096; gemm's B 16384 x 4096
+GELS_M, GELS_N, GELS_W, GEMM_N = 32768, 16384, 4096, 4096
 OOC_TUNE_CANDIDATES = (4096, 8192)
 #: limits: backward error, gels against the in-core gels, gemm against
 #: torch.matmul (relative)
@@ -3737,7 +3753,7 @@ def ooc_spd(gen, n, k=K_OOC):
     """S = G G^T / k + I on the card, G (n, k) Gaussian, made exactly
     symmetric ((S + S^T) / 2), so the refinement's host residual needs
     no mirrored copy. Eigenvalues in 1 + [0, (1 + sqrt(n / k))^2 k / n
-    ... ]: kappa ~45 at 65536."""
+    ... ]: kappa ~45 at 65536, ~26 at 32768."""
     g = torch.randn((n, k), generator=gen, device="cuda")
     s = g @ g.T
     del g
@@ -3825,10 +3841,10 @@ def free_card():
 def ooc_transfers(a, reps=2):
     """The engine's transfer pieces on one stream panel (rows of a
     C-ordered host matrix `a`, its first W_OOC columns: N_OOC rows of
-    32 KiB at a stride of 256 KiB): the host gather into pinned memory
+    32 KiB at a stride of 128 KiB): the host gather into pinned memory
     (also from never-touched zero pages), each direction's DMA, the pinned-to-strided host copy, one staged
     upload and writeback (stream._Stager) into touched and into
-    fresh (first-touch) host pages, and one 2 GiB pinned allocation;
+    fresh (first-touch) host pages, and one 1 GiB pinned allocation;
     best of `reps`, GB/s of the panel's bytes."""
     from slate_tpu_torch.linalg import stream
     view = a[:, :W_OOC]
@@ -3874,17 +3890,19 @@ def ooc_transfers(a, reps=2):
 
 
 def ooc_posv(seed, out):
-    """Run 1: posv_ooc f32 at N_OOC, budget 0 and 4 panels (mru, must
-    evict): bitwise factors, backward error, beside the in-core posv."""
+    """Run 1: posv_ooc f32 at N_OOC, budget 0 and OOC_BUDGET_PANELS
+    panels (mru, must evict): bitwise factors, backward error, beside
+    the in-core posv."""
     gen = torch.Generator("cuda").manual_seed(seed + 15)
     A = ooc_spd(gen, N_OOC)
     B = torch.randn((N_OOC, NRHS), generator=gen, device="cuda")
     a, b = host(A), host(B)
     out["transfers"] = ooc_transfers(a)
     runs, ok = {}, True
-    budget = 4 * N_OOC * W_OOC * 4
+    budget = OOC_BUDGET_PANELS * N_OOC * W_OOC * 4
+    cached = "budget%d" % OOC_BUDGET_PANELS
     factors = {}
-    for name, bud in (("budget0", 0), ("budget4", budget)):
+    for name, bud in (("budget0", 0), (cached, budget)):
         wall, (L, X), rep = ooc_run(lambda: st.posv_ooc(
             a, b, panel_cols=W_OOC, cache_budget_bytes=bud))
         e = ooc_berr(A, X, b)
@@ -3893,8 +3911,8 @@ def ooc_posv(seed, out):
                       "backward_error": e, **rep}
         factors[name] = L
         del X
-    ok &= runs["budget4"]["ooc.cache.evictions"] > 0
-    same = host_equal(factors["budget0"], factors["budget4"])
+    ok &= runs[cached]["ooc.cache.evictions"] > 0
+    same = host_equal(factors["budget0"], factors[cached])
     ok &= same
     del factors
     # the in-core posv on the same matrix: its tiled copy replaces A on
@@ -4273,8 +4291,9 @@ def host_rss_gib():
 
 def shard_call(fn, launches):
     """ooc_run of one sharded call, its kernel launches added to
-    `launches`. Collects first: leg A holds two 17.2 GB factors at a
-    time, and a third left to the collector would not fit the host."""
+    `launches`. Collects first: leg A holds two factors at a time
+    (17.2 GB each at n = 65536), and a third left to the collector would
+    not fit the host at that size."""
     import gc
     gc.collect()
     pk.reset_launch_counts()
@@ -4367,8 +4386,9 @@ def shard_leg_a(seed, results, out):
         gen = torch.Generator("cuda").manual_seed(seed + 24)
         a = host(ooc_spd(gen, N_OOC))
         free_card()
-        budget = 4 * N_OOC * W_OOC * 4
-        for name, bud in (("potrf_budget0", 0), ("potrf_budget4", budget)):
+        budget = OOC_BUDGET_PANELS * N_OOC * W_OOC * 4
+        for name, bud in (("potrf_budget0", 0),
+                          ("potrf_budget%d" % OOC_BUDGET_PANELS, budget)):
             ok &= shard_twin(
                 name, lambda: st.dist.shard_potrf_ooc(
                     a, grid, panel_cols=W_OOC, cache_budget_bytes=bud),
@@ -4682,43 +4702,53 @@ def sweep_bound(steps, n, nrot):
                     * (n - 1) + 4)
 
 
-def sweep_floor_ms(d, e):
-    """The tridiagonal sweep's bitwise floor on (d, e): the chase's
-    dependent chain with the rounding its contract fixes (f64 hypot,
-    IEEE divides, one rounding an operation), measured on one warp in
-    step by the library's steqr_chain_cycles (clock64 over the n-1
-    steps, no stores), as time at the boost clock; and the cycles a
-    step."""
+def sweep_floor_ms(name, d, e):
+    """A sweep's bitwise floor on (d, e): the chase's dependent chain
+    with the rounding its contract fixes (f64 hypot, IEEE divides, one
+    rounding an operation), measured on one warp in step by the
+    library's `name` entry (steqr_chain_cycles or bdsqr_chain_cycles:
+    clock64 over the n-1 steps, no stores), as time at the boost clock;
+    and the cycles a step."""
     lib = _build.load("qr_sweep")
     out = torch.zeros(2, dtype=torch.int64, device="cuda")
     for _ in range(2):                       # the second call is warm
-        _build.check(lib.steqr_chain_cycles(
+        _build.check(getattr(lib, name)(
             d.data_ptr(), e.data_ptr(), d.shape[0], out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "steqr_chain_cycles")
+            torch.cuda.current_stream().cuda_stream), name)
         torch.cuda.synchronize()
     per_step = int(out[0]) / (d.shape[0] - 1)
     return latency_ms(d.shape[0] - 1, per_step), per_step
+
+
+#: each sweep: its one-pass entry and plain version, its multi-pass
+#: entry, plain version and pass cap, its floor entry, its path's order
+SWEEPS = {"steqr_sweep": (pk.steqr_sweep, pk.steqr_sweep_plain,
+                          pk.steqr_sweeps, pk.steqr_sweeps_plain,
+                          pk.STEQR_PASSES_PER_LAUNCH, "steqr_chain_cycles",
+                          N_EIG, "heev", "slate_tpu/linalg/eig.py:553 "
+                          "(_steqr_shifted_sweep, XLA scan)"),
+          "bdsqr_sweep": (pk.bdsqr_sweep, pk.bdsqr_sweep_plain,
+                          pk.bdsqr_sweeps, pk.bdsqr_sweeps_plain,
+                          pk.BDSQR_PASSES_PER_LAUNCH, "bdsqr_chain_cycles",
+                          N_SVD, "svd", "slate_tpu/linalg/svd.py:472 "
+                          "(_bdsqr_shifted_sweep, XLA scan)")}
 
 
 def phase_qr_sweep(rng, results):
     """steqr_sweep and bdsqr_sweep against their plain versions,
     bitwise in every output, over 3 passes from a random n = 2048
     tridiagonal and a random 512 bidiagonal (each pass fed the kernel's
-    previous output); the multi-pass entry steqr_sweeps against its
-    plain twin, bitwise (d, e, every pass's rotations, passes run and
-    count), over 3 launches of 4 passes at n = 2048 and, on a 64 x 64
-    tridiagonal, launches of STEQR_PASSES_PER_LAUNCH until one stops at
-    a count of 0; times of the first pass, back to back and replayed
-    from a CUDA graph, of a full multi-pass launch a pass, with the
-    4-operation latency bound and the bitwise floor (sweep_floor_ms)."""
+    previous output); the multi-pass entries steqr_sweeps and
+    bdsqr_sweeps against their plain twins, bitwise (d, e, every pass's
+    rotations, passes run and count), over 3 launches of 4 passes at the
+    same order and, on a 64-order matrix, launches of the path's pass
+    cap until one stops at a count of 0 (multi_pass); times of the
+    first pass, back to back and replayed from a CUDA graph, of a full
+    multi-pass launch a pass, with the 4-operation latency bound and
+    the bitwise floor (sweep_floor_ms)."""
     out = {"phase": "kernel.qr_sweep", "ok": True}
-    for name, run, plain, n, path, line in (
-            ("steqr_sweep", pk.steqr_sweep, pk.steqr_sweep_plain, N_EIG,
-             "heev", "slate_tpu/linalg/eig.py:553 (_steqr_shifted_sweep, "
-             "XLA scan)"),
-            ("bdsqr_sweep", pk.bdsqr_sweep, pk.bdsqr_sweep_plain, N_SVD,
-             "svd", "slate_tpu/linalg/svd.py:472 (_bdsqr_shifted_sweep, "
-             "XLA scan)")):
+    for name, (run, plain, multi, multi_plain, cap, floor, n, path,
+               line) in SWEEPS.items():
         d0, e0 = tridiag(rng, n)
         d, e = d0, e0
         passes = []
@@ -4740,44 +4770,43 @@ def phase_qr_sweep(rng, results):
              # the chase: n-1 dependent steps, each at least four
              # dependent f32 operations on the bulge
              "latency_bound_ms": latency_ms(n - 1, 4 * DEP_OP_CYCLES)}
-        if name == "steqr_sweep":
-            s["bitwise_floor_ms"], s["floor_cycles_per_step"] = \
-                sweep_floor_ms(d0, e0)
-            s["multi_pass"] = steqr_multi_pass(d0, e0)
-            out["ok"] &= s["multi_pass"]["ok"]
+        s["bitwise_floor_ms"], s["floor_cycles_per_step"] = \
+            sweep_floor_ms(floor, d0, e0)
+        s["multi_pass"] = multi_pass(multi, multi_plain, cap, d0, e0)
+        out["ok"] &= s["multi_pass"]["ok"]
         out[name] = {**s, "passes_bitwise": passes}
         results[name] = entry(name, "float32", "qr_sweep.cu", line, path,
                               s, 0.0 if all(passes) else None)
     return out
 
 
-def steqr_multi_pass(d0, e0):
-    """steqr_sweeps against steqr_sweeps_plain, bitwise, over 3 chained
-    launches of 4 passes from (d0, e0), then on a random 64 x 64
-    tridiagonal launches of STEQR_PASSES_PER_LAUNCH until one stops at a
-    count of 0 (and one more, which runs no pass); the graph time of a
-    launch of STEQR_PASSES_PER_LAUNCH passes from (d0, e0), a pass."""
+def multi_pass(multi, plain, k, d0, e0):
+    """A multi-pass entry (steqr_sweeps or bdsqr_sweeps) against its
+    plain twin, bitwise, over 3 chained launches of 4 passes from
+    (d0, e0), then on a random 64-order matrix launches of k passes (the
+    path's cap) until one stops at a count of 0 (and one more, which
+    runs no pass); the graph time of a launch of k passes from
+    (d0, e0), a pass."""
     def held(d, e, k):
-        got = pk.steqr_sweeps(d, e, k)
-        ref = pk.steqr_sweeps_plain(d, e, k)
+        got = multi(d, e, k)
+        ref = plain(d, e, k)
         torch.cuda.synchronize()
         return got, all(torch.equal(a, b) for a, b in zip(got, ref))
 
     launches, d, e = [], d0, e0
     for _ in range(3):
         got, same = held(d, e, 4)
-        launches.append({"ran": got[4].tolist(), "bitwise": same})
+        launches.append({"ran": got[-1].tolist(), "bitwise": same})
         d, e = got[0], got[1]
     d, e = tridiag(np.random.default_rng(64), 64)
     for _ in range(12):
-        got, same = held(d, e, pk.STEQR_PASSES_PER_LAUNCH)
-        launches.append({"ran": got[4].tolist(), "bitwise": same})
+        got, same = held(d, e, k)
+        launches.append({"ran": got[-1].tolist(), "bitwise": same})
         d, e = got[0], got[1]
-        if got[4][0] == 0:
+        if got[-1][0] == 0:
             break
-    k = pk.STEQR_PASSES_PER_LAUNCH
-    ran = pk.steqr_sweeps(d0, e0, k)[4].tolist()
-    g_ms = graph_ms(lambda: pk.steqr_sweeps(d0, e0, k), 3)
+    ran = multi(d0, e0, k)[-1].tolist()
+    g_ms = graph_ms(lambda: multi(d0, e0, k), 3)
     ok = all(x["bitwise"] for x in launches) \
         and launches[-1]["ran"] == [0, 0] \
         and any(x["ran"][0] > 0 and x["ran"][1] == 0 for x in launches)
@@ -4883,13 +4912,22 @@ def phase_heev(seed, results, system):
     return out
 
 
+#: the svd QR iteration's wall at N_SVD with one bdsqr_sweep launch and
+#: one host read a pass, as PERF.md section 5 records it: one call under
+#: torch.profiler (phase profile; H100 80GB HBM3, 700 W), beside which
+#: phase svd reports its own unprofiled wall
+SVD_QR_PARENT_WALL_S = 4.620
+
+
 def phase_svd(seed, results, system):
     """svd at 512 x 512 on a Gaussian A from --seed, tiles 64: Auto (the
     library SVD) gives the reference values; MethodSVD.QRIteration with
     ('bdsqr', 'chain') routed to the chain kernel runs ge2tb -> tb2bd
-    -> bdsqr_qr, one bdsqr_sweep and two givens_chain_apply launches a
-    pass. ||U diag(s) Vh - A||_F / ||A||_F and max|s - s_auto| / s_max
-    within EIG_LIMIT."""
+    -> bdsqr_qr, the passes in bdsqr_sweeps launches (up to
+    BDSQR_PASSES_PER_LAUNCH each, one host read a launch) and two
+    givens_chain_apply launches a pass, passes counted apart from
+    launches. ||U diag(s) Vh - A||_F / ||A||_F and max|s - s_auto| /
+    s_max within EIG_LIMIT."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     a = torch.randn((N_SVD, N_SVD), generator=gen, device="cuda")
     A = st.Matrix(a, mb=MB_SVD)
@@ -4901,11 +4939,13 @@ def phase_svd(seed, results, system):
     opts = {st.Option.MethodSVD: st.MethodSVD.QRIteration}
     torch.cuda.synchronize()
     pk.reset_launch_counts()
+    tsvd.bdsqr_qr.passes = 0
     wall, res = wall_s(lambda: st.svd(A, opts))
     launches = pk.launch_counts()
     set_launches(results, "svd", launches)
     out = {"phase": "svd", "ok": True, "n": N_SVD, "mb": MB_SVD,
-           "seed": seed, "auto_wall_s": wall_c, "qr_iteration_wall_s": wall}
+           "seed": seed, "auto_wall_s": wall_c, "qr_iteration_wall_s": wall,
+           "parent_qr_iteration_wall_s": SVD_QR_PARENT_WALL_S}
     for name, r in (("auto", res_c), ("qr_iteration", res)):
         u, vh = r.U.to_dense().double(), r.Vh.to_dense().double()
         recon = float(torch.linalg.norm(u * r.s.double()[None, :] @ vh - a64)
@@ -4914,10 +4954,14 @@ def phase_svd(seed, results, system):
         out[name] = {"reconstruction": recon, "values_vs_auto": serr}
         out["ok"] &= max(recon, serr) <= EIG_LIMIT \
             and bool(torch.isfinite(r.s).all())
-    passes = launches["bdsqr_sweep"]
-    out["passes"] = passes
-    out["launches"] = {k: v for k, v in launches.items() if v}
-    out["ok"] &= passes > 0 and launches["givens_chain_apply"] == 2 * passes
+    # passes counted by the loop, apart from the sweep launches (each
+    # runs up to BDSQR_PASSES_PER_LAUNCH passes; one host read each)
+    passes, sweeps = tsvd.bdsqr_qr.passes, launches["bdsqr_sweep"]
+    out.update(passes=passes, sweep_launches=sweeps, host_reads=sweeps,
+               launches={k: v for k, v in launches.items() if v})
+    out["ok"] &= passes > 0 \
+        and launches["givens_chain_apply"] == 2 * passes \
+        and -(-passes // pk.BDSQR_PASSES_PER_LAUNCH) <= sweeps <= passes + 1
     system.update(svd_A=A, svd_opts=opts)
     return out
 
@@ -5527,14 +5571,17 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: first), the LU panels' base case over the grid (either panel kernel),
 #: the rank-1 panel's one-block base case and its trailing-column
 #: updates (the three together: lu_panel's device time), the
-#: Householder panel and the ragged solve
+#: Householder panel, the ragged solve, the swap composition, and the
+#: QR iterations' sweeps and Givens chain
 WATCH = {"rank_update": ("rank_update_", "transpose_bf16"),
          "lu_base": ("lu_base_",), "lu_block": ("lu_block_kernel",),
          "lu_trail": ("lu_trail_kernel",),
          "qr_panel": ("qr_panel_kernel",),
          "ragged_trsm": ("ragged_trsm_kernel",),
          "compose_swaps": ("compose_swaps_kernel",),
-         "steqr_sweep": ("steqr_sweep",)}
+         "steqr_sweep": ("steqr_sweep",),
+         "bdsqr_sweep": ("bdsqr_sweeps_kernel",),
+         "givens_chain_apply": ("givens_chain_tma",)}
 
 
 def profile_call(fn, top=8):
@@ -5646,6 +5693,7 @@ def phase_profile(system):
 
 
 def main():
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -5704,8 +5752,10 @@ def main():
         ("nonuniform", lambda: phase_nonuniform(args.seed, results)),
         ("examples", phase_examples),
         ("profile", lambda: phase_profile(system)))
+    walls = {}
     try:
         for name, fn in phases:
+            t0 = time.perf_counter()
             try:
                 out = fn()
             except Exception as e:          # report the phase, then stop
@@ -5718,6 +5768,7 @@ def main():
                 # retried or fell back is a failure
                 out["ok"] = False
                 out["guard_counts"] = guard.counts()
+            out["wall_s"] = walls[name] = time.perf_counter() - t0
             emit(out)
             if name == "device":
                 device = out
@@ -5727,6 +5778,8 @@ def main():
     finally:
         for d in _TUNE_DIRS:
             d.cleanup()
+    emit({"phase_walls": {**walls, "phases_s": sum(walls.values()),
+                          "script_s": time.perf_counter() - t_start}})
     if not failed:
         unlaunched = [e["name"] + "." + e["dtype"] for e in results.values()
                       if not e["launches"]]

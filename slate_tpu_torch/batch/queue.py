@@ -382,7 +382,7 @@ class CoalescingQueue:
             return _guard.retry_after_failure(_once, "batch", e, op=op)
 
     def _run(self, op: str, entries, build, call, strategy: str,
-             ceiling: int, waste) -> None:
+             ceiling: int, waste, record) -> None:
         """One flush: `build()` makes the host stacks (the ledger's
         ``stage``); each guarded attempt copies them to the device (one
         copy each, a fresh one an attempt, since the ragged kernels
@@ -390,9 +390,13 @@ class CoalescingQueue:
         `call(stack, rhs)` and copies each output stack back (the
         ledger's ``factor``); every ticket is resolved with its crop,
         or every ticket with the error. `waste()` gives the ledger's
-        padding-waste fraction. (The reference rounds the batch up to a
-        power of two to bound XLA's compiled shapes; eager launches
-        take any batch, so the real one is dispatched.)"""
+        padding-waste fraction. `record()` counts the flush in stats()
+        once, before any ticket resolves, so a count read after
+        ``result()`` already holds it (the reference counts after
+        resolving, which a reader can race while the background flusher
+        finishes). (The reference rounds the batch up to a power of two
+        to bound XLA's compiled shapes; eager launches take any batch,
+        so the real one is dispatched.)"""
         tickets = [e[0] for e in entries]
         led_on = _ledger.enabled()
         traced = any(t.trace is not None for t in tickets)
@@ -402,6 +406,7 @@ class CoalescingQueue:
             fid = _rt.next_flush_id()
         clocked = led_on or traced
         t_led = time.perf_counter() if clocked else 0.0
+        recorded = False
         try:
             stack, rhs = build()
             nrhs = rhs.shape[-1] if rhs is not None else 0
@@ -432,6 +437,8 @@ class CoalescingQueue:
                                phases={"stage": t_stage - t_led,
                                        "factor": t_done - t_stage},
                                meta=meta)
+            recorded = True
+            record()
             for i, (t, _pa, _pb, (m, n)) in enumerate(entries):
                 if t.trace is not None:
                     t.t_flush = t_led
@@ -446,7 +453,9 @@ class CoalescingQueue:
                      if t.trace is not None],
                     occupancy=len(entries), strategy=strategy)
         except BaseException as e:      # resolve-or-hang: every ticket
-            for t in tickets:           # must learn its fate
+            if not recorded:            # must learn its fate
+                record()
+            for t in tickets:
                 t._resolve(error=e)
 
     def _dispatch(self, key, entries) -> None:
@@ -465,8 +474,8 @@ class CoalescingQueue:
                   lambda s, r: _drivers._dispatch(op, s, r), "bucket", bm,
                   lambda: _bucket.stack_report(
                       [e[3] for e in entries], bm, bn)
-                  ["padding_waste_flops"])
-        self._record(key, entries)
+                  ["padding_waste_flops"],
+                  lambda: self._record(key, entries))
 
     def _dispatch_ragged(self, key, entries) -> None:
         """One RAGGED flush: the ceiling from THIS flush's live sizes
@@ -500,8 +509,8 @@ class CoalescingQueue:
         self._run(op, entries, build, call, "ragged", ceil,
                   lambda: _bucket.ragged_report(
                       sizes, blk, align=self._align)
-                  ["padding_waste_flops"])
-        self._record(key, entries, ragged_blk=blk)
+                  ["padding_waste_flops"],
+                  lambda: self._record(key, entries, ragged_blk=blk))
 
     def _record(self, key, entries,
                 ragged_blk: Optional[int] = None) -> None:

@@ -6,11 +6,12 @@ unmbr_tb2bd.
 
 Auto and DC take the library SVD (``torch.linalg.svd``: LAPACK gesdd on
 the CPU, cuSOLVER on the card), where the reference takes XLA's. The QR
-iteration (``bdsqr_qr``) runs each pass as one ``bdsqr_sweep`` launch
-(ops/kernels.py: the clamp, the block search, the shift and the bulge
-chase on the card; the host reads one count a pass, where the
-reference's while_loop evaluates its condition) and accumulates the
-pass's two rotation chains into Gu and Gvh: by the dense compose
+iteration (``bdsqr_qr``) runs its passes in ``bdsqr_sweeps`` launches
+of up to ``BDSQR_PASSES_PER_LAUNCH`` passes each (ops/kernels.py: the
+clamp, the block search, the shift and the bulge chase on the card,
+stopping where the reference's while_loop stops; the host reads the
+passes run and the count once a launch) and accumulates each pass's
+two rotation chains into Gu and Gvh, in order: by the dense compose
 (``_givens_chain_matrix``, one product each) on a cold tune cache, or,
 when the cache routes ``('bdsqr', 'chain') = 'pallas_rec'``, by the
 ``givens_chain_apply`` kernel.
@@ -293,38 +294,51 @@ def bdsqr_qr(d: torch.Tensor, e: torch.Tensor, maxit_factor: int = 12):
     """Real bidiagonal SVD by the shifted implicit QR ITERATION
     (reference src/bdsqr.cc -> LAPACK bdsqr): while an off-diagonal is
     above tolerance and the pass count is below maxit_factor * n, one
-    pass (ops/kernels.bdsqr_sweep: clamp, block, dlas2 shift, chase),
-    then the pass's left and right chains accumulate into Gu and Gvh.
+    pass (clamp, block, dlas2 shift, chase), then the pass's left and
+    right chains accumulate into Gu and Gvh. The passes run in
+    ops/kernels.bdsqr_sweeps launches of up to BDSQR_PASSES_PER_LAUNCH
+    passes, each given what is left of the cap; the chains are applied
+    in pass order after each launch, so s, Gu, Gvh and info are bitwise
+    what one launch a pass gives. ``bdsqr_qr.passes`` counts the passes
+    run.
+
     Returns (s, Gu, Gvh, info) descending with
     bidiag(d, e) = Gu diag(s) Gvh; info counts the off-diagonals still
     above tolerance at the cap (LAPACK bdsqr INFO; a 0-d int32
     tensor)."""
     n = d.shape[0]
     dt, dev = d.dtype, d.device
-    tol = 20.0 * torch.finfo(dt).eps
     apply_chain = _select_chain_apply("bdsqr", n, n, dt, dev)
     Gu = torch.eye(n, dtype=dt, device=dev)
     Gvh = torch.eye(n, dtype=dt, device=dev)
-    cnt = pk.unconverged(d, e, tol)
-    it = 0
-    while int(cnt) > 0 and it < maxit_factor * n:
-        d, e, cr, sr, cl, sl, cnt = pk.bdsqr_sweep(d, e)
-        if apply_chain is not None:
-            # Gu @ Gl right-applies the left chain; Gr^T @ Gvh is the
-            # right chain applied to Gvh^T (a view: no copy)
-            Gu = apply_chain(Gu, cl, sl)
-            Gvh = apply_chain(Gvh.T, cr, sr).T
-        else:
-            # B' = Gl^T B Gr  =>  B = Gl B' Gr^T
-            Gu = Gu @ _givens_chain_matrix(cl, sl, n, dt)
-            Gvh = _givens_chain_matrix(cr, sr, n, dt).T @ Gvh
-        it += 1
-    info = cnt.to(torch.int32)
+    cap, it, count = maxit_factor * n, 0, 0
+    while n > 1:
+        d, e, cr, sr, cl, sl, ran = pk.bdsqr_sweeps(
+            d, e, min(pk.BDSQR_PASSES_PER_LAUNCH, cap - it))
+        passes, count = ran.tolist()        # the launch's one host read
+        for q in range(passes):
+            if apply_chain is not None:
+                # Gu @ Gl right-applies the left chain; Gr^T @ Gvh is
+                # the right chain applied to Gvh^T (a view: no copy)
+                Gu = apply_chain(Gu, cl[q], sl[q])
+                Gvh = apply_chain(Gvh.T, cr[q], sr[q]).T
+            else:
+                # B' = Gl^T B Gr  =>  B = Gl B' Gr^T
+                Gu = Gu @ _givens_chain_matrix(cl[q], sl[q], n, dt)
+                Gvh = _givens_chain_matrix(cr[q], sr[q], n, dt).T @ Gvh
+        it += passes
+        bdsqr_qr.passes += passes
+        if count == 0 or it >= cap:
+            break
+    info = torch.tensor(count, dtype=torch.int32, device=dev)
     sgn = torch.where(d < 0, -torch.ones_like(d), torch.ones_like(d))
     s = d.abs()
     Gu = Gu * sgn[None, :]
     order = torch.argsort(-s, stable=True)
     return s[order], Gu[:, order], Gvh[order, :], info
+
+
+bdsqr_qr.passes = 0
 
 
 def bdsqr(B: BidiagResult, opts: OptionsLike = None,

@@ -91,6 +91,9 @@ LIBS = {
         "steqr_sweeps": [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P],
         "steqr_chain_cycles": [_P, _P, _I, _P, _P],
         "bdsqr_sweep": [_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+        "bdsqr_sweeps": [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _P],
+        "bdsqr_chain_cycles": [_P, _P, _I, _P, _P],
     }),
 }
 

@@ -4,7 +4,7 @@
 // trailing unreduced block [ll, m], compute the shift, run the gated
 // bulge chase over the block, and count the off-diagonals still above
 // tolerance. The device work of ops/kernels.py steqr_sweep /
-// steqr_sweeps and bdsqr_sweep for CUDA tensors.
+// steqr_sweeps and bdsqr_sweep / bdsqr_sweeps for CUDA tensors.
 //
 // Replaces no Pallas kernel: it is the port of the XLA scans the
 // reference runs per pass inside its while_loops,
@@ -14,57 +14,56 @@
 // launches each, thousands of passes a solve.
 //
 // Bound on an H100: latency. The chase is a scalar recurrence (each
-// rotation needs the previous step's bulge). bdsqr: one thread walks
-// it, while the block's other threads clamp, search the block
-// (block-wide reductions), write identity rotations outside it, count
-// and store. The work is the active block only: steps outside [ll, m]
-// change nothing in the reference's gated scan. Every operation rounds
-// once (__fmul_rn, __fadd_rn, __fdiv_rn, sqrt through f64 for hypot),
-// in the order of the plain versions steqr_sweep_plain /
-// bdsqr_sweep_plain, so d, e and the rotations are bitwise theirs.
+// rotation needs the previous step's bulge). The work is the active
+// block only: steps outside [ll, m] change nothing in the reference's
+// gated scan. Every operation rounds once (__fmul_rn, __fadd_rn,
+// __fdiv_rn, sqrt through f64 for hypot), in the order of the plain
+// versions steqr_sweep_plain / bdsqr_sweep_plain, so d, e and the
+// rotations are bitwise theirs.
 //
-// steqr: the reference loops over passes on the device (a
-// while_loop), so one launch runs up to max_passes passes, with d and
-// e kept in shared memory between them, and stops as the reference's
-// loop does: at a count of 0, or after the passes it was given (the
-// caller passes what is left of its cap). Each pass writes its
-// rotations to its own row; the caller reads the passes run and the
-// count once a launch. The whole launch is one warp: its lanes share
-// the clamp, the search, the count and the writes, and walk the chase
-// in step. The chase carries d[k+1], e[k+1] and the bulge (x, z) from
-// step to step in registers, with the next step's inputs loaded a step
-// ahead; hypot's f64 sum of squares is one FMA (the squares of f32
+// The reference loops over passes on the device (a while_loop), so one
+// launch runs up to max_passes passes, with d and e kept in shared
+// memory between them, and stops as the reference's loop does: at a
+// count of 0, or after the passes it was given (the caller passes what
+// is left of its cap). Each pass writes its rotations to its own row;
+// the caller reads the passes run and the count once a launch. The
+// whole launch is one warp: its lanes share the clamp, the search, the
+// count and the writes, and walk the chase in step. The chase carries
+// its recurrence (steqr: d[k+1], e[k+1] and the bulge; bdsqr: f, g,
+// d[i+1] and e[i+1]) from step to step in registers, with the next
+// step's inputs loaded a step ahead, and stores only what outlives the
+// pass; hypot's f64 sum of squares is one FMA (the squares of f32
 // values are exact in f64, so that is the rounding of the product and
 // sum it replaces). Its floor is the step's own dependent chain with
-// this rounding (the f64 root, two IEEE divides, the f32 updates):
-// ~272 cycles a step by clock64 on an H100 (steqr_chain_cycles), where
-// a full-width pass at n = 2048 took ~300 cycles a step. The one-pass
-// entry is the same kernel run for one pass whatever the count.
+// this rounding (the f64 root, the IEEE divides, the f32 updates),
+// measured by clock64 (steqr_chain_cycles, bdsqr_chain_cycles): on an
+// H100 ~272 cycles a tridiagonal step, where a full-width pass at
+// n = 2048 took ~300. A bidiagonal step holds two dependent rotations.
+// The one-pass entries are the same kernels run for one pass whatever
+// the count.
 
 #include <cuda_runtime.h>
 
 namespace {
-
-// threads of the bdsqr block
-constexpr int THREADS = 1024;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
-// |(f, g)| through f64: exact squares, one rounding each for the sum,
-// the root and the conversion back to f32.
-__device__ __forceinline__ float hyp(float f, float g) {
+// |(f, g)| through f64: the squares of f32 values are exact in f64, so
+// the FMA rounds once, as a sum of the two products would; then one
+// rounding each for the root and the conversion back to f32.
+__device__ __forceinline__ float hyp_fma(float f, float g) {
     const double fd = f, gd = g;
     return __double2float_rn(
-        __dsqrt_rn(__dadd_rn(__dmul_rn(fd, fd), __dmul_rn(gd, gd))));
+        __dsqrt_rn(__fma_rn(fd, fd, __dmul_rn(gd, gd))));
 }
 
 // LAPACK dlartg: c f + s g = r.
 __device__ __forceinline__ void lartg(float f, float g, float& c, float& s,
                                       float& r) {
-    r = hyp(f, g);
+    r = hyp_fma(f, g);
     if (r == 0.f) {
         c = 1.f;
         s = 0.f;
@@ -98,63 +97,6 @@ __device__ float dlas2_min(float f, float g, float h) {
     return mul(mul(mul(2.f, fhmn), c), au);
 }
 
-// Clamp e into shared memory, find the block, write identity rotations
-// outside it. Returns (through shared ints) ll and mlast; mlast < 0
-// when every off-diagonal is below tolerance.
-__device__ void prologue(const float* d, const float* e, int n, float tol,
-                         float* ds, float* es, int* s_last, int* s_zero) {
-    const int tid = threadIdx.x;
-    if (tid == 0) {
-        *s_last = -1;
-        *s_zero = -1;
-    }
-    for (int i = tid; i < n; i += THREADS) ds[i] = d[i];
-    __syncthreads();
-    int last = -1;
-    for (int i = tid; i < n - 1; i += THREADS) {
-        const float ei = e[i];
-        const bool keep =
-            fabsf(ei) > mul(tol, add(fabsf(ds[i]), fabsf(ds[i + 1])));
-        es[i] = keep ? ei : 0.f;
-        if (keep) last = i;
-    }
-    if (last >= 0) atomicMax(s_last, last);
-    __syncthreads();
-    const int mlast = *s_last;
-    int zero = -1;
-    for (int i = tid; i < mlast; i += THREADS)
-        if (es[i] == 0.f) zero = i;
-    if (zero >= 0) atomicMax(s_zero, zero);
-    __syncthreads();
-}
-
-// Write d, e back and count the off-diagonals above tolerance.
-__device__ void epilogue(const float* ds, const float* es, int n, float tol,
-                         float* d_out, float* e_out, int* count,
-                         int* s_count) {
-    const int tid = threadIdx.x;
-    if (tid == 0) *s_count = 0;
-    __syncthreads();
-    int c = 0;
-    for (int i = tid; i < n; i += THREADS) d_out[i] = ds[i];
-    for (int i = tid; i < n - 1; i += THREADS) {
-        e_out[i] = es[i];
-        if (fabsf(es[i]) > mul(tol, add(fabsf(ds[i]), fabsf(ds[i + 1]))))
-            ++c;
-    }
-    if (c) atomicAdd(s_count, c);
-    __syncthreads();
-    if (tid == 0) *count = *s_count;
-}
-
-// hyp with the sum of squares as one FMA: bitwise hyp (f * f is exact
-// in f64).
-__device__ __forceinline__ float hyp_fma(float f, float g) {
-    const double fd = f, gd = g;
-    return __double2float_rn(
-        __dsqrt_rn(__fma_rn(fd, fd, __dmul_rn(gd, gd))));
-}
-
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool above(const float* ds, const float* es,
@@ -162,14 +104,15 @@ __device__ __forceinline__ bool above(const float* ds, const float* es,
     return fabsf(es[i]) > mul(tol, add(fabsf(ds[i]), fabsf(ds[i + 1])));
 }
 
-// The shifted chase of the block [ll, m] (m the block's last diagonal
-// index) by one warp in step: every lane computes the same values and
-// stores them to the same addresses, so no store diverges the warp (a
-// store by lane 0 alone put a branch and a reconvergence on every
-// step). The Wilkinson shift of the block's trailing 2x2, then the
-// steps k = ll .. m-1 with d[k], e[k], d[k+1], e[k+1] and the bulge in
-// registers. STORE = false (the floor measurement) stores nothing and
-// returns a sum of what the steps computed.
+// The shifted chase of the tridiagonal block [ll, m] (m the block's
+// last diagonal index) by one warp in step: every lane computes the
+// same values and stores them to the same addresses, so no store
+// diverges the warp (a store by lane 0 alone put a branch and a
+// reconvergence on every step). The Wilkinson shift of the block's
+// trailing 2x2, then the steps k = ll .. m-1 with d[k], e[k], d[k+1],
+// e[k+1] and the bulge in registers. STORE = false (the floor
+// measurement) stores nothing and returns a sum of what the steps
+// computed.
 template <bool STORE>
 __device__ float steqr_chase(float* ds, float* es, int ll, int m, float* cs,
                              float* sn) {
@@ -187,15 +130,8 @@ __device__ float steqr_chase(float* ds, float* es, int ll, int m, float* cs,
         // step k+1's inputs, not written before it
         const float dk2 = k + 2 <= m ? ds[k + 2] : 0.f;
         const float ek2 = k + 2 < m ? es[k + 2] : 0.f;
-        float c, s;
-        const float r = hyp_fma(x, z);
-        if (r == 0.f) {
-            c = 1.f;
-            s = 0.f;
-        } else {
-            c = dvd(x, r);
-            s = dvd(z, r);
-        }
+        float c, s, r;
+        lartg(x, z, c, s, r);
         if (STORE && k > ll) es[k - 1] = r;
         const float cc = mul(c, c), ss = mul(s, s);
         const float tcs = mul(mul(2.f, c), s);
@@ -223,6 +159,70 @@ __device__ float steqr_chase(float* ds, float* es, int ll, int m, float* cs,
     return add(acc, add(x, dk));
 }
 
+// The shifted chase of the bidiagonal block [ll, m] (m the block's last
+// off-diagonal index) by one warp in step, as steqr_chase: the dlas2
+// shift of the block's trailing 2x2, zeroed when negligible against
+// d[ll], then LAPACK dbdsqr's downward steps i = ll .. m, each a right
+// rotation (cr, sr) from (f, g) and a left one (cl, sl) from what it
+// makes of d[i], e[i], d[i+1]. f, g, d[i], e[i], d[i+1] and the
+// unrotated e[i+1] ride in registers; of a step's stores (d[i], e[i],
+// d[i+1], e[i+1] in bdsqr_sweep_plain) only d[i] and the previous
+// step's e[i-1] outlive the pass, the others are overwritten by the
+// next step. STORE = false (the floor measurement) stores nothing and
+// returns a sum of what the steps computed.
+template <bool STORE>
+__device__ float bdsqr_chase(float* ds, float* es, int ll, int m, float eps,
+                             float* cr, float* sr, float* cl, float* sl) {
+    float shift = dlas2_min(ds[m], es[m], ds[m + 1]);
+    const float dll = ds[ll];
+    const float dll_s = dll == 0.f ? 1.f : dll;
+    const float q = dvd(shift, dll_s);
+    if (mul(q, q) < eps) shift = 0.f;
+    const float sgn = dll > 0.f ? 1.f : (dll < 0.f ? -1.f : 0.f);
+    float f = mul(sub(fabsf(dll), shift), add(sgn, dvd(shift, dll_s)));
+    float g = es[ll];
+    float di = dll, ei = g, di1 = ds[ll + 1];
+    float en = ll < m ? es[ll + 1] : 0.f;
+    float acc = 0.f;
+    for (int i = ll; i <= m; ++i) {
+        // step i+1's inputs, not written before it
+        const float dn2 = i < m ? ds[i + 2] : 0.f;
+        const float en2 = i + 2 <= m ? es[i + 2] : 0.f;
+        float cosr, sinr, r;
+        lartg(f, g, cosr, sinr, r);
+        if (STORE && i > ll) es[i - 1] = r;
+        const float f2 = add(mul(cosr, di), mul(sinr, ei));
+        const float e_i = sub(mul(cosr, ei), mul(sinr, di));
+        const float g2 = mul(sinr, di1);
+        const float d_i1 = mul(cosr, di1);
+        float cosl, sinl, r2;
+        lartg(f2, g2, cosl, sinl, r2);
+        f = add(mul(cosl, e_i), mul(sinl, d_i1));
+        di = sub(mul(cosl, d_i1), mul(sinl, e_i));
+        if (i < m) {
+            g = mul(sinl, en);
+            ei = mul(cosl, en);
+        }
+        if (STORE) {
+            ds[i] = r2;
+            cr[i] = cosr;
+            sr[i] = sinr;
+            cl[i] = cosl;
+            sl[i] = sinl;
+        } else {
+            acc = add(acc, add(add(r, r2), add(add(cosr, sinr),
+                                               add(cosl, sinl))));
+        }
+        di1 = dn2;
+        en = en2;
+    }
+    if (STORE) {
+        es[m] = f;
+        ds[m + 1] = di;
+    }
+    return add(acc, add(f, di));
+}
+
 // Count of the off-diagonals above tolerance, to every lane.
 __device__ __forceinline__ int count_above(const float* ds, const float* es,
                                            int n, float tol) {
@@ -231,32 +231,34 @@ __device__ __forceinline__ int count_above(const float* ds, const float* es,
     return __reduce_add_sync(FULL, c);
 }
 
-// Up to max_passes tridiagonal passes (exactly one if `force`) by ONE
-// warp: while the count of off-diagonals above tolerance is not 0, one
-// pass, its rotations to row p of cs / sn (n-1 each). Rows past the
-// passes run are identity. Out: d, e after the last pass, *count (the
-// count after it, or of the input if none ran) and, if given, *passes.
-// The lanes share the clamp, the block search, the count and the
-// writes (n / 32 entries each; a pass's chase is ~300 cycles a step),
+// Up to max_passes passes (exactly one if `force`) by ONE warp: while
+// the count of off-diagonals above tolerance is not 0, one pass, its
+// rotations to row p of the NROT outputs (n-1 each: cs, sn for steqr;
+// cr, sr, cl, sl for bdsqr). Rows past the passes run are identity.
+// Out: d, e after the last pass, *count (the count after it, or of the
+// input if none ran) and, if given, *passes. The lanes share the clamp,
+// the block search, the count and the writes (n / 32 entries each),
 // and chase in step; a block of 32 warps, waiting at a barrier while
-// one chased, ran the chase ~15% slower.
-__global__ void __launch_bounds__(32)
-steqr_sweeps_kernel(const float* d, const float* e, int n, float tol,
-                    int max_passes, int force, float* d_out, float* e_out,
-                    float* cs, float* sn, int* passes, int* count) {
+// one chased, ran the tridiagonal chase ~15% slower. The tolerance is
+// eps (steqr) or 20 eps (bdsqr).
+template <bool BD>
+__device__ void sweeps(const float* d, const float* e, int n, float eps,
+                       int max_passes, int force, float* d_out, float* e_out,
+                       float* r0, float* r1, float* r2, float* r3,
+                       int* passes, int* count) {
     extern __shared__ float sm[];
     float* ds = sm;
     float* es = sm + n;
     const int lane = threadIdx.x;
     const long nr = n - 1;
+    const float tol = BD ? mul(20.f, eps) : eps;
     for (int i = lane; i < n; i += 32) ds[i] = d[i];
     for (int i = lane; i < n - 1; i += 32) es[i] = e[i];
     __syncwarp();
     int cnt = force ? 1 : count_above(ds, es, n, tol);
     int p = 0;
     for (; cnt > 0 && p < max_passes; ++p) {
-        float* csp = cs + p * nr;
-        float* snp = sn + p * nr;
+        const long row = p * nr;
         // clamp, then the block [ll, mlast]
         int last = -1;
         for (int i = lane; i < n - 1; i += 32) {
@@ -273,16 +275,30 @@ steqr_sweeps_kernel(const float* d, const float* e, int n, float tol,
         const int ll = __reduce_max_sync(FULL, zero) + 1;
         for (int k = lane; k < n - 1; k += 32)
             if (mlast < 0 || k < ll || k > mlast) {
-                csp[k] = 1.f;
-                snp[k] = 0.f;
+                r0[row + k] = 1.f;
+                r1[row + k] = 0.f;
+                if (BD) {
+                    r2[row + k] = 1.f;
+                    r3[row + k] = 0.f;
+                }
             }
-        if (mlast >= 0) steqr_chase<true>(ds, es, ll, mlast + 1, csp, snp);
+        if (mlast >= 0) {
+            if (BD)
+                bdsqr_chase<true>(ds, es, ll, mlast, eps, r0 + row, r1 + row,
+                                  r2 + row, r3 + row);
+            else
+                steqr_chase<true>(ds, es, ll, mlast + 1, r0 + row, r1 + row);
+        }
         __syncwarp();
         cnt = count_above(ds, es, n, tol);
     }
     for (long q = (long)p * nr + lane; q < (long)max_passes * nr; q += 32) {
-        cs[q] = 1.f;
-        sn[q] = 0.f;
+        r0[q] = 1.f;
+        r1[q] = 0.f;
+        if (BD) {
+            r2[q] = 1.f;
+            r3[q] = 0.f;
+        }
     }
     for (int i = lane; i < n; i += 32) d_out[i] = ds[i];
     for (int i = lane; i < n - 1; i += 32) e_out[i] = es[i];
@@ -292,12 +308,30 @@ steqr_sweeps_kernel(const float* d, const float* e, int n, float tol,
     }
 }
 
-// Measurement only (chip_smoke.py's bitwise floor of the sweep): the
-// chase over the whole of (d, e) with steqr_chase's step arithmetic and
+__global__ void __launch_bounds__(32)
+steqr_sweeps_kernel(const float* d, const float* e, int n, float eps,
+                    int max_passes, int force, float* d_out, float* e_out,
+                    float* cs, float* sn, int* passes, int* count) {
+    sweeps<false>(d, e, n, eps, max_passes, force, d_out, e_out, cs, sn,
+                  nullptr, nullptr, passes, count);
+}
+
+__global__ void __launch_bounds__(32)
+bdsqr_sweeps_kernel(const float* d, const float* e, int n, float eps,
+                    int max_passes, int force, float* d_out, float* e_out,
+                    float* cr, float* sr, float* cl, float* sl, int* passes,
+                    int* count) {
+    sweeps<true>(d, e, n, eps, max_passes, force, d_out, e_out, cr, sr, cl,
+                 sl, passes, count);
+}
+
+// Measurement only (chip_smoke.py's bitwise floors of the sweeps): the
+// chase over the whole of (d, e) with the kernel's step arithmetic and
 // no stores, by one warp in step; out[0] = clock64 cycles of the chase,
 // out[1] the bits of the sum of what it computed.
-__global__ void steqr_chain_kernel(const float* d, const float* e, int n,
-                                   long long* out) {
+template <bool BD>
+__global__ void __launch_bounds__(32)
+chain_kernel(const float* d, const float* e, int n, long long* out) {
     extern __shared__ float sm[];
     float* ds = sm;
     float* es = sm + n;
@@ -305,71 +339,15 @@ __global__ void steqr_chain_kernel(const float* d, const float* e, int n,
     for (int i = threadIdx.x; i < n - 1; i += 32) es[i] = e[i];
     __syncwarp();
     const long long t0 = clock64();
-    const float acc = steqr_chase<false>(ds, es, 0, n - 1, nullptr, nullptr);
+    const float acc =
+        BD ? bdsqr_chase<false>(ds, es, 0, n - 2, 1.1920929e-07f, nullptr,
+                                nullptr, nullptr, nullptr)
+           : steqr_chase<false>(ds, es, 0, n - 1, nullptr, nullptr);
     const long long t1 = clock64();
     if (threadIdx.x == 0) {
         out[0] = t1 - t0;
         out[1] = __float_as_int(acc);
     }
-}
-
-__global__ void __launch_bounds__(THREADS)
-bdsqr_sweep_kernel(const float* d, const float* e, int n, float eps,
-                   float* d_out, float* e_out, float* cr, float* sr,
-                   float* cl, float* sl, int* count) {
-    extern __shared__ float sm[];
-    float* ds = sm;
-    float* es = sm + n;
-    __shared__ int s_last, s_zero, s_count;
-    const float tol = mul(20.f, eps);
-    prologue(d, e, n, tol, ds, es, &s_last, &s_zero);
-    const int m = s_last;
-    const int ll = s_zero + 1;
-    for (int k = threadIdx.x; k < n - 1; k += THREADS)
-        if (m < 0 || k < ll || k > m) {
-            cr[k] = 1.f;
-            sr[k] = 0.f;
-            cl[k] = 1.f;
-            sl[k] = 0.f;
-        }
-    if (threadIdx.x == 0 && m >= 0) {
-        const int mm = min(m, n - 2);
-        float shift = dlas2_min(ds[mm], es[mm], ds[mm + 1]);
-        const float dll = ds[ll];
-        const float dll_s = dll == 0.f ? 1.f : dll;
-        const float q = dvd(shift, dll_s);
-        if (mul(q, q) < eps) shift = 0.f;
-        const float sgn = dll > 0.f ? 1.f : (dll < 0.f ? -1.f : 0.f);
-        float f = mul(sub(fabsf(dll), shift), add(sgn, dvd(shift, dll_s)));
-        float g = es[ll];
-        for (int i = ll; i <= m; ++i) {
-            float cosr, sinr, r, cosl, sinl, r2;
-            lartg(f, g, cosr, sinr, r);
-            if (i > ll) es[i - 1] = r;
-            const float di = ds[i], ei = es[i], di1 = ds[i + 1];
-            const float f2 = add(mul(cosr, di), mul(sinr, ei));
-            const float e_i = sub(mul(cosr, ei), mul(sinr, di));
-            const float g2 = mul(sinr, di1);
-            const float d_i1 = mul(cosr, di1);
-            lartg(f2, g2, cosl, sinl, r2);
-            f = add(mul(cosl, e_i), mul(sinl, d_i1));
-            const float d_i1b = sub(mul(cosl, d_i1), mul(sinl, e_i));
-            if (i < m) {
-                g = mul(sinl, es[i + 1]);
-                es[i + 1] = mul(cosl, es[i + 1]);
-            }
-            ds[i] = r2;
-            ds[i + 1] = d_i1b;
-            es[i] = e_i;
-            cr[i] = cosr;
-            sr[i] = sinr;
-            cl[i] = cosl;
-            sl[i] = sinl;
-        }
-        es[m] = f;
-    }
-    __syncthreads();
-    epilogue(ds, es, n, tol, d_out, e_out, count, &s_count);
 }
 
 int set_smem(const void* kernel, size_t bytes) {
@@ -381,6 +359,33 @@ int set_smem(const void* kernel, size_t bytes) {
         return (int)e;
     }
     return 0;
+}
+
+// d and e in shared memory
+size_t sweep_smem(int n) { return sizeof(float) * 2 * (size_t)n; }
+
+template <bool BD>
+int chain_cycles(const float* d, const float* e, int n, long long* out,
+                 void* stream) {
+    if (n < 2) return (int)cudaErrorInvalidValue;
+    const int rc = set_smem((const void*)chain_kernel<BD>, sweep_smem(n));
+    if (rc) return rc;
+    chain_kernel<BD><<<1, 32, sweep_smem(n), (cudaStream_t)stream>>>(d, e, n,
+                                                                   out);
+    return (int)cudaGetLastError();
+}
+
+int bdsqr_launch(const float* d, const float* e, int n, float eps,
+                 int max_passes, int force, float* d_out, float* e_out,
+                 float* cr, float* sr, float* cl, float* sl, int* passes,
+                 int* count, void* stream) {
+    if (max_passes < 0) return (int)cudaErrorInvalidValue;
+    const int rc = set_smem((const void*)bdsqr_sweeps_kernel, sweep_smem(n));
+    if (rc) return rc;
+    bdsqr_sweeps_kernel<<<1, 32, sweep_smem(n), (cudaStream_t)stream>>>(
+        d, e, n, eps, max_passes, force, d_out, e_out, cr, sr, cl, sl, passes,
+        count);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -398,10 +403,9 @@ int slate_set_device(int device) {
 int steqr_sweep(const float* d, const float* e, int n, float eps,
                 float* d_out, float* e_out, float* cs, float* sn,
                 int* count, void* stream) {
-    const size_t smem = sizeof(float) * 2 * (size_t)n;
-    const int rc = set_smem((const void*)steqr_sweeps_kernel, smem);
+    const int rc = set_smem((const void*)steqr_sweeps_kernel, sweep_smem(n));
     if (rc) return rc;
-    steqr_sweeps_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
+    steqr_sweeps_kernel<<<1, 32, sweep_smem(n), (cudaStream_t)stream>>>(
         d, e, n, eps, 1, 1, d_out, e_out, cs, sn, nullptr, count);
     return (int)cudaGetLastError();
 }
@@ -413,24 +417,18 @@ int steqr_sweeps(const float* d, const float* e, int n, float eps,
                  int max_passes, float* d_out, float* e_out, float* cs,
                  float* sn, int* ran, void* stream) {
     if (max_passes < 0) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * 2 * (size_t)n;
-    const int rc = set_smem((const void*)steqr_sweeps_kernel, smem);
+    const int rc = set_smem((const void*)steqr_sweeps_kernel, sweep_smem(n));
     if (rc) return rc;
-    steqr_sweeps_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
+    steqr_sweeps_kernel<<<1, 32, sweep_smem(n), (cudaStream_t)stream>>>(
         d, e, n, eps, max_passes, 0, d_out, e_out, cs, sn, ran, ran + 1);
     return (int)cudaGetLastError();
 }
 
-// The floor measurement: steqr_chain_kernel on (d, e), n >= 2; out two
-// int64 (cycles, checksum bits).
+// The tridiagonal floor measurement: the chase over (d, e), n >= 2;
+// out two int64 (cycles, checksum bits).
 int steqr_chain_cycles(const float* d, const float* e, int n, long long* out,
                        void* stream) {
-    if (n < 2) return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * 2 * (size_t)n;
-    const int rc = set_smem((const void*)steqr_chain_kernel, smem);
-    if (rc) return rc;
-    steqr_chain_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(d, e, n, out);
-    return (int)cudaGetLastError();
+    return chain_cycles<false>(d, e, n, out, stream);
 }
 
 // One bidiagonal QR pass: the right rotations (cr, sr) and the left
@@ -438,12 +436,25 @@ int steqr_chain_cycles(const float* d, const float* e, int n, long long* out,
 int bdsqr_sweep(const float* d, const float* e, int n, float eps,
                 float* d_out, float* e_out, float* cr, float* sr, float* cl,
                 float* sl, int* count, void* stream) {
-    const size_t smem = sizeof(float) * 2 * (size_t)n;
-    const int rc = set_smem((const void*)bdsqr_sweep_kernel, smem);
-    if (rc) return rc;
-    bdsqr_sweep_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-        d, e, n, eps, d_out, e_out, cr, sr, cl, sl, count);
-    return (int)cudaGetLastError();
+    return bdsqr_launch(d, e, n, eps, 1, 1, d_out, e_out, cr, sr, cl, sl,
+                        nullptr, count, stream);
+}
+
+// Up to max_passes bidiagonal QR passes, stopping at a count of 0: the
+// rotations (cr, sr, cl, sl) as (max_passes, n-1) rows, identity past
+// the passes run; ran[0] the passes run, ran[1] the count after them.
+int bdsqr_sweeps(const float* d, const float* e, int n, float eps,
+                 int max_passes, float* d_out, float* e_out, float* cr,
+                 float* sr, float* cl, float* sl, int* ran, void* stream) {
+    return bdsqr_launch(d, e, n, eps, max_passes, 0, d_out, e_out, cr, sr,
+                        cl, sl, ran, ran + 1, stream);
+}
+
+// The bidiagonal floor measurement: the chase over (d, e) with the f32
+// eps, n >= 2; out two int64 (cycles, checksum bits).
+int bdsqr_chain_cycles(const float* d, const float* e, int n, long long* out,
+                       void* stream) {
+    return chain_cycles<true>(d, e, n, out, stream);
 }
 
 }  // extern "C"

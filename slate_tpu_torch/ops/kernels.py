@@ -13,9 +13,10 @@ element of a (B, N, N) stack bounded by its own order from a device
 ``givens_chain_apply`` (the QR iterations' transform accumulation,
 Z @ G streamed along each row), and the QR passes ``steqr_sweep`` /
 ``bdsqr_sweep`` (the port of the XLA scans the reference runs once a
-pass in eig.steqr2_qr and svd.bdsqr_qr), with ``steqr_sweeps``, up to a
-given number of tridiagonal passes in one launch of the same kernel
-(the reference runs its passes in a while_loop on the device).
+pass in eig.steqr2_qr and svd.bdsqr_qr), with ``steqr_sweeps`` /
+``bdsqr_sweeps``, up to a given number of passes in one launch of the
+same kernel (the reference runs its passes in a while_loop on the
+device).
 
 Every kernel here has three parts side by side:
 
@@ -26,9 +27,10 @@ Every kernel here has three parts side by side:
     ``_trtri_lower_launch``, ``_ragged_potrf_launch``,
     ``_ragged_getrf_launch``, ``_ragged_trsm_launch``,
     ``_givens_chain_launch``, ``steqr_sweep`` / ``steqr_sweeps``,
-    ``bdsqr_sweep``) that launches the kernel for a CUDA tensor and
-    adds one to its ``launches`` count there, and nowhere else (both
-    steqr entries count on ``steqr_sweep``'s, their kernel); it raises
+    ``bdsqr_sweep`` / ``bdsqr_sweeps``) that launches the kernel for a
+    CUDA tensor and adds one to its ``launches`` count there, and
+    nowhere else (both entries of a sweep count on the one-pass
+    entry's, their kernel); it raises
     on what the kernel does not
     take. There is no fall back: for a tensor on the CPU, and only
     then, it computes the kernel's plain version instead;
@@ -38,7 +40,7 @@ Every kernel here has three parts side by side:
     ``ragged_potrf_plain``, ``ragged_getrf_plain``,
     ``ragged_trsm_plain``, ``givens_chain_apply_plain``,
     ``steqr_sweep_plain`` / ``steqr_sweeps_plain``,
-    ``bdsqr_sweep_plain``; the sweeps' plain
+    ``bdsqr_sweep_plain`` / ``bdsqr_sweeps_plain``; the sweeps' plain
     versions walk the recurrence on the host in numpy scalars of the
     tensor's type, as ``compose_swaps_plain`` walks its swaps;
     ``compose_swaps_sorted_plain`` is the kernel's own composition on
@@ -1650,6 +1652,10 @@ QR_SWEEP_MAX_N = 16384
 #: the reads a pass; the rotation rows cost 8 (n-1) bytes a pass
 #: (0.5 MB at n = 2048)
 STEQR_PASSES_PER_LAUNCH = 32
+#: passes one bdsqr_sweeps launch runs at most in svd.bdsqr_qr, as
+#: above; the four rotation rows cost 16 (n-1) bytes a pass (0.26 MB
+#: at n = 512)
+BDSQR_PASSES_PER_LAUNCH = 32
 
 
 def _np_type(dtype) -> type:
@@ -1844,6 +1850,30 @@ def bdsqr_sweep_plain(d: torch.Tensor, e: torch.Tensor):
         torch.tensor(count, dtype=torch.int32, device=dev),)
 
 
+def _sweeps_plain(one_pass: Callable, tol_eps: int, nrot: int,
+                  d: torch.Tensor, e: torch.Tensor, max_passes: int):
+    """`one_pass` while the count of off-diagonals above tol_eps * eps
+    is not 0, at most `max_passes` times; its `nrot` rotation vectors
+    (cosines and sines in turn) to row p of (max_passes, n-1) outputs,
+    identity past the passes run."""
+    dev, dt = d.device, d.dtype
+    t = _np_type(dt)
+    rots = [(torch.zeros if k % 2 else torch.ones)(
+        (max_passes, d.shape[0] - 1), dtype=dt, device=dev)
+        for k in range(nrot)]
+    with np.errstate(all="ignore"):
+        count = int(_clamp_np(_host(d), _host(e),
+                              t(tol_eps) * t(_eps(dt)))[1].sum())
+    d, e, p = d.clone(), e.clone(), 0
+    while count > 0 and p < max_passes:
+        d, e, *rot, cnt = one_pass(d, e)
+        for r, x in zip(rots, rot):
+            r[p] = x
+        count, p = int(cnt), p + 1
+    return (d, e, *rots, torch.tensor([p, count], dtype=torch.int32,
+                                      device=dev))
+
+
 def steqr_sweeps_plain(d: torch.Tensor, e: torch.Tensor, max_passes: int):
     """Plain version of up to `max_passes` passes in one call (the
     multi-pass entry): steqr_sweep_plain while the count of
@@ -1852,18 +1882,15 @@ def steqr_sweeps_plain(d: torch.Tensor, e: torch.Tensor, max_passes: int):
     the rotations (max_passes, n-1), identity past the passes run, and
     ran = [passes run, count after them (of the input if none ran)],
     int32."""
-    dev, dt = d.device, d.dtype
-    t = _np_type(dt)
-    cs = torch.ones((max_passes, d.shape[0] - 1), dtype=dt, device=dev)
-    sn = torch.zeros_like(cs)
-    with np.errstate(all="ignore"):
-        count = int(_clamp_np(_host(d), _host(e), t(_eps(dt)))[1].sum())
-    d, e, p = d.clone(), e.clone(), 0
-    while count > 0 and p < max_passes:
-        d, e, cs[p], sn[p], cnt = steqr_sweep_plain(d, e)
-        count, p = int(cnt), p + 1
-    return d, e, cs, sn, torch.tensor([p, count], dtype=torch.int32,
-                                      device=dev)
+    return _sweeps_plain(steqr_sweep_plain, 1, 2, d, e, max_passes)
+
+
+def bdsqr_sweeps_plain(d: torch.Tensor, e: torch.Tensor, max_passes: int):
+    """Plain version of up to `max_passes` bidiagonal passes in one call
+    (the multi-pass entry), as steqr_sweeps_plain: bdsqr_sweep_plain
+    while the count above 20 eps is not 0. Returns (d, e, cosr, sinr,
+    cosl, sinl, ran), the rotations (max_passes, n-1)."""
+    return _sweeps_plain(bdsqr_sweep_plain, 20, 4, d, e, max_passes)
 
 
 def _sweep_setup(name: str, d: torch.Tensor, e: torch.Tensor, nrot: int,
@@ -1938,8 +1965,9 @@ def steqr_sweeps(d: torch.Tensor, e: torch.Tensor, max_passes: int):
 
 def bdsqr_sweep(d: torch.Tensor, e: torch.Tensor):
     """One pass of the bidiagonal QR iteration (bdsqr_sweep_plain's
-    contract): the ``bdsqr_sweep`` CUDA kernel for a CUDA tensor,
-    counted; the plain version for a CPU tensor."""
+    contract): the ``bdsqr_sweep`` CUDA kernel for a CUDA tensor (the
+    multi-pass kernel run for one pass), counted; the plain version for
+    a CPU tensor."""
     if d.device.type != "cuda":
         return bdsqr_sweep_plain(d, e)
     lib, d, e, dout, eout, rots, cnt = _sweep_setup("bdsqr_sweep", d, e, 4)
@@ -1954,6 +1982,27 @@ def bdsqr_sweep(d: torch.Tensor, e: torch.Tensor):
 
 
 bdsqr_sweep.launches = 0
+
+
+def bdsqr_sweeps(d: torch.Tensor, e: torch.Tensor, max_passes: int):
+    """Up to `max_passes` passes of the bidiagonal QR iteration in one
+    launch, stopping at a count of 0 (bdsqr_sweeps_plain's contract):
+    the ``bdsqr_sweep`` kernel for a CUDA tensor, d and e kept on the
+    card between passes, nothing read back to the host (the caller
+    reads ``ran`` once); counted as one ``bdsqr_sweep`` launch, the
+    kernel it runs. The plain version for a CPU tensor."""
+    if d.device.type != "cuda":
+        return bdsqr_sweeps_plain(d, e, max_passes)
+    lib, d, e, dout, eout, rots, ran = _sweep_setup(
+        "bdsqr_sweeps", d, e, 4, max_passes)
+    _build.check(lib.bdsqr_sweeps(d.data_ptr(), e.data_ptr(), d.shape[0],
+                                  _eps(torch.float32), max_passes,
+                                  dout.data_ptr(), eout.data_ptr(),
+                                  *[r.data_ptr() for r in rots],
+                                  ran.data_ptr(), _stream(d)),
+                 "bdsqr_sweeps")
+    bdsqr_sweep.launches += 1
+    return (dout, eout, *rots, ran)
 
 
 # -- counters ----------------------------------------------------------------

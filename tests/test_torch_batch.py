@@ -381,6 +381,48 @@ def test_queue_background_flusher(problems):
     assert not q._flusher.is_alive()
 
 
+@pytest.mark.parametrize("strategy,fail", [("bucket", False),
+                                           ("ragged", False),
+                                           ("bucket", True)])
+def test_queue_counts_flush_before_result(problems, monkeypatch, strategy,
+                                          fail):
+    """A flush is counted before its tickets resolve, on the bucket and
+    the ragged flush and when the dispatch fails: through the background
+    flusher, the dispatch count read right after result() already holds
+    the flush, every time (counted after resolving, a reader could see
+    it lag). The count is made slow so that a lag would show."""
+    _sizes, _mats, spds, _ = problems
+    q = batch.CoalescingQueue(max_batch=64, max_wait_us=100,
+                              background=True, strategy=strategy,
+                              device="cpu")
+    record = q._record
+
+    def slow_record(*args, **kw):
+        time.sleep(0.005)
+        record(*args, **kw)
+
+    monkeypatch.setattr(q, "_record", slow_record)
+    if fail:
+        def boom(op, fn):
+            raise ValueError("dispatch boom")
+        monkeypatch.setattr(q, "_dispatch_guarded", boom)
+    try:
+        for k in range(1, 21):
+            t = q.submit("potrf", spds[k % 3])
+            deadline = time.time() + 10     # the flusher resolves it
+            while not t.done() and time.time() < deadline:
+                time.sleep(0.0005)
+            assert t.done()
+            if fail:
+                with pytest.raises(ValueError, match="dispatch boom"):
+                    t.result(timeout=60)
+            else:
+                t.result(timeout=60)
+            assert q.stats()["dispatches"] == k
+    finally:
+        q.close()
+
+
 def test_queue_flusher_death_fails_pending(problems, monkeypatch):
     """A dying background flusher fails every pending ticket with its
     death error instead of leaving it to hang; result() raises it."""

@@ -1275,6 +1275,30 @@ def _sweeps_case(rng, kind, dtype):
             k)
 
 
+def _held_to_one_pass_calls(multi, one_pass, tol_eps, kind, d, e, k):
+    """`multi(d, e, k)` IS `one_pass` called while the count above
+    tol_eps * eps is above 0, at most k times: d, e, each pass's
+    rotation rows, the passes run and the count bitwise; rows past the
+    passes run are identity (cosines 1, sines 0)."""
+    got = multi(d, e, k)
+    n = d.shape[0]
+    rots = got[2:-1]
+    tol = tol_eps * torch.finfo(d.dtype).eps
+    count, p = int(pk.unconverged(d, e, tol)), 0
+    assert all(r.shape == (k, n - 1) for r in rots)
+    while count > 0 and p < k:
+        d, e, *rot, cnt = one_pass(d, e)
+        assert all(torch.equal(r[p], x) for r, x in zip(rots, rot))
+        count, p = int(cnt), p + 1
+    assert torch.equal(got[0], d) and torch.equal(got[1], e)
+    assert got[-1].tolist() == [p, count]
+    for j, r in enumerate(rots):
+        assert torch.equal(r[p:], torch.full_like(r[p:], 1 - j % 2))
+    assert {"converged": p == 0 and count == 0,
+            "stop_at_zero": 0 < p < k and count == 0,
+            "no_pass": p == 0 and count > 0}.get(kind, p == k and count > 0)
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("kind", ["full", "block", "converged",
                                   "stop_at_zero", "no_pass"])
@@ -1283,29 +1307,28 @@ def test_steqr_sweeps_plain_equals_one_pass_calls(rng, kind, dtype):
     while the count is above 0, at most max_passes times: d, e, each
     pass's rotation row, the passes run and the count bitwise; rows
     past the passes run are identity."""
-    d, e, k = _sweeps_case(rng, kind, dtype)
-    got = pk.steqr_sweeps(d, e, k)
-    n = d.shape[0]
-    eps = torch.finfo(d.dtype).eps
-    count, p = int(pk.unconverged(d, e, eps)), 0
-    assert got[2].shape == got[3].shape == (k, n - 1)
-    while count > 0 and p < k:
-        d, e, c, s, cnt = pk.steqr_sweep_plain(d, e)
-        assert torch.equal(got[2][p], c) and torch.equal(got[3][p], s)
-        count, p = int(cnt), p + 1
-    assert torch.equal(got[0], d) and torch.equal(got[1], e)
-    assert got[4].tolist() == [p, count]
-    assert torch.equal(got[2][p:], torch.ones_like(got[2][p:]))
-    assert torch.equal(got[3][p:], torch.zeros_like(got[3][p:]))
-    assert {"converged": p == 0 and count == 0,
-            "stop_at_zero": 0 < p < k and count == 0,
-            "no_pass": p == 0 and count > 0}.get(kind, p == k and count > 0)
+    _held_to_one_pass_calls(pk.steqr_sweeps, pk.steqr_sweep_plain, 1, kind,
+                            *_sweeps_case(rng, kind, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("kind", ["full", "block", "converged",
+                                  "stop_at_zero", "no_pass"])
+def test_bdsqr_sweeps_plain_equals_one_pass_calls(rng, kind, dtype):
+    """The bidiagonal multi-pass entry's plain version IS
+    bdsqr_sweep_plain called while the count above 20 eps is above 0,
+    at most max_passes times: d, e, each pass's four rotation rows
+    (cosr, sinr, cosl, sinl), the passes run and the count bitwise;
+    rows past the passes run are identity."""
+    _held_to_one_pass_calls(pk.bdsqr_sweeps, pk.bdsqr_sweep_plain, 20, kind,
+                            *_sweeps_case(rng, kind, dtype))
 
 
 def test_sweep_c_signatures():
-    """The one-pass entry keeps its C signature; the multi-pass entry
-    takes the pass cap after eps and returns (passes, count) in one
-    int pair; the floor measurement takes (d, e, n) and two int64."""
+    """The one-pass entries keep their C signatures; the multi-pass
+    entries take the pass cap after eps and return (passes, count) in
+    one int pair; the floor measurements take (d, e, n) and two
+    int64."""
     import ctypes
     from slate_tpu_torch.ops import _build
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -1313,6 +1336,8 @@ def test_sweep_c_signatures():
     assert entries["steqr_sweep"] == [P, P, I, F, P, P, P, P, P, P]
     assert entries["steqr_sweeps"] == [P, P, I, F, I, P, P, P, P, P, P]
     assert entries["bdsqr_sweep"] == [P, P, I, F, P, P, P, P, P, P, P, P]
+    assert entries["bdsqr_sweeps"] == [P, P, I, F, I, P, P, P, P, P, P, P, P]
     assert entries["steqr_chain_cycles"] == [P, P, I, P, P]
+    assert entries["bdsqr_chain_cycles"] == [P, P, I, P, P]
     assert _build.LIBS["compose_swaps"][1]["compose_swaps"] == \
         [P, I, I, I, P, P]

@@ -21,6 +21,7 @@ from slate_tpu.core.methods import MethodSVD as JMethodSVD
 from slate_tpu.tune import cache as jcache
 
 import slate_tpu_torch as st
+from slate_tpu_torch.ops import kernels as pk
 from slate_tpu_torch.tune import cache as tcache
 
 import importlib
@@ -265,6 +266,110 @@ def test_bdsqr_routed_chain_matches_cold(rng):
     np.testing.assert_allclose(_np(Gvh1), _np(Gvh0), atol=1e-11)
     np.testing.assert_allclose(_np(s1), np.asarray(js), rtol=1e-10,
                                atol=1e-12)
+
+
+def _one_pass_loop(d, e, maxit_factor=12, route=None):
+    """bdsqr_qr as one bdsqr_sweep pass a loop iteration, the count read
+    after each: the loop the multi-pass launches replace. Returns
+    (s, Gu, Gvh, info, passes)."""
+    n, dt = d.shape[0], d.dtype
+    Gu, Gvh = torch.eye(n, dtype=dt), torch.eye(n, dtype=dt)
+    cnt, it = pk.unconverged(d, e, 20 * torch.finfo(dt).eps), 0
+    while int(cnt) > 0 and it < maxit_factor * n:
+        d, e, cr, sr, cl, sl, cnt = pk.bdsqr_sweep(d, e)
+        if route is not None:
+            Gu = route(Gu, cl, sl)
+            Gvh = route(Gvh.T, cr, sr).T
+        else:
+            Gu = Gu @ tsvd._givens_chain_matrix(cl, sl, n, dt)
+            Gvh = tsvd._givens_chain_matrix(cr, sr, n, dt).T @ Gvh
+        it += 1
+    sgn = torch.where(d < 0, -torch.ones_like(d), torch.ones_like(d))
+    order = torch.argsort(-d.abs(), stable=True)
+    return (d.abs()[order], (Gu * sgn[None, :])[:, order], Gvh[order, :],
+            cnt, it)
+
+
+def _route_bdsqr_chain(n):
+    """A cached ('bdsqr', 'chain') = 'pallas_rec' route in both packages
+    (chain block 16, so n = 64 passes the gate); returns the port's
+    applier."""
+    for cache, dt in ((tcache, torch.float64), (jcache, np.float64)):
+        cache.get_cache().put("bdsqr", dt, n, {"chain": "pallas_rec"})
+        cache.get_cache().put("steqr2", None, None, {"chain_blk": 16})
+    route = tsvd._select_chain_apply("bdsqr", n, n, torch.float64)
+    assert route is not None
+    return route
+
+
+@pytest.mark.parametrize("n,dtype,passes_per_launch,routed", [
+    (16, torch.float64, 32, False), (64, torch.float64, 32, False),
+    (64, torch.float64, 5, False), (64, torch.float64, 32, True),
+    (64, torch.float32, 32, False)])
+def test_bdsqr_qr_multi_pass_equals_one_pass_loop(rng, n, dtype,
+                                                  passes_per_launch, routed,
+                                                  monkeypatch):
+    """The passes in multi-pass launches (every launch's two chains
+    applied in pass order after it), on the cold dense compose and on
+    the routed chain, give s, Gu, Gvh and info bitwise the one-pass
+    loop's; bdsqr_qr.passes counts that loop's passes; and (f64) the
+    values and vectors match the JAX package's bdsqr_qr within
+    test_bdsqr_qr_matches_jax's tolerances."""
+    monkeypatch.setattr(pk, "BDSQR_PASSES_PER_LAUNCH", passes_per_launch)
+    d0, e0 = rng.standard_normal(n), rng.standard_normal(n - 1)
+    d = torch.as_tensor(d0).to(dtype)
+    e = torch.as_tensor(e0).to(dtype)
+    route = _route_bdsqr_chain(n) if routed else None
+    s0, Gu0, Gvh0, info0, it = _one_pass_loop(d, e, route=route)
+    tsvd.bdsqr_qr.passes = 0
+    s, Gu, Gvh, info = tsvd.bdsqr_qr(d, e)
+    assert torch.equal(s, s0) and torch.equal(Gu, Gu0) \
+        and torch.equal(Gvh, Gvh0)
+    assert int(info) == int(info0) == 0 and info.dtype == torch.int32
+    assert tsvd.bdsqr_qr.passes == it > passes_per_launch
+    if dtype == torch.float64:
+        js, JGu, JGvh, _ = jsvd.bdsqr_qr(jnp.asarray(d0), jnp.asarray(e0))
+        np.testing.assert_allclose(_np(s), np.asarray(js), rtol=1e-10,
+                                   atol=1e-12)
+        same_pairs(Gu, Gvh, np.asarray(JGu), np.asarray(JGvh), 1e-9)
+
+
+@pytest.mark.parametrize("maxit_factor,passes_per_launch", [
+    (12, 32), (12, 7), (1, 32), (1, 5), (0, 32)])
+def test_bdsqr_qr_launch_sizes(rng, maxit_factor, passes_per_launch,
+                               monkeypatch):
+    """Each launch is given min(BDSQR_PASSES_PER_LAUNCH, what is left of
+    the cap maxit_factor * n); the loop stops after a launch that ends
+    at a count of 0 or at the cap, where info is the count left (the
+    one-pass loop's), and bdsqr_qr.passes counts the passes run. n = 24:
+    more than 24 passes, so a factor of 1 stops at the cap."""
+    monkeypatch.setattr(pk, "BDSQR_PASSES_PER_LAUNCH", passes_per_launch)
+    n = 24
+    d = torch.as_tensor(rng.standard_normal(n))
+    e = torch.as_tensor(rng.standard_normal(n - 1))
+    asked, ran = [], []
+    real = pk.bdsqr_sweeps
+
+    def spy(d, e, k):
+        out = real(d, e, k)
+        asked.append(k)
+        ran.append(out[-1].tolist())
+        return out
+
+    monkeypatch.setattr(pk, "bdsqr_sweeps", spy)
+    tsvd.bdsqr_qr.passes = 0
+    s, Gu, Gvh, info = tsvd.bdsqr_qr(d, e, maxit_factor=maxit_factor)
+    s0, Gu0, Gvh0, info0, it = _one_pass_loop(d, e, maxit_factor)
+    assert torch.equal(s, s0) and torch.equal(Gu, Gu0) \
+        and torch.equal(Gvh, Gvh0)
+    assert int(info) == int(info0)
+    cap, done = maxit_factor * n, 0
+    for k, (p, count) in zip(asked, ran):
+        assert k == min(passes_per_launch, cap - done)
+        assert p == k or count == 0
+        done += p
+    assert done == it == tsvd.bdsqr_qr.passes and ran[-1][1] == int(info)
+    assert (int(info) > 0) == (done == cap)
 
 
 def test_bdsqr_large_or_complex_takes_library(rng):
