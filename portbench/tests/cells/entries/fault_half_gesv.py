@@ -1,0 +1,17 @@
+"""Test only: the gesv entry with the fault `half` (_faults.py)."""
+
+import importlib.util
+import os
+
+_spec = importlib.util.spec_from_file_location(
+    "portbench_faults_for_half_gesv",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), "_faults.py"))
+_faults = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_faults)
+_entry = _faults.real("gesv")
+SPANS = _entry.SPANS
+prepare = _entry.prepare
+
+
+def call(handle):
+    return _faults.half(handle, _entry)
