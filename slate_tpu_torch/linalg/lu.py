@@ -47,6 +47,7 @@ from ..core.exceptions import slate_assert
 from ..core.methods import MethodFactor, MethodLU, MethodLUPanel
 from ..core.options import Option, OptionsLike, get_option
 from ..core.tiles import TiledMatrix, ceil_div, pad_diag_identity
+from ..obs import events as _obs
 from ..obs.events import instrument_driver
 from ..ops import kernels as pk
 from ..parallel.mesh import option_grid
@@ -147,26 +148,32 @@ def _lu_panel(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     fori loop; the cold route is the same partial pivoting, and for
     the library-LU types far faster (ROADMAP queue 3). The chain ends
     at the fori loop: a cold ``pallas`` that its gate rejects is not
-    retried."""
+    retried.
+
+    With obs on, the panel is one ``lu::panel`` layer span, whatever
+    its route."""
+    sp = _obs.on and _obs.span_begin("lu::panel", "layer", a.device)
     m, w = a.shape
     method = MethodLUPanel.resolve(m, w, a.dtype, a.device)
+    out = None
     if method is MethodLUPanel.PallasRec:
-        fused = pk.lu_panel_rec(a)
-        if fused is not None:
-            return fused
-        method = MethodLUPanel.cold_default(m, w, a.dtype, a.device)
-    if method is MethodLUPanel.Pallas:
-        fused = pk.lu_panel(a)
-        if fused is not None:
-            return fused
-        method = MethodLUPanel.cold_default(m, w, a.dtype, a.device)
-        if method is MethodLUPanel.Pallas:
-            method = MethodLUPanel.Fori
-    if method is MethodLUPanel.Native:
-        lu, piv = _native_lu(a)
-        return lu, piv
-    _surface_fori_fallback(m, w, a.dtype, a.device)
-    return lu_panel_fori(a)
+        out = pk.lu_panel_rec(a)
+        if out is None:
+            method = MethodLUPanel.cold_default(m, w, a.dtype, a.device)
+    if out is None and method is MethodLUPanel.Pallas:
+        out = pk.lu_panel(a)
+        if out is None:
+            method = MethodLUPanel.cold_default(m, w, a.dtype, a.device)
+            if method is MethodLUPanel.Pallas:
+                method = MethodLUPanel.Fori
+    if out is None and method is MethodLUPanel.Native:
+        out = _native_lu(a)
+    elif out is None:
+        _surface_fori_fallback(m, w, a.dtype, a.device)
+        out = lu_panel_fori(a)
+    if sp:
+        _obs.span_end(sp)
+    return out
 
 
 def _native_lu(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -260,7 +267,9 @@ def _getrf_carry(a: torch.Tensor, nb: int
     matrix instead of updating the full matrix in place. Each step's
     panel is emitted in that step's row order; the suffix permutations
     of later steps are composed into one final gather per panel (the
-    deferred laswp of the reference's getrf.cc)."""
+    deferred laswp of the reference's getrf.cc). With obs on, each
+    step's swaps and update and the final reorder are layer spans
+    (``lu::swaps``, ``lu::update``, ``lu::reorder``)."""
     M, N = a.shape
     kmax = min(M, N)
     nt = ceil_div(kmax, nb)
@@ -270,17 +279,26 @@ def _getrf_carry(a: torch.Tensor, nb: int
         k0, k1 = k * nb, min((k + 1) * nb, kmax)
         w = k1 - k0
         lu, piv = _lu_panel(trail[:, :w])
+        sp = _obs.on and _obs.span_begin("lu::swaps", "layer", a.device)
         perm = _compose_swaps(piv, trail.shape[0])
         pivs.append(k0 + piv)
         perms.append(perm)
         panels.append(lu)
         if k1 < N:
             rest = _permute_rows(trail[:, w:], perm)
+        if sp:
+            _obs.span_end(sp)
+        if k1 < N:
+            sp = _obs.on and _obs.span_begin("lu::update", "layer",
+                                             a.device)
             u12 = _lu_u12(lu[:w, :w], rest[:w])
             urows.append(u12)
             trail = rest[w:] - lu[w:, :w] @ u12 if k1 < M else rest[w:]
+            if sp:
+                _obs.span_end(sp)
     # final row order per panel: panel k's rows get permuted by the
     # suffix action of perms[k+1:]
+    sp = _obs.on and _obs.span_begin("lu::reorder", "layer", a.device)
     reordered = []
     for k in range(nt):
         q = torch.arange(panels[k].shape[0], device=a.device)
@@ -289,7 +307,10 @@ def _getrf_carry(a: torch.Tensor, nb: int
             q = torch.cat([q[:off], q[off:][perms[j]]])
         reordered.append(_permute_rows(panels[k], q))
     out = assemble_packed(reordered, urows, nb, kmax, M, N, a.dtype)
-    return out, torch.cat(pivs)
+    ipiv = torch.cat(pivs)
+    if sp:
+        _obs.span_end(sp)
+    return out, ipiv
 
 
 def _lu_u12(l11: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -309,7 +330,9 @@ def _getrf_pipelined(a: torch.Tensor, nb: int
     deferred to the next iteration's head, which is exactly when the
     plain loop would apply them, so the two orders compute identical
     results. Updates a copy of `a` in place (the reference's functional
-    slice updates, same values)."""
+    slice updates, same values). With obs on, step (1) is an
+    ``lu::swaps`` layer span and each of (2) and (4) an ``lu::update``
+    one."""
     M, N = a.shape
     kmax = min(M, N)
     nt = ceil_div(kmax, nb)
@@ -325,21 +348,28 @@ def _getrf_pipelined(a: torch.Tensor, nb: int
         k0, k1 = k * nb, min((k + 1) * nb, kmax)
         k2 = min(k1 + nb, kmax)
         # (1) apply the pending panel swaps to the non-panel columns
+        sp = _obs.on and _obs.span_begin("lu::swaps", "layer", a.device)
         perm = _compose_swaps(pend_piv, M - pend_k0)
         if pend_k0 > 0:
             a[pend_k0:, :pend_k0] = _permute_rows(a[pend_k0:, :pend_k0],
                                                   perm)
         if k1 < N:
             a[pend_k0:, k1:] = _permute_rows(a[pend_k0:, k1:], perm)
+        if sp:
+            _obs.span_end(sp)
         if k1 >= N:
             break
         lkk = a[k0:k1, k0:k1]
         lcol = a[k1:, k0:k1]
         # (2) narrow: update the next panel's column block only
         if k2 > k1:
+            sp = _obs.on and _obs.span_begin("lu::update", "layer",
+                                             a.device)
             u12n = _lu_u12(lkk, a[k0:k1, k1:k2])
             a[k0:k1, k1:k2] = u12n
             a[k1:, k1:k2] -= lcol @ u12n
+            if sp:
+                _obs.span_end(sp)
             # (3) factor panel k+1 from it (critical path)
             panel, piv = _lu_panel(a[k1:, k1:k2])
             a[k1:, k1:k2] = panel
@@ -347,9 +377,13 @@ def _getrf_pipelined(a: torch.Tensor, nb: int
             pend_piv, pend_k0 = piv, k1
         # (4) wide trailing update, independent of the panel above
         if k2 < N:
+            sp = _obs.on and _obs.span_begin("lu::update", "layer",
+                                             a.device)
             u12w = _lu_u12(lkk, a[k0:k1, k2:])
             a[k0:k1, k2:] = u12w
             a[k1:, k2:] -= lcol @ u12w
+            if sp:
+                _obs.span_end(sp)
     return a, ipiv
 
 
@@ -525,19 +559,27 @@ def _getrf_dense(a: torch.Tensor, nb: int, lookahead: int = 1,
         elif pivot:
             panel, piv = _lu_panel(a[k0:, k0:k1])
             a[k0:, k0:k1] = panel
+            sp = _obs.on and _obs.span_begin("lu::swaps", "layer",
+                                             a.device)
             perm = _compose_swaps(piv, M - k0)
             if k0 > 0:
                 a[k0:, :k0] = _permute_rows(a[k0:, :k0], perm)
             if k1 < N:
                 a[k0:, k1:] = _permute_rows(a[k0:, k1:], perm)
             ipiv[k0:k1] = k0 + piv
+            if sp:
+                _obs.span_end(sp)
         else:
             a[k0:, k0:k1] = _nopiv_panel(a[k0:, k0:k1])[0]
         if k1 < N:
+            sp = _obs.on and _obs.span_begin("lu::update", "layer",
+                                             a.device)
             u12 = _lu_u12(a[k0:k1, k0:k1], a[k0:k1, k1:])
             a[k0:k1, k1:] = u12
             if k1 < M:
                 a[k1:, k1:] -= a[k1:, k0:k1] @ u12
+            if sp:
+                _obs.span_end(sp)
     return a, ipiv
 
 
@@ -671,7 +713,8 @@ def getrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
           trans=Op.NoTrans) -> TiledMatrix:
     """Solve using getrf factors (reference src/getrs.cc:88-111:
     permuteRows, trsm(L), trsm(U)). trans accepts an Op or a bool
-    (True == ConjTrans)."""
+    (True == ConjTrans). With obs on, a ``getrs`` layer span (the band
+    factors' gbtrs aside)."""
     if not isinstance(trans, Op):
         slate_assert(trans in (True, False),
                      f"trans must be an Op or bool, got {trans!r}")
@@ -680,6 +723,7 @@ def getrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
         # band-convention factors (block-local swaps) need gbtrs's
         # interleaved sweeps
         return gbtrs(F, B, opts, trans=trans)
+    sp = _obs.on and _obs.span_begin("getrs", "layer", F.LU.device)
     LU = F.LU
     L = dataclasses.replace(LU, mtype=MatrixType.Triangular,
                             uplo=Uplo.Lower, diag=Diag.Unit)
@@ -695,6 +739,8 @@ def getrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
         X = trsm(Side.Left, 1.0, flip(U), B, opts)
         X = trsm(Side.Left, 1.0, flip(L), X, opts)
         X = apply_pivots(F.pivots, X, forward=False)
+    if sp:
+        _obs.span_end(sp)
     return X
 
 

@@ -14,7 +14,11 @@ convergence test is the only host read of a device value: one per
 sweep (IR) or per restart cycle (FGMRES). With obs on, each call counts
 ``refine.<kind>.calls``, observes ``refine.<kind>.iters`` and publishes
 one instant; a fallback also counts ``refine.<kind>.fallback`` and
-steps down the resil ladder's ``mixed_to_full`` rung.
+steps down the resil ladder's ``mixed_to_full`` rung. FGMRES also
+observes ``refine.fgmres.steps``, the inner steps the call needed (read
+with the cycle's one host read), and marks each preconditioner solve
+and restart cycle as a layer span (``refine::precond``,
+``refine::cycle``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from ..core.options import Option, OptionsLike, get_option
 from ..core.tiles import TiledMatrix
+from ..obs import events as _obs
 
 
 def lo_dtype(dtype):
@@ -122,13 +127,30 @@ def _lstsq_svd(H: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return Vh.mH @ (s_inv.to(H.dtype) * (U.mH @ rhs))
 
 
+def lsq_residuals(H: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """rho_k = min_y ||H[:k+1, :k] y - beta e1|| for k = 1 ... restart,
+    on H's device, from one complete QR of the (restart + 1, restart)
+    Hessenberg H: rho_k = beta ||Q[0, k:]||, the part of e1 outside
+    the span of H's first k columns."""
+    Q, _ = torch.linalg.qr(H, mode="complete")
+    tail = Q[0].square().flip(0).cumsum(0).flip(0)
+    return beta * tail[1:].sqrt()
+
+
 def fgmres_ir(A: TiledMatrix, B: TiledMatrix, solve_lo: Callable,
               full_solve: Callable, restart_cap: int,
               opts: OptionsLike = None):
     """Restarted FGMRES right-preconditioned by the lo-precision solve
     (reference gesv_mixed_gmres.cc: restart = min(30, itermax, mb-1)).
     One right-hand side. Returns (x_dense (n, 1), iters), iters < 0 on
-    fallback."""
+    fallback.
+
+    With obs on, each cycle's least-squares residuals (lsq_residuals)
+    give the inner steps it needed, the fewest k whose rho_k meets the
+    convergence test's bound tol ||x||, read together with the test;
+    the call observes restart (cycles - 1) + the last cycle's k
+    (restart where none met it; 0 without a cycle) as
+    ``refine.fgmres.steps``. x and iters do not depend on it."""
     itermax = get_option(opts, Option.MaxIterations, 30)
     use_fallback = get_option(opts, Option.UseFallbackSolver, True)
     a_hi = A.to_dense()
@@ -139,7 +161,12 @@ def fgmres_ir(A: TiledMatrix, B: TiledMatrix, solve_lo: Callable,
     restart = int(max(1, min(30, itermax, restart_cap)))
 
     def precond(v):
-        return solve_lo(v[:, None])[:, 0]
+        sp = _obs.on and _obs.span_begin("refine::precond", "layer",
+                                         v.device)
+        z = solve_lo(v[:, None])[:, 0]
+        if sp:
+            _obs.span_end(sp)
+        return z
 
     def matvec(v):
         return a_hi @ v
@@ -149,6 +176,9 @@ def fgmres_ir(A: TiledMatrix, B: TiledMatrix, solve_lo: Callable,
     tol = eps * math.sqrt(n) * anorm
 
     def cycle(x):
+        """One restart cycle: the new x, and with obs on its rho_k."""
+        sp = _obs.on and _obs.span_begin("refine::cycle", "layer",
+                                         b.device)
         r_ = b - matvec(x)
         beta = torch.linalg.vector_norm(r_)
         V = torch.zeros((restart + 1, n), dtype=hi, device=b.device)
@@ -169,25 +199,42 @@ def fgmres_ir(A: TiledMatrix, B: TiledMatrix, solve_lo: Callable,
             Z[j] = z
         e1 = torch.zeros(restart + 1, dtype=hi, device=b.device)
         e1[0] = beta
-        return x + Z.T @ _lstsq_svd(H, e1)
+        x = x + Z.T @ _lstsq_svd(H, e1)
+        rho = lsq_residuals(H, beta) if sp else None
+        if sp:
+            _obs.span_end(sp)
+        return x, rho
 
-    def converged(x):
-        # the one host read of a cycle
-        return bool(torch.linalg.vector_norm(b - matvec(x))
-                    <= tol * torch.linalg.vector_norm(x))
+    def converged(x, rho=None):
+        """The test, and with `rho` the steps it needed: the one host
+        read of a cycle."""
+        bound = tol * torch.linalg.vector_norm(x)
+        ok = torch.linalg.vector_norm(b - matvec(x)) <= bound
+        if rho is None:
+            return bool(ok), restart
+        met = rho <= bound
+        k = torch.where(met.any(), met.to(torch.int64).argmax() + 1,
+                        restart)
+        ok, k = torch.stack((ok.to(torch.int64), k)).tolist()
+        return bool(ok), k
 
     ncycles = max(1, -(-itermax // restart))
     x = precond(b)
     cycles = 0
-    done = converged(x)
+    done, _ = converged(x)
+    steps = 0
     while not done and cycles < ncycles:
-        x = cycle(x)
+        x, rho = cycle(x)
         cycles += 1
-        done = converged(x)
+        done, k = converged(x, rho)
+        steps = restart * (cycles - 1) + k
     iters = cycles * restart
     if use_fallback and not done:
         x = full_solve()[:, 0]
         iters = -iters - 1
+    if _obs.on:
+        from ..obs import metrics as obs_metrics
+        obs_metrics.observe("refine.fgmres.steps", steps)
     _record_refine("fgmres", iters)
     return x[:, None], iters
 

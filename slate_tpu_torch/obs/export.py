@@ -11,6 +11,10 @@ the thread / process name metadata carry the host label, so the
 per-host ``traceEvents`` arrays concatenate into one timeline. host=None
 keeps the single-host layout unless a ``torch.distributed`` process
 group of more than one rank is initialized, whose rank is then used.
+
+A device-timed span (obs/events.py) exports its identity (``span``,
+``parent``, ``call``) and, once read, its ``device_s`` in ``args``;
+every other event exports as the reference's does.
 """
 
 from __future__ import annotations
@@ -107,6 +111,13 @@ def chrome_trace(evs: Optional[List[Event]] = None,
             rec["s"] = "t"               # instant scope: thread
         if e.args:
             rec["args"] = {k: _jsonable(v) for k, v in e.args.items()}
+        if e.device is not None:
+            # a device-timed span: its identity, and its device seconds
+            # once its CUDA events were read (events.device_seconds())
+            a = rec.setdefault("args", {})
+            a.update(span=e.sid, parent=e.parent, call=e.call)
+            if e.device.seconds is not None:
+                a["device_s"] = e.device.seconds
         out.append(rec)
     # Perfetto flow events: each traced
     # request's serve::request span starts a flow (trace_id as the

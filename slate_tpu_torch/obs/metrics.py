@@ -2,10 +2,13 @@
 ``slate_tpu/obs/metrics.py``; obs/report.py renders it).
 
 Who publishes here: the driver-entry hook (``driver.<op>.calls`` and
-the ``<op>.wall_seconds`` histogram), the batch queue (``batch.*``),
-the refinement loops (``refine.<kind>.calls`` / ``.iters`` /
-``.fallback``), resil (``resil.*``), the watchdog (``health.*``) and
-``spectral_dc.check_polar`` (``polar.unconverged``).
+the ``<op>.wall_seconds`` histogram of host wall), the batch queue
+(``batch.*``), the refinement loops (``refine.<kind>.calls`` /
+``.iters`` / ``.fallback``, and FGMRES's ``refine.fgmres.steps``, the
+inner steps a call needed), resil (``resil.*``), the watchdog
+(``health.*``) and ``spectral_dc.check_polar`` (``polar.unconverged``).
+Device seconds of spans (the driver spans and the ``layer`` spans) are
+not here: the bus sums them per span name (``events.device_seconds()``).
 
 All mutation is gated on ``events.enabled()``, the same single flag as
 the bus, so the disabled path stays one boolean check. "Concrete" in

@@ -2,14 +2,18 @@
 (counterpart of ``slate_tpu/obs/report.py``).
 
 snapshot() is the machine surface: the metrics registries, the xprof
-analyses, per-driver span aggregates from the bus, the tuner's decision
-counters, and (when they hold anything) the flight recorder's
-critical-path attribution, the watchdog's stats and the serving
-series, as one JSON-serializable dict.
+analyses, span aggregates from the bus per driver and per other span
+(the layer spans and every device-timed one: host wall, and device
+seconds where the device timed them), the
+tuner's decision counters, and (when they hold anything) the flight
+recorder's critical-path attribution, the watchdog's stats and the
+serving series, as one JSON-serializable dict. It reads the bus's
+device-time store, which waits on spans the device has not finished:
+call it after synchronizing.
 
-report() is the human surface: per driver, invocation counts and host
-wall, and for each xprof analysis its counted FLOPs, peak memory and
-execute wall.
+report() is the human surface: per driver and per such span,
+invocation counts, host wall and device seconds, and for each xprof
+analysis its counted FLOPs, peak memory and execute wall.
 """
 
 from __future__ import annotations
@@ -20,18 +24,22 @@ from typing import Any, Dict, Optional
 from . import events, health, ledger, metrics, series, xprof
 
 
-def _driver_aggregate(evs) -> Dict[str, Dict[str, Any]]:
-    """Fold the bus's driver spans into per-op totals: `calls` and
-    host wall seconds."""
+def _span_aggregate(evs, keep, device) -> Dict[str, Dict[str, Any]]:
+    """Fold the bus's spans that `keep(event)` accepts into per-name
+    totals: `calls` and host wall seconds, and `device_seconds` where
+    the device-time store (`device`, events.device_seconds()) has the
+    name."""
     agg: Dict[str, Dict[str, Any]] = {}
     for e in evs:
-        if e.ph != events.PH_SPAN or e.cat != "driver":
+        if e.ph != events.PH_SPAN or not keep(e):
             continue
         d = agg.setdefault(e.name, {"calls": 0, "wall_seconds": 0.0})
         d["calls"] += 1
         d["wall_seconds"] += e.dur
-    for d in agg.values():
+    for name, d in agg.items():
         d["wall_seconds"] = round(d["wall_seconds"], 6)
+        if name in device:
+            d["device_seconds"] = round(device[name][1], 6)
     return dict(sorted(agg.items()))
 
 
@@ -43,15 +51,25 @@ def snapshot() -> Dict[str, Any]:
     except Exception:
         tune_snap = {}
     evs = events.events()          # ONE ring copy serves everything
+    device = events.device_seconds()
     snap = {
         "enabled": events.enabled(),
         "events": len(evs),
         "events_dropped": events.dropped(),
         "metrics": metrics.snapshot(),
-        "drivers": _driver_aggregate(evs),
+        "drivers": _span_aggregate(evs, lambda e: e.cat == "driver",
+                                   device),
         "analyses": xprof.analyses(),
         "tune": tune_snap,
     }
+    # the other spans: the layer spans, and any span the device timed
+    spans = _span_aggregate(
+        evs, lambda e: e.cat != "driver"
+        and (e.cat == "layer" or e.name in device), device)
+    if spans:
+        snap["spans"] = spans
+    if events.device_dropped():
+        snap["device_spans_dropped"] = events.device_dropped()
     # flight recorder + watchdog: the critical-path attribution of
     # every ledger step record, and the stall stats; both absent when
     # the FROZEN off-state kept them silent
@@ -116,13 +134,22 @@ def report(path: Optional[str] = None) -> str:
         for k, h in hists.items():
             w("  %-42s n=%-5d mean=%.4g  [%.4g .. %.4g]\n"
               % (k, h["count"], h["mean"], h["min"], h["max"]))
-    drv = snap["drivers"]
-    if drv:
-        w("\n-- drivers (bus spans, host wall) --\n")
-        w("  %-18s %6s %12s\n" % ("op", "calls", "wall(s)"))
-        for op, d in drv.items():
-            w("  %-18s %6d %12.4f\n"
-              % (op, d["calls"], d["wall_seconds"]))
+    if snap.get("device_spans_dropped"):
+        w("WARNING: %d device-timed spans were dropped unread "
+          "(events.PENDING_CAP) — device seconds undercount\n"
+          % snap["device_spans_dropped"])
+    for key, head in (("drivers", "op"), ("spans", "span")):
+        spans = snap.get(key)
+        if not spans:
+            continue
+        w("\n-- %s (bus spans: host wall, device) --\n" % key)
+        w("  %-18s %6s %12s %12s\n"
+          % (head, "calls", "wall(s)", "device(s)"))
+        for op, d in spans.items():
+            dev = d.get("device_seconds")
+            w("  %-18s %6d %12.4f %12s\n"
+              % (op, d["calls"], d["wall_seconds"],
+                 "-" if dev is None else "%.4f" % dev))
     ana = snap["analyses"]
     if ana:
         w("\n-- per-call attribution (xprof) --\n")

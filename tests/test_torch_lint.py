@@ -741,11 +741,15 @@ def test_obs_literals_catches_near_miss(tmp_path):
                 inc("batch.dispatchs", k)        # one-off typo
                 inc("ooc.cast_bytes")
                 inc("ooc.cast.bytes")            # separator drift
+                sp = span_begin("lu::swaps", "layer")
+                span("lu::swap")                 # a hot-path span's twin
         """,
     })
     near = [f for f in _only(repo, "obs-literals").findings
             if f.code == "SL401"]
-    assert len(near) == 2
+    assert len(near) == 3
+    assert any("lu::swap" in f.message and "lu::swaps" in f.message
+               for f in near)
     assert "batch.dispatchs" in near[0].message \
         or "batch.dispatchs" in near[1].message
 

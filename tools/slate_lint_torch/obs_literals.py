@@ -47,6 +47,7 @@ WRITERS = {
     "observe_concrete": "histogram",
     "set_gauge": "gauge",
     "span": "span",
+    "span_begin": "span",          # events.span_begin(): a hot-path span
     "instant": "instant",
     "sample": "series",            # obs/series.py time-series samples
 }
