@@ -1400,12 +1400,15 @@ def phase_mixed_cold(seed, results, system):
         c_ok, launches, rep = mixed_check(name, A, rhs,
                                           lambda: fn(A, rhs), Xf.data)
         c_ok &= launches["lu_panel"] == steps
+        if name == "gesv_mixed_gmres":
+            # one packed solve a preconditioner solve: the first x and
+            # 30 a restart cycle
+            c_ok &= launches["lu_solve_packed"] == 1 + rep["iters"]
         rep["ok"] = bool(c_ok)
         rep["gesv_f32_wall_s"] = wall_f32
         out[name] = rep
         ok &= c_ok
-        if name == "gesv_mixed":
-            set_launches(results, "gesv_mixed.cold", launches)
+        set_launches(results, name + ".cold", launches)
     out["ok"] = bool(ok)
     return out
 
@@ -5571,8 +5574,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: first), the LU panels' base case over the grid (either panel kernel),
 #: the rank-1 panel's one-block base case and its trailing-column
 #: updates (the three together: lu_panel's device time), the
-#: Householder panel, the ragged solve, the swap composition, and the
-#: QR iterations' sweeps and Givens chain
+#: Householder panel, the ragged solve, the swap composition, the
+#: QR iterations' sweeps and Givens chain, and the packed bf16 LU solve
 WATCH = {"rank_update": ("rank_update_", "transpose_bf16"),
          "lu_base": ("lu_base_",), "lu_block": ("lu_block_kernel",),
          "lu_trail": ("lu_trail_kernel",),
@@ -5581,7 +5584,8 @@ WATCH = {"rank_update": ("rank_update_", "transpose_bf16"),
          "compose_swaps": ("compose_swaps_kernel",),
          "steqr_sweep": ("steqr_sweep",),
          "bdsqr_sweep": ("bdsqr_sweeps_kernel",),
-         "givens_chain_apply": ("givens_chain_tma",)}
+         "givens_chain_apply": ("givens_chain_tma",),
+         "lu_solve_packed": ("lu_solve_kernel",)}
 
 
 def profile_call(fn, top=8):
@@ -5692,6 +5696,148 @@ def phase_profile(system):
     return out
 
 
+#: the packed bf16 solve: the mixed cell's preconditioner solve (order
+#: N, one right-hand side), and its adversarial shapes (orders not a
+#: multiple of its 128-row blocks, up to 4 right-hand sides)
+LS_SHAPES = ((1, 1), (33, 3), (200, 1), (529, 3), (1000, 4), (4100, 2))
+#: the cycles of one U quotient (Markstein: a product and four
+#: dependent fmas), for the kernel's latency floor
+LS_DIV_CYCLES = 5 * DEP_OP_CYCLES
+
+
+def ls_system(n, seed, zero_pivot=None):
+    """A packed bf16 LU factor of a permuted boosted system, stored as
+    getrf stores it (leading dimension a multiple of 8), its composed
+    permutation, and a 512-column bf16 right-hand side (B as users
+    wrap it)."""
+    a, _ = permuted_boosted_system(torch.Generator(device="cuda")
+                                   .manual_seed(seed), n, 1)
+    lu, piv = torch.linalg.lu_factor(a)
+    del a
+    store = torch.zeros((n, -(-n // 8) * 8), dtype=torch.bfloat16,
+                        device="cuda")
+    store[:, :n] = lu
+    if zero_pivot is not None:
+        store[zero_pivot, zero_pivot] = 0
+    perm = pk.lu_pivots_to_permutation((piv - 1).to(torch.int32), n)
+    b = torch.randn((n, 512), generator=torch.Generator(device="cuda")
+                    .manual_seed(seed + 1), device="cuda").to(torch.bfloat16)
+    return store[:, :n], perm, b
+
+
+def ls_library(lu, perm, b, k):
+    """The route the kernel replaced in getrs, on the same operands:
+    B permuted, each half of the factor masked (tril / triu, L's
+    diagonal set to 1) and upcast, two library triangular solves, y and
+    x rounded to bf16."""
+    n = lu.shape[0]
+    L = lu.tril()
+    L.diagonal().fill_(1)
+    y = torch.linalg.solve_triangular(
+        L.float(), b[perm[:n], :k].float(), upper=False,
+        unitriangular=True).to(torch.bfloat16)
+    del L
+    return torch.linalg.solve_triangular(
+        lu.triu().float(), y.float(), upper=True).to(torch.bfloat16)
+
+
+def ls_agree(x, ref):
+    """The kernel's agreement rule: ||x - ref|| <= 2^-7 ||ref|| and at
+    least 99% of the entries within one bf16 ulp of ref (not bitwise:
+    a 1-ulp flip in the bf16 y carries into x through U)."""
+    x, ref = x.double(), ref.double()
+    norm = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+    _, e = torch.frexp(ref)
+    within = float((torch.abs(x - ref)
+                    <= torch.ldexp(torch.ones_like(ref), e - 8))
+                   .double().mean())
+    return {"normwise": norm, "within_ulp": within,
+            "ok": norm <= 2.0 ** -7 and within >= 0.99}
+
+
+def ls_latency_ms(n):
+    """The kernel's latency floor: per row of each sweep one dependent
+    fma (U's also its quotient), and one exchange through L2 a block
+    boundary."""
+    return latency_ms(n, 2 * DEP_OP_CYCLES + LS_DIV_CYCLES) \
+        + latency_ms(2 * (-(-n // pk.LU_SOLVE_PACKED_ROWS)), EXCHANGE_CYCLES)
+
+
+def phase_lu_solve_packed(seed, results):
+    """The packed bf16 LU solve: held against its plain version and
+    against the library route it replaced (the same agreement rule
+    for both) on the adversarial shapes, at order N with one
+    right-hand side (the mixed cell's preconditioner solve), and through
+    getrs; a zero pivot gives the library's inf / nan pattern and
+    returns. Times at N: back to back and replayed from a CUDA graph,
+    the plain version's, the library route's, the byte bound (the
+    factor read once as bf16) and the latency floor; 2 and 4
+    right-hand sides timed too."""
+    out = {"phase": "kernel.lu_solve_packed", "ok": True}
+    for n, k in LS_SHAPES:
+        lu, perm, b = ls_system(n, seed + n)
+        x = pk.lu_solve_packed(lu, perm, b, k)
+        torch.cuda.synchronize()
+        r = {"plain": ls_agree(x, pk.lu_solve_packed_plain(lu, perm, b, k)),
+             "library": ls_agree(x, ls_library(lu, perm, b, k))}
+        out["n%d.k%d" % (n, k)] = r
+        out["ok"] &= r["plain"]["ok"] and r["library"]["ok"]
+    lu, perm, b = ls_system(1000, seed, zero_pivot=700)
+    x = pk.lu_solve_packed(lu, perm, b, 1).float()
+    torch.cuda.synchronize()
+    ref = ls_library(lu, perm, b, 1).float()
+    fin = torch.isfinite(ref)
+    zp = {"same_nan": bool(torch.equal(torch.isnan(x), torch.isnan(ref))),
+          "same_inf": bool(torch.equal(torch.isinf(x), torch.isinf(ref))),
+          "nan": int(torch.isnan(x).sum()), "inf": int(torch.isinf(x).sum()),
+          "finite_equal": bool(torch.equal(x[fin], ref[fin]))}
+    out["zero_pivot.n1000"] = zp
+    out["ok"] &= zp["same_nan"] and zp["same_inf"] and zp["nan"] > 0
+    n = N
+    lu, perm, b = ls_system(n, seed)
+    pk.reset_launch_counts()
+    x = pk.lu_solve_packed(lu, perm, b, 1)
+    launches = pk.launch_counts()["lu_solve_packed"]
+    xp = pk.lu_solve_packed_plain(lu, perm, b, 1)
+    xl = ls_library(lu, perm, b, 1)
+    s = {"shape": "%d x %d bf16, 1 rhs" % (n, n),
+         "max_abs_err": float((x.float() - xl.float()).abs().max()),
+         "plain": ls_agree(x, xp), "library": ls_agree(x, xl),
+         "plain_vs_library": ls_agree(xp, xl), "launches_a_call": launches}
+    del xp, xl
+    buf = torch.empty((n, 1), dtype=torch.bfloat16, device="cuda")
+    run = functools.partial(pk.lu_solve_packed, lu, perm, b, 1, out=buf)
+    s["ms"] = cuda_ms(run, 20)
+    s["graph_ms"] = graph_ms(run, 20)
+    s["plain_ms"] = cuda_ms(lambda: pk.lu_solve_packed_plain(lu, perm, b, 1),
+                            3)
+    s["library_ms"] = cuda_ms(lambda: ls_library(lu, perm, b, 1), 5)
+    s["bound_ms"], s["bound_by"] = bound_ms(0.0, 2.0 * n * n + 8.0 * n
+                                            + 2.0 * 2 * n)
+    s["latency_bound_ms"] = ls_latency_ms(n)
+    for k in (2, 4):
+        s["ms.k%d" % k] = cuda_ms(
+            functools.partial(pk.lu_solve_packed, lu, perm, b, k), 10)
+    # through getrs: the bf16 factor and B as the mixed cell holds them
+    F = st.LUFactors(st.Matrix(lu, mb=NB, device=lu.device), torch.arange(
+        n, dtype=torch.int32, device=lu.device))
+    B1 = st.Matrix(b[:, :1].contiguous(), mb=NB, device=lu.device)
+    pk.reset_launch_counts()
+    xg = st.getrs(F, B1).to_dense()
+    s["getrs_launches"] = pk.launch_counts()["lu_solve_packed"]
+    s["getrs"] = ls_agree(xg, ls_library(lu, torch.arange(
+        n, device="cuda"), b, 1))
+    out["n%d.k1" % n] = s
+    out["ok"] &= (s["plain"]["ok"] and s["library"]["ok"]
+                  and s["getrs"]["ok"] and launches == 1
+                  and s["getrs_launches"] == 1)
+    results["lu_solve_packed"] = entry(
+        "lu_solve_packed", "bfloat16", "lu_solve_packed.cu",
+        "slate_tpu/linalg/lu.py getrs (XLA triangular_solve, twice)",
+        "gesv_mixed_gmres.cold", s, s["max_abs_err"])
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5723,6 +5869,8 @@ def main():
          lambda: phase_ragged_trsm(args.seed, results)),
         ("kernel.givens_chain", lambda: phase_givens_chain(rng, results)),
         ("kernel.qr_sweep", lambda: phase_qr_sweep(rng, results)),
+        ("kernel.lu_solve_packed",
+         lambda: phase_lu_solve_packed(args.seed, results)),
         ("gesv", lambda: phase_gesv(args.seed, results, system)),
         ("gesv_mixed.cold",
          lambda: phase_mixed_cold(args.seed, results, system)),

@@ -709,11 +709,40 @@ def getrf_tntpiv(A: TiledMatrix, opts: OptionsLike = None) -> LUFactors:
 
 # -- solves ---------------------------------------------------------------
 
+def _getrs_packed(F: LUFactors, B: TiledMatrix, opts: OptionsLike,
+                  trans: Op) -> Optional[TiledMatrix]:
+    """getrs as one packed solve on the factor
+    (``ops.kernels.lu_solve_packed``: B read through the composed
+    permutation, L's sweep, then U's, with the library route's rounding
+    points) when its gate takes the solve: NoTrans, a bf16 square
+    factor, a few right-hand sides, no grid and no transposed view.
+    None otherwise: the caller keeps the library route. The bf16 factor
+    is the one with no library solve, whose route masks and upcasts the
+    whole factor each call."""
+    rl, rb = F.LU, B
+    if option_grid(opts, "trsm") is not None or rl.op is not Op.NoTrans \
+            or rb.op is not Op.NoTrans:
+        return None
+    lu = rl.data[:rl.m, :rl.n]
+    k = rb.shape[1]
+    if rb.m != rl.m or pk.lu_solve_packed_reject_reason(
+            lu, rb.data, k, transposed=trans is not Op.NoTrans) is not None:
+        return None
+    mp = rb.data.shape[0]
+    perm = _compose_swaps(F.pivots[:mp], mp)
+    out = torch.zeros(rb.data.shape, dtype=rb.dtype, device=rb.device)
+    return dataclasses.replace(
+        rb, data=pk.lu_solve_packed(lu, perm, rb.data, k, out=out))
+
+
 def getrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
           trans=Op.NoTrans) -> TiledMatrix:
     """Solve using getrf factors (reference src/getrs.cc:88-111:
     permuteRows, trsm(L), trsm(U)). trans accepts an Op or a bool
-    (True == ConjTrans). With obs on, a ``getrs`` layer span (the band
+    (True == ConjTrans). A NoTrans solve that the packed solve's gate
+    takes (:func:`_getrs_packed`: bf16 factors, a few right-hand sides)
+    is that one solve; every other goes through the library's
+    triangular solves. With obs on, a ``getrs`` layer span (the band
     factors' gbtrs aside)."""
     if not isinstance(trans, Op):
         slate_assert(trans in (True, False),
@@ -724,21 +753,23 @@ def getrs(F: LUFactors, B: TiledMatrix, opts: OptionsLike = None,
         # interleaved sweeps
         return gbtrs(F, B, opts, trans=trans)
     sp = _obs.on and _obs.span_begin("getrs", "layer", F.LU.device)
-    LU = F.LU
-    L = dataclasses.replace(LU, mtype=MatrixType.Triangular,
-                            uplo=Uplo.Lower, diag=Diag.Unit)
-    U = dataclasses.replace(LU, mtype=MatrixType.Triangular,
-                            uplo=Uplo.Upper, diag=Diag.NonUnit)
-    if trans is Op.NoTrans:
-        X = apply_pivots(F.pivots, B)
-        X = trsm(Side.Left, 1.0, L, X, opts)
-        X = trsm(Side.Left, 1.0, U, X, opts)
-    else:
-        flip = (lambda M: M.conj_transpose()) if trans is Op.ConjTrans \
-            else (lambda M: M.transpose())
-        X = trsm(Side.Left, 1.0, flip(U), B, opts)
-        X = trsm(Side.Left, 1.0, flip(L), X, opts)
-        X = apply_pivots(F.pivots, X, forward=False)
+    X = _getrs_packed(F, B, opts, trans)
+    if X is None:
+        LU = F.LU
+        L = dataclasses.replace(LU, mtype=MatrixType.Triangular,
+                                uplo=Uplo.Lower, diag=Diag.Unit)
+        U = dataclasses.replace(LU, mtype=MatrixType.Triangular,
+                                uplo=Uplo.Upper, diag=Diag.NonUnit)
+        if trans is Op.NoTrans:
+            X = apply_pivots(F.pivots, B)
+            X = trsm(Side.Left, 1.0, L, X, opts)
+            X = trsm(Side.Left, 1.0, U, X, opts)
+        else:
+            flip = (lambda M: M.conj_transpose()) \
+                if trans is Op.ConjTrans else (lambda M: M.transpose())
+            X = trsm(Side.Left, 1.0, flip(U), B, opts)
+            X = trsm(Side.Left, 1.0, flip(L), X, opts)
+            X = apply_pivots(F.pivots, X, forward=False)
     if sp:
         _obs.span_end(sp)
     return X

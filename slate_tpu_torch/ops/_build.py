@@ -95,6 +95,11 @@ LIBS = {
                          _P],
         "bdsqr_chain_cycles": [_P, _P, _I, _P, _P],
     }),
+    "lu_solve_packed": ("lu_solve_packed.cu", {
+        "slate_set_device": [_I],
+        "lu_solve_packed": [_P, _L, _I, _P, _P, _L, _I, _P, _L, _P, _P],
+        "lu_solve_packed_scratch": [_I, _I],
+    }),
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,10 @@ Z @ G streamed along each row), and the QR passes ``steqr_sweep`` /
 pass in eig.steqr2_qr and svd.bdsqr_qr), with ``steqr_sweeps`` /
 ``bdsqr_sweeps``, up to a given number of passes in one launch of the
 same kernel (the reference runs its passes in a while_loop on the
-device).
+device), and the packed LU solve ``lu_solve_packed`` (getrs on a bf16
+factor with a few right-hand sides, where the reference calls XLA's
+triangular_solve twice: one launch reads B through the permutation
+and the packed factor once).
 
 Every kernel here has three parts side by side:
 
@@ -27,7 +30,8 @@ Every kernel here has three parts side by side:
     ``_trtri_lower_launch``, ``_ragged_potrf_launch``,
     ``_ragged_getrf_launch``, ``_ragged_trsm_launch``,
     ``_givens_chain_launch``, ``steqr_sweep`` / ``steqr_sweeps``,
-    ``bdsqr_sweep`` / ``bdsqr_sweeps``) that launches the kernel for a
+    ``bdsqr_sweep`` / ``bdsqr_sweeps``, ``lu_solve_packed``) that
+    launches the kernel for a
     CUDA tensor and adds one to its ``launches`` count there, and
     nowhere else (both entries of a sweep count on the one-pass
     entry's, their kernel); it raises
@@ -40,7 +44,8 @@ Every kernel here has three parts side by side:
     ``ragged_potrf_plain``, ``ragged_getrf_plain``,
     ``ragged_trsm_plain``, ``givens_chain_apply_plain``,
     ``steqr_sweep_plain`` / ``steqr_sweeps_plain``,
-    ``bdsqr_sweep_plain`` / ``bdsqr_sweeps_plain``; the sweeps' plain
+    ``bdsqr_sweep_plain`` / ``bdsqr_sweeps_plain``,
+    ``lu_solve_packed_plain``; the sweeps' plain
     versions walk the recurrence on the host in numpy scalars of the
     tensor's type, as ``compose_swaps_plain`` walks its swaps;
     ``compose_swaps_sorted_plain`` is the kernel's own composition on
@@ -63,6 +68,14 @@ their entries run the plain versions for any real float type, as the
 reference's interpreter does (f64 computes in f64). The chain apply
 and the sweeps take f32 on the card; their plain versions any real
 float type (the sweeps f32 and f64).
+
+``lu_solve_packed`` keeps the rounding points of the library route it
+replaces (bf16 inputs, f32 sweeps, y and x rounded to bf16); only the
+order of its f32 sums differs, so it agrees with that route to a bf16
+ulp, not bitwise. Like ``compose_swaps`` it stands for an XLA builtin:
+a gate with reject reasons (``lu_solve_packed_reject_reason``), no tune
+op. getrs takes it for a CPU tensor too (its plain version), so the
+CPU tests run the route's arithmetic.
 
 ARBITRATION CONTRACT, as in the reference: each public panel entry has
 an eligibility gate (``*_reject_reason`` / ``*_eligible``) and returns
@@ -2005,6 +2018,119 @@ def bdsqr_sweeps(d: torch.Tensor, e: torch.Tensor, max_passes: int):
     return (dout, eout, *rots, ran)
 
 
+# -- packed LU solve ---------------------------------------------------------
+
+#: widest right-hand side the packed solve takes: its diagonal warp's
+#: work grows with k (on an H100 at n = 16384: 0.89 ms at k = 1, 1.37
+#: at 2, 2.85 at 4, 5.6 at 8, where the library route takes ~5.1 ms
+#: at k = 1)
+LU_SOLVE_PACKED_MAX_K = 4
+#: rows of the packed solve's blocks (the kernel's LS_R)
+LU_SOLVE_PACKED_ROWS = 128
+
+
+def lu_solve_packed_reject_reason(lu: torch.Tensor, b: torch.Tensor,
+                                  k: int, transposed: bool = False
+                                  ) -> Optional[str]:
+    """Why the packed solve will not take the (n, n) factor `lu` and
+    the first k columns of `b` (None == it takes them): 'trans' (a
+    transposed solve), 'dtype' (factor or right-hand side not bf16, the
+    one type with no library solve), 'shape' (the factor not square, or
+    b shorter than it), 'rhs' (k outside 1 ..
+    LU_SOLVE_PACKED_MAX_K), and on the card 'layout' (a factor row not
+    16-byte aligned, or a column stride other than 1)."""
+    if transposed:
+        return "trans"
+    if lu.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        return "dtype"
+    n = lu.shape[0]
+    if lu.dim() != 2 or lu.shape[1] != n or n == 0 or b.shape[0] < n:
+        return "shape"
+    if not 1 <= k <= min(LU_SOLVE_PACKED_MAX_K, b.shape[1]):
+        return "rhs"
+    if lu.device.type == "cuda" and (
+            lu.stride(1) != 1 or lu.stride(0) % 8 != 0
+            or lu.data_ptr() % 16 != 0 or b.stride(1) != 1):
+        return "layout"
+    return None
+
+
+def lu_solve_packed_plain(lu: torch.Tensor, perm: torch.Tensor,
+                          b: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version: X (n, k) bf16 with P A X = B, A = L U packed in
+    the bf16 `lu`, row i of P B row perm[i] of b. Blocked substitution
+    over the kernel's row blocks with its rounding points: B upcast
+    exactly, each sweep in f32 (a block's rows less the product of the
+    solved rows, then the block's triangle), y rounded to bf16 between
+    the sweeps and x at the end."""
+    n = lu.shape[0]
+    R = LU_SOLVE_PACKED_ROWS
+    rhs = b[perm[:n], :k].float()
+    y = torch.empty_like(rhs)
+    for r0 in range(0, n, R):
+        r1 = min(r0 + R, n)
+        s = rhs[r0:r1] - lu[r0:r1, :r0].float() @ y[:r0]
+        y[r0:r1] = torch.linalg.solve_triangular(
+            lu[r0:r1, r0:r1].float(), s, upper=False, unitriangular=True)
+    y = y.to(torch.bfloat16).float()
+    x = torch.empty_like(y)
+    for r0 in reversed(range(0, n, R)):
+        r1 = min(r0 + R, n)
+        s = y[r0:r1] - lu[r0:r1, r1:].float() @ x[r1:]
+        x[r0:r1] = torch.linalg.solve_triangular(
+            lu[r0:r1, r0:r1].float(), s, upper=True)
+    return x.to(torch.bfloat16)
+
+
+def lu_solve_packed(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor,
+                    k: int, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """X (n, k) bf16 with P A X = B[:, :k] for the packed bf16 factor
+    `lu` (n, n; unit-lower L below the diagonal, U on and above it),
+    `perm` the composed row permutation (int64, at least n entries; row
+    i of P B is row perm[i] of b) and `b` bf16 (at least n rows). With
+    `out` (at least (n, k), bf16, unit column stride) X goes into
+    out[:n, :k] and out is returned. A CUDA tensor goes through the
+    ``lu_solve_packed`` kernel (one launch, counted; the gate's
+    'layout' is the kernel's), a CPU tensor through the plain
+    version."""
+    reason = lu_solve_packed_reject_reason(lu, b, k)
+    if reason is not None:
+        raise ValueError("lu_solve_packed takes an (n, n) bf16 factor and "
+                         "1..%d bf16 columns, got %s %s and %d of %s %s (%s)"
+                         % (LU_SOLVE_PACKED_MAX_K, tuple(lu.shape), lu.dtype,
+                            k, tuple(b.shape), b.dtype, reason))
+    n = lu.shape[0]
+    if lu.device.type != "cuda":
+        x = lu_solve_packed_plain(lu, perm, b, k)
+        if out is None:
+            return x
+        out[:n, :k] = x
+        return out
+    if out is None:
+        out = torch.empty((n, k), dtype=torch.bfloat16, device=lu.device)
+    if out.dtype != torch.bfloat16 or out.stride(1) != 1 \
+            or out.shape[0] < n or out.shape[1] < k:
+        raise ValueError("lu_solve_packed writes a bf16 output of at least "
+                         "(%d, %d) with unit column stride, got %s %s"
+                         % (n, k, tuple(out.shape), out.dtype))
+    perm = perm.to(torch.int64).contiguous()
+    lib = _build.load("lu_solve_packed")
+    dev = lu.get_device()
+    _build.set_device(lib, "lu_solve_packed", dev)
+    scratch = torch.empty(lib.lu_solve_packed_scratch(n, k),
+                          dtype=torch.float32, device=lu.device)
+    _build.check(lib.lu_solve_packed(
+        lu.data_ptr(), lu.stride(0), n, perm.data_ptr(), b.data_ptr(),
+        b.stride(0), k, out.data_ptr(), out.stride(0), scratch.data_ptr(),
+        _stream(lu)), "lu_solve_packed")
+    lu_solve_packed.launches += 1
+    return out
+
+
+lu_solve_packed.launches = 0
+
+
 # -- counters ----------------------------------------------------------------
 
 _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
@@ -2019,7 +2145,8 @@ _COUNTED = {"lu_panel_rec": _lu_panel_rec_launch,
             "ragged_trsm": _ragged_trsm_launch,
             "givens_chain_apply": _givens_chain_launch,
             "steqr_sweep": steqr_sweep,
-            "bdsqr_sweep": bdsqr_sweep}
+            "bdsqr_sweep": bdsqr_sweep,
+            "lu_solve_packed": lu_solve_packed}
 
 
 def launch_counts() -> dict:

@@ -393,13 +393,16 @@ def test_cpu_calls_count_no_launch():
                                  torch.zeros(255)) is not None
     pk.steqr_sweep(s[0, :16], s[1, :15])
     pk.bdsqr_sweep(s[0, :16], s[1, :15])
+    pk.lu_solve_packed(s[:64, :64].bfloat16(), torch.arange(64),
+                       s[:64, :2].bfloat16(), 2)
     assert pk.launch_counts() == {"lu_panel_rec": 0, "rank_update": 0,
                                   "lu_panel": 0, "compose_swaps": 0,
                                   "qr_panel": 0, "chol_panel": 0,
                                   "trtri_lower": 0, "ragged_potrf": 0,
                                   "ragged_getrf": 0, "ragged_trsm": 0,
                                   "givens_chain_apply": 0,
-                                  "steqr_sweep": 0, "bdsqr_sweep": 0}
+                                  "steqr_sweep": 0, "bdsqr_sweep": 0,
+                                  "lu_solve_packed": 0}
 
 
 # -- bf16 panels, the rank-1 panel, the swap composition ---------------------
